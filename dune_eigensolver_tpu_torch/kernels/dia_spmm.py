@@ -1,0 +1,92 @@
+"""Tall-skinny DIA SpMM in the transposed (m, n) layout.
+
+Counterpart of ``dune_eigensolver_tpu/kernels/dia_spmm.py``:
+
+* ``dia_spmm_t_reference`` — plain PyTorch, the semantics: the JAX
+  package's ``dia_spmm_t_xla`` with the Pallas kernel's accumulation rule
+  (f32 accumulation for bf16/f16 storage, output in the input's dtype).
+* ``dia_spmm_t_cuda`` — wrapper of the hand-written CUDA kernel
+  ``csrc/dia_spmm.cu`` (replaces the Pallas ``_kernel``/``padded_spmm``).
+  It counts its launches in ``dia_spmm_t_cuda.launches``.
+
+``sparse/spmm.py::spmm_t`` dispatches between the two by device.
+
+The TPU kernel's guarded layout (``PaddedLayout``/``PaddedDIA``) is not
+ported: the CUDA kernel masks its own bounds, so X stays a plain
+contiguous (m, n) tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dune_eigensolver_tpu_torch.sparse.formats import DIAMatrix
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_DIAG = 16  # DIA_MAX_DIAG in csrc/dia_spmm.cu
+
+
+def dia_spmm_t_reference(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
+    """Yt = (A @ Xt.T).T with Xt (m, n), in plain PyTorch: a sum of
+    shifted slices of the zero-padded X in offset order. Accumulates in f32
+    for bf16/f16 storage (as the Pallas kernel does) and returns Xt's
+    dtype."""
+    m, n = Xt.shape
+    if A.shape[1] != n:
+        raise ValueError(f"dia_spmm_t_reference: {A.shape} @ X^T with Xt {Xt.shape}")
+    low = Xt.dtype in (torch.bfloat16, torch.float16)
+    acc_dt = torch.float32 if low else Xt.dtype
+    halo = max((abs(o) for o in A.offsets), default=0)
+    Xp = torch.nn.functional.pad(Xt, (halo, halo))
+    acc = torch.zeros((m, n), dtype=acc_dt, device=Xt.device)
+    for d, off in enumerate(A.offsets):
+        win = Xp[:, halo + off : halo + off + n]
+        acc = acc + A.data[d].to(acc_dt)[None, :] * win.to(acc_dt)
+    return acc.to(Xt.dtype)
+
+
+def dia_spmm_t_cuda(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
+    """Yt = (A @ Xt.T).T by the CUDA kernel, on the current stream.
+
+    Takes f32 or bf16, with ``A.data`` and ``Xt`` of one dtype, on one CUDA
+    device, both contiguous; raises on anything else and on a launch the
+    driver refuses."""
+    from dune_eigensolver_tpu_torch.utils import native
+
+    data = A.data
+    m, n = Xt.shape
+    if A.shape != (n, n) or data.shape != (len(A.offsets), n):
+        raise ValueError(f"dia_spmm_t_cuda: {A.shape} @ X^T with Xt {Xt.shape}")
+    if not (Xt.is_cuda and data.is_cuda) or Xt.device != data.device:
+        raise ValueError(
+            f"dia_spmm_t_cuda: operands on {data.device} and {Xt.device}; "
+            "both must be on one CUDA device"
+        )
+    if Xt.dtype not in _KERNEL_DTYPES or data.dtype != Xt.dtype:
+        raise TypeError(
+            f"dia_spmm_t_cuda: dtypes {data.dtype}/{Xt.dtype}; the kernel "
+            "takes float32 or bfloat16, the same for both operands"
+        )
+    if not (Xt.is_contiguous() and data.is_contiguous()):
+        raise ValueError("dia_spmm_t_cuda: operands must be contiguous")
+    ndiag = len(A.offsets)
+    if not 1 <= ndiag <= _MAX_DIAG:
+        raise ValueError(f"dia_spmm_t_cuda: {ndiag} diagonals, at most {_MAX_DIAG}")
+    lib = native.load()
+    Y = torch.empty_like(Xt)
+    offs = (ctypes.c_int * ndiag)(*A.offsets)
+    with torch.cuda.device(Xt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dia_spmm_t_launch(
+            _KERNEL_DTYPES[Xt.dtype], data.data_ptr(), Xt.data_ptr(),
+            Y.data_ptr(), n, m, ndiag, offs, stream,
+        )
+    native.check(err, "dia_spmm_t_launch")
+    dia_spmm_t_cuda.launches += 1
+    return Y
+
+
+dia_spmm_t_cuda.launches = 0
+
