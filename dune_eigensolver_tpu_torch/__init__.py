@@ -6,16 +6,22 @@ counterpart of the same path and function names there, and the tests in
 inputs. This package imports ``torch``, ``numpy`` and ``scipy`` and never
 ``jax`` (nor the JAX package, whose ``__init__`` imports jax).
 
-Layout (the ported slice: the nested-LOBPCG north-star solve):
+Layout (the ported slices: the nested-LOBPCG north-star solve, and the
+general-sparsity ELL/BSR path with the CG inverse and
+``generalized_inverse``):
 
-* ``sparse``     — ``DIAMatrix`` container, problem builders, ``spmm_t``
-* ``kernels``    — the DIA SpMM: plain PyTorch version + CUDA kernel wrapper
+* ``sparse``     — ``DIAMatrix``/``ELLMatrix``/``BSRMatrix`` containers,
+  problem builders, RCM reordering, ``spmm_t``
+* ``kernels``    — the DIA, ELL and BSR SpMMs: plain PyTorch versions +
+  CUDA kernel wrappers
 * ``csrc``       — hand-written CUDA C++ for sm_90a (built at first use by
   ``utils.native`` into ``_build/``)
 * ``ops``        — blocked (B-)orthonormalization with spectral whitening
-* ``factorize``  — geometric-multigrid V-cycle preconditioner
-* ``solvers``    — LOBPCG on the reciprocal pencil, nested iteration
-* ``oracle``     — closed-form Dirichlet Laplacian spectra
+* ``factorize``  — geometric-multigrid V-cycle and Jacobi-CG inverses
+* ``solvers``    — LOBPCG on the reciprocal pencil, nested iteration,
+  shift-invert ``generalized_inverse``
+* ``oracle``     — closed-form Dirichlet Laplacian spectra, scipy/ARPACK
+  oracles
 
 Conventions: containers are frozen dataclasses over tensors, functions are
 plain functions on tensors, devices are explicit, and nothing records
@@ -31,27 +37,45 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from dune_eigensolver_tpu_torch.sparse.formats import (  # noqa: E402
+    BSRMatrix,
     DIAMatrix,
+    ELLMatrix,
+    bsr_from_numpy,
+    bsr_from_scipy,
     dia_from_numpy,
     dia_from_scipy,
+    ell_from_numpy,
+    ell_from_scipy,
 )
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t  # noqa: E402
 from dune_eigensolver_tpu_torch.sparse import problems  # noqa: E402
 from dune_eigensolver_tpu_torch.solvers import (  # noqa: E402
     EigenResult,
+    generalized_inverse,
     lobpcg_generalized,
     lobpcg_nested,
 )
-from dune_eigensolver_tpu_torch.factorize import mg_inverse_factory  # noqa: E402
+from dune_eigensolver_tpu_torch.factorize import (  # noqa: E402
+    cg_inverse_factory,
+    mg_inverse_factory,
+)
 
 __all__ = [
+    "BSRMatrix",
     "DIAMatrix",
+    "ELLMatrix",
+    "bsr_from_numpy",
+    "bsr_from_scipy",
     "dia_from_numpy",
     "dia_from_scipy",
+    "ell_from_numpy",
+    "ell_from_scipy",
     "spmm_t",
     "problems",
     "EigenResult",
+    "generalized_inverse",
     "lobpcg_generalized",
     "lobpcg_nested",
+    "cg_inverse_factory",
     "mg_inverse_factory",
 ]

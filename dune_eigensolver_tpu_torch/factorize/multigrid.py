@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from dune_eigensolver_tpu_torch.factorize.cg import _cast_floating
+from dune_eigensolver_tpu_torch.factorize.cg import _cast_floating, _inv_diag_of
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
 
 
@@ -264,10 +264,6 @@ def _mg_solve_fn(geom, levels, cycles, nu1, nu2, omega, coarse_iters, dtype):
 
     solve.layout_t = True
     return solve
-
-
-def _inv_diag_of(A_int):
-    return 1.0 / A_int.diagonal()
 
 
 def mg_inverse_factory(

@@ -101,7 +101,7 @@ def b_orthonormalize_blocked_t(
 ):
     """B-orthonormalize the rows of Xt (m, n): on return X B X^T = I.
 
-    ``b_op`` is a DIA operand (anything ``spmm_t`` accepts) or a callable
+    ``b_op`` is a sparse operand (anything ``spmm_t`` accepts) or a callable
     ``Xt -> (B @ X)^T``. Returns ``(Xt, norm)``: ``norm`` is the largest
     absolute off-diagonal Gram or projection coefficient seen, the
     loss-of-orthogonality monitor. ``return_mass=True`` also returns the

@@ -1,9 +1,11 @@
+from dune_eigensolver_tpu_torch.solvers.generalized import generalized_inverse
 from dune_eigensolver_tpu_torch.solvers.lobpcg import lobpcg_generalized
 from dune_eigensolver_tpu_torch.solvers.nested import lobpcg_nested, prolong_vectors
 from dune_eigensolver_tpu_torch.solvers.result import EigenResult
 
 __all__ = [
     "EigenResult",
+    "generalized_inverse",
     "lobpcg_generalized",
     "lobpcg_nested",
     "prolong_vectors",

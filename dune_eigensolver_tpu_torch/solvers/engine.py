@@ -1,10 +1,13 @@
 """Solver setup: internal operands, setup memoization, inverse adapters.
 
-Counterpart of the JAX package's ``solvers/engine.py`` with the guarded
-layout dropped: there, DIA operands on a TPU are pre-padded into a
-``PaddedLayout`` so the Pallas kernel's BlockSpecs never clamp; the CUDA
-kernel masks its own bounds, so here the internal multivector is the plain
-contiguous transposed (m, n) tensor and the internal width is n.
+Counterpart of the JAX package's ``solvers/engine.py`` with the TPU
+layouts dropped: there, DIA operands on a TPU are pre-padded into a
+``PaddedLayout`` so the Pallas kernel's BlockSpecs never clamp, and ELL/BSR
+operands are re-planned into right-padded windowed containers for the
+128-lane gather kernels. The CUDA kernels mask their own bounds and gather
+from device memory directly, so here the internal multivector is the plain
+contiguous transposed (m, n) tensor, the internal width is n, and the
+operands stay as they are, with one routing step for BSR (``make_engine``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,9 @@ from __future__ import annotations
 import weakref
 
 import torch
+
+from dune_eigensolver_tpu_torch.kernels.gather_spmm import BSR_KERNEL_BLOCKS
+from dune_eigensolver_tpu_torch.sparse.formats import BSRMatrix, ell_from_scipy
 
 _SETUP_MEMO: dict = {}
 _SETUP_MEMO_MAX = 32
@@ -55,9 +61,25 @@ def adapt_inverse(inv_aux, inv_fn):
     return inv_aux, adapted
 
 
+def _routed(M):
+    """The operand the kernels take for ``M``: a BSR whose blocks are not
+    square b x b with b in ``BSR_KERNEL_BLOCKS`` is scalar-expanded to ELL,
+    as the reference routes such blocks to its scalar segment planner
+    (``windowed_from_bsr``); everything else is itself."""
+    if not isinstance(M, BSRMatrix):
+        return M
+    br, bc = M.block
+    if br == bc and br in BSR_KERNEL_BLOCKS:
+        return M
+    return ell_from_scipy(M.to_scipy(), dtype=M.dtype, device=M.device)
+
+
 def make_engine(A_sh, B=None):
-    """Internal operands (A_int, B_int): the operands themselves."""
-    return A_sh, B
+    """Internal operands (A_int, B_int): the operands themselves, with
+    BSR blocks the kernel is not built for routed to ELL at setup. Mixed
+    pairs (e.g. a BSR A with a DIA B) stay mixed: ``spmm_t`` serves each
+    operand with its own kernel."""
+    return _routed(A_sh), None if B is None else _routed(B)
 
 
 def to_internal(Qt: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,7 @@ with an A'-orthonormal basis, so that B-null directions sit at nu ~ 0, the
 end of the spectrum Rayleigh-Ritz never selects. The iteration state is
 the transposed multivector (m, n); the search block [X; W; P] is a
 (3m, n) stack of rows. Each iteration applies A' through ``spmm_t`` (the
-DIA kernel on a CUDA tensor) and the preconditioner to the residuals.
+operand's kernel on a CUDA tensor) and the preconditioner to the residuals.
 
 The reference's ``lax.while_loop`` is a Python loop here that reads the
 stopping quantity to the host once per iteration. The stopping rule is

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (counterpart of the JAX
 package's ``utils/native.py`` ctypes bridge to ``native/libdunetpu.so``).
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for sm_90a into a
+The sources under ``csrc/`` are compiled with ``nvcc`` for sm_90a, one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, at first use, into the package's
 ``_build/`` directory (ignored by git), and loaded with ctypes. The
 library's file name carries a hash of the sources and flags, so an edited
@@ -22,7 +23,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB = None
@@ -53,6 +54,21 @@ def _lib_path(sources) -> str:
     return os.path.join(BUILD_DIR, f"libdune_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands together; return their outputs in order. Raises
+    with every output once all have ended if any failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs) if p.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)} -> {rc}\n{o}" for c, rc, o in failed))
+    return outs
+
+
 def build():
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
     Returns ``(library path, nvcc's output)``, the output empty when the
@@ -63,15 +79,14 @@ def build():
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-        capture_output=True, text=True,
-    )
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(sources, objs)])
+    log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, path)
-    return path, log
+    return path, "".join(log)
 
 
 def load() -> ctypes.CDLL:
@@ -86,6 +101,12 @@ def load() -> ctypes.CDLL:
     lib.dia_spmm_t_launch.argtypes = [
         i32, vp, vp, vp, i64, i32, i32, ctypes.POINTER(i32), vp,
     ]
+    # (data_t, cols_t, n, k, ncols, x, y, m, stream)
+    lib.ell_spmm_t_launch.restype = i32
+    lib.ell_spmm_t_launch.argtypes = [vp, vp, i64, i32, i64, vp, vp, i32, vp]
+    # (b, bdata_t, bcols_t, nbr, k, ncols, x, y, m, stream)
+    lib.bsr_spmm_t_launch.restype = i32
+    lib.bsr_spmm_t_launch.argtypes = [i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
     lib.dune_cuda_error_string.restype = ctypes.c_char_p
     lib.dune_cuda_error_string.argtypes = [i32]
     _LIB = lib

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so on a machine without JAX it runs without the suite's conftest
@@ -92,3 +92,117 @@ def test_nested_recipe_small_on_card(cuda):
     ev = np.sort(res.eigenvalues.cpu().numpy())[:20]
     assert bool(res.converged) and np.isfinite(ev).all()
     assert np.abs(ev - eigenvalues_laplace_dirichlet_3d(N, count=20)).max() < 3e-4
+
+
+def _gather_operand(kind, device):
+    """Small ELL/BSR operands on the card: n not a multiple of the
+    256-thread block, rows wider than one register chunk, a rectangular
+    ELL, and b = 2 and 4 blocks."""
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.sparse import bsr_from_scipy, ell_from_scipy, rcm_pencil
+
+    f32 = torch.float32
+    if kind == "ell-graph":
+        S = problems.unstructured_laplacian(1001, extra_edges=50, seed=5, fmt="scipy")
+        return rcm_pencil(S, dtype=f32, device=device)[0]
+    if kind == "ell-wide":  # k > 32: two register chunks
+        S = sp.random(700, 700, density=0.06, random_state=0, format="csr") + sp.eye(700)
+        return ell_from_scipy(S, dtype=f32, device=device)
+    if kind == "ell-rect":
+        S = sp.random(300, 517, density=0.02, random_state=1, format="csr")
+        return ell_from_scipy(S, dtype=f32, device=device)
+    if kind == "bsr2-elasticity":
+        return problems.elasticity_2d(13, dtype=f32, device=device)[0]
+    pattern = sp.random(90, 90, density=0.2, random_state=2, format="csr") + sp.eye(90)
+    b = 2 if kind == "bsr2-wide" else 4  # k > 16 (b=2) or > 4 (b=4): chunked
+    block = np.random.default_rng(3).standard_normal((b, b))
+    return bsr_from_scipy(sp.kron(pattern, block).tocsr(), block=(b, b), dtype=f32, device=device)
+
+
+GATHER_KINDS = ["ell-graph", "ell-wide", "ell-rect", "bsr2-elasticity", "bsr2-wide", "bsr4"]
+
+
+@pytest.mark.parametrize("kind", GATHER_KINDS)
+@pytest.mark.parametrize("m", [8, 24])
+def test_gather_kernels_match_reference(cuda, kind, m):
+    """Both sum the same f32 products of a row in other orders: within
+    1e-5 of the row's |A|.|X|."""
+    import dataclasses
+
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.sparse import BSRMatrix
+
+    A = _gather_operand(kind, cuda)
+    field = "bdata" if isinstance(A, BSRMatrix) else "data"
+    wrapper = kg.bsr_spmm_t_cuda if field == "bdata" else kg.ell_spmm_t_cuda
+    plain = kg.bsr_spmm_t_reference if field == "bdata" else kg.ell_spmm_t_reference
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, A.shape[1]))).to(cuda, torch.float32)
+    before = wrapper.launches
+    Y = spmm_t(A, X)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert Y.shape == (m, A.shape[0]) and Y.dtype == torch.float32
+    absA = dataclasses.replace(A, **{field: getattr(A, field).abs()})
+    tol = 1e-5 * plain(absA, X.abs()).max().item()
+    assert (Y - plain(A, X)).abs().max().item() <= tol
+
+
+def test_gather_wrappers_refuse_bad_operands(cuda):
+    from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.sparse import BSRMatrix, ELLMatrix
+
+    for kind, wrapper in (("ell-graph", kg.ell_spmm_t_cuda), ("bsr2-elasticity", kg.bsr_spmm_t_cuda)):
+        A = _gather_operand(kind, cuda)
+        X = torch.randn((8, A.shape[1]), device=cuda)
+        with pytest.raises(TypeError, match="float32"):
+            wrapper(A, X.to(torch.bfloat16))
+        with pytest.raises(TypeError, match="float32"):
+            wrapper(A, X.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            wrapper(A, X.T.contiguous().T)
+        with pytest.raises(ValueError, match="CUDA"):
+            if isinstance(A, BSRMatrix):
+                wrapper(BSRMatrix(A.bdata.cpu(), A.bcols.cpu(), A.shape, A.block, A.nnz), X)
+            else:
+                wrapper(ELLMatrix(A.data.cpu(), A.cols.cpu(), A.shape, A.nnz), X)
+        with pytest.raises(ValueError, match="operands on"):
+            spmm_t(A, X.cpu())
+        # the bf16 inner CG reaches the gather kernels, which refuse it
+        aux, fn = cg_inverse_factory(rtol=1e-2, maxiter=5, dtype=torch.bfloat16)(A)
+        with pytest.raises(TypeError, match="float32"):
+            fn(aux, X)
+
+
+def test_general_sparsity_solves_small_on_card(cuda):
+    """generalized_inverse on elasticity_2d(16) (BSR kernel) and LOBPCG on
+    a 2,000-node graph (ELL kernel) with the CG inverse, against the
+    scipy/ARPACK oracle at 1e-2 relative."""
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.oracle import smallest_generalized, smallest_standard
+    from dune_eigensolver_tpu_torch.solvers import generalized_inverse, lobpcg_generalized
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy, rcm_pencil
+
+    A, B = problems.elasticity_2d(16, dtype=torch.float32, device=cuda)
+    before = kg.bsr_spmm_t_cuda.launches
+    res = generalized_inverse(A, B, nev=4, tol=2e-3, maxiter=300, shift=1e-3,
+                              inverse=cg_inverse_factory(rtol=1e-5, maxiter=1000))
+    assert kg.bsr_spmm_t_cuda.launches > before and bool(res.converged)
+    ref, _ = smallest_generalized(A, B, nev=4, sigma=-1e-3)
+    ev = res.eigenvalues.cpu().numpy()
+    assert np.isfinite(ev).all() and np.abs(ev - ref).max() / np.abs(ref).max() < 1e-2
+
+    S = problems.unstructured_laplacian(2000, extra_edges=100, seed=5, fmt="scipy")
+    Au = rcm_pencil(S, dtype=torch.float32, device=cuda)[0]
+    Bu = ell_from_scipy(sp.eye(2000), dtype=torch.float32, device=cuda)
+    before = kg.ell_spmm_t_cuda.launches
+    res = lobpcg_generalized(Au, Bu, nev=4, tol=2e-3, maxiter=300, shift=1e-3,
+                             precond=cg_inverse_factory(rtol=1e-2, maxiter=25))
+    assert kg.ell_spmm_t_cuda.launches > before and bool(res.converged)
+    ref, _ = smallest_standard(S, nev=4, sigma=-1e-3)
+    ev = res.eigenvalues.cpu().numpy()
+    assert np.isfinite(ev).all() and np.abs(ev - ref).max() / np.abs(ref).max() < 1e-2

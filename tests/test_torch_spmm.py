@@ -130,7 +130,13 @@ def test_port_imports_no_jax():
     code = (
         "import sys, dune_eigensolver_tpu_torch, "
         "dune_eigensolver_tpu_torch.solvers.nested, "
+        "dune_eigensolver_tpu_torch.solvers.generalized, "
+        "dune_eigensolver_tpu_torch.factorize.cg, "
         "dune_eigensolver_tpu_torch.kernels.dia_spmm, "
+        "dune_eigensolver_tpu_torch.kernels.gather_spmm, "
+        "dune_eigensolver_tpu_torch.sparse.problems, "
+        "dune_eigensolver_tpu_torch.sparse.reorder, "
+        "dune_eigensolver_tpu_torch.oracle.scipy_oracle, "
         "dune_eigensolver_tpu_torch.utils.native; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k.startswith('dune_eigensolver_tpu.') or k == 'dune_eigensolver_tpu']; "
