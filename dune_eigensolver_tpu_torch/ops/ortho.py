@@ -1,7 +1,7 @@
 """Blocked multivector orthonormalization and dot products.
 
-Counterpart of the JAX package's ``ops/ortho.py`` (the transposed-layout
-functions). Each b-row block of the (m, n) multivector is projected
+Counterpart of the JAX package's ``ops/ortho.py``: the transposed-layout
+functions, and the column-layout (n, m) wrappers over them. Each b-row block of the (m, n) multivector is projected
 against the finished prefix and then whitened by its Gram matrix —
 CholeskyQR per block, with a spectral-whitening fallback when the
 Cholesky fails.
@@ -24,6 +24,17 @@ roundoff:
 from __future__ import annotations
 
 import torch
+
+
+def dot_products_diagonal(Q1: torch.Tensor, Q2: torch.Tensor) -> torch.Tensor:
+    """diag(Q1^T @ Q2): dot of each column of Q1 with same column of Q2."""
+    return torch.sum(Q1 * Q2, dim=0)
+
+
+def dot_products_all(Q1: torch.Tensor, Q2: torch.Tensor) -> torch.Tensor:
+    """Full Gram matrix Q1^T @ Q2 (m x m), in strict f32 on the card (TF32
+    is off package-wide, the reference's ``Precision.HIGHEST``)."""
+    return Q1.T @ Q2
 
 
 def dot_products_diagonal_t(Q1t: torch.Tensor, Q2t: torch.Tensor) -> torch.Tensor:
@@ -89,6 +100,19 @@ def orthonormalize_blocked_t(
             out[k : k + block] = _chol_normalize_t(Xk, G, eps)
         Xt = out
     return Xt
+
+
+def orthonormalize_blocked(
+    X: torch.Tensor,
+    block: int = 8,
+    iterations: int = 1,
+    eps: float = 0.0,
+) -> torch.Tensor:
+    """Column-layout wrapper over ``orthonormalize_blocked_t``: X is (n, m)
+    and its columns come back orthonormal."""
+    return orthonormalize_blocked_t(
+        X.T.contiguous(), block=block, iterations=iterations, eps=eps
+    ).T
 
 
 def b_orthonormalize_blocked_t(

@@ -12,6 +12,14 @@ def padded_width(nev: int, block: int) -> int:
     return -(-nev // block) * block
 
 
+def random_multivector(generator: torch.Generator, n: int, m: int, dtype,
+                       device) -> torch.Tensor:
+    """N(0,1) random start block, column layout (n, m), from an explicit
+    ``generator`` (the reference takes a ``jax.random`` key). Column k is
+    row k of ``random_multivector_t`` from the same generator state."""
+    return random_multivector_t(generator, n, m, dtype, device).T
+
+
 def random_multivector_t(generator: torch.Generator, n: int, m: int, dtype,
                          device) -> torch.Tensor:
     """N(0,1) random start block in the transposed (m, n) layout. The

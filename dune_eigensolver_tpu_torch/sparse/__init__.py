@@ -10,7 +10,7 @@ from dune_eigensolver_tpu_torch.sparse.formats import (
     ell_from_scipy,
 )
 from dune_eigensolver_tpu_torch.sparse.reorder import rcm_pencil, unpermute_vectors
-from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
+from dune_eigensolver_tpu_torch.sparse.spmm import spmm, spmm_t
 
 __all__ = [
     "BSRMatrix",
@@ -23,6 +23,7 @@ __all__ = [
     "ell_from_numpy",
     "ell_from_scipy",
     "rcm_pencil",
+    "spmm",
     "spmm_t",
     "unpermute_vectors",
 ]

@@ -30,6 +30,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from dune_eigensolver_tpu_torch.utils.device import resolve
+
 
 @dataclasses.dataclass(frozen=True)
 class DIAMatrix:
@@ -42,6 +44,12 @@ class DIAMatrix:
     data: torch.Tensor  # (ndiag, n)
     offsets: Tuple[int, ...]
     shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        """Stored entries (incl. structural zeros inside the band)."""
+        n = self.shape[0]
+        return int(sum(n - abs(o) for o in self.offsets))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -239,17 +247,18 @@ class BSRMatrix:
 
 
 # ---------------------------------------------------------------------------
-# Converters (host-side setup; numpy in, tensors on ``device`` out)
+# Converters (host-side setup; numpy in, tensors on ``device`` out;
+# ``device=None`` is the current CUDA device, see ``utils/device.py``)
 # ---------------------------------------------------------------------------
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
     # a writable C-order copy: JAX arrays are read-only
-    t = torch.from_numpy(np.array(a, order="C")).to(device=device)
+    t = torch.from_numpy(np.array(a, order="C")).to(device=resolve(device))
     return t if dtype is None else t.to(dtype)
 
 
-def dia_from_numpy(data, offsets, shape, device="cpu", dtype=None) -> DIAMatrix:
+def dia_from_numpy(data, offsets, shape, device=None, dtype=None) -> DIAMatrix:
     """DIAMatrix from a row-indexed ``(ndiag, n)`` array (the layout of the
     JAX package's ``DIAMatrix.data``)."""
     offsets = tuple(int(o) for o in offsets)
@@ -262,7 +271,7 @@ def dia_from_numpy(data, offsets, shape, device="cpu", dtype=None) -> DIAMatrix:
     return DIAMatrix(data=_tensor(data, device, dtype), offsets=offsets, shape=shape)
 
 
-def ell_from_numpy(data, cols, shape, nnz, device="cpu", dtype=None) -> ELLMatrix:
+def ell_from_numpy(data, cols, shape, nnz, device=None, dtype=None) -> ELLMatrix:
     """ELLMatrix from ``(n, k)`` coefficient and column arrays (the layout,
     padding included, of the JAX package's ``ELLMatrix``)."""
     shape = tuple(int(s) for s in shape)
@@ -279,7 +288,7 @@ def ell_from_numpy(data, cols, shape, nnz, device="cpu", dtype=None) -> ELLMatri
     )
 
 
-def bsr_from_numpy(bdata, bcols, shape, block, nnz, device="cpu", dtype=None) -> BSRMatrix:
+def bsr_from_numpy(bdata, bcols, shape, block, nnz, device=None, dtype=None) -> BSRMatrix:
     """BSRMatrix from ``(nbr, k, br, bc)`` blocks and ``(nbr, k)`` block
     columns (the layout, padding included, of the JAX package's
     ``BSRMatrix``)."""
@@ -300,7 +309,7 @@ def bsr_from_numpy(bdata, bcols, shape, block, nnz, device="cpu", dtype=None) ->
     )
 
 
-def dia_from_scipy(A, dtype=None, device="cpu") -> DIAMatrix:
+def dia_from_scipy(A, dtype=None, device=None) -> DIAMatrix:
     """Convert any scipy sparse matrix to DIAMatrix (host-side setup)."""
     import scipy.sparse as sp
 
@@ -320,7 +329,7 @@ def dia_from_scipy(A, dtype=None, device="cpu") -> DIAMatrix:
     return dia_from_numpy(data, offsets, A.shape, device=device, dtype=dtype)
 
 
-def ell_from_scipy(A, dtype=None, k=None, device="cpu") -> ELLMatrix:
+def ell_from_scipy(A, dtype=None, k=None, device=None) -> ELLMatrix:
     """Convert scipy sparse to ELL. ``k`` pads to at least that row width."""
     import scipy.sparse as sp
 
@@ -341,7 +350,7 @@ def ell_from_scipy(A, dtype=None, k=None, device="cpu") -> ELLMatrix:
     return ell_from_numpy(data, cols, (n, m), A.nnz, device=device, dtype=dtype)
 
 
-def bsr_from_scipy(A, block: Tuple[int, int], dtype=None, device="cpu") -> BSRMatrix:
+def bsr_from_scipy(A, block: Tuple[int, int], dtype=None, device=None) -> BSRMatrix:
     """Convert scipy sparse to block-ELL with dense (br, bc) blocks."""
     import scipy.sparse as sp
 

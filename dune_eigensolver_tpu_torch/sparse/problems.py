@@ -21,11 +21,14 @@ from dune_eigensolver_tpu_torch.sparse.formats import (
     bsr_from_scipy,
     ell_from_scipy,
 )
+from dune_eigensolver_tpu_torch.utils.device import resolve
 
 
-def laplacian_dirichlet_2d(N: int, dtype=torch.float64, device="cpu") -> DIAMatrix:
+def laplacian_dirichlet_2d(N: int, dtype=torch.float64, device=None) -> DIAMatrix:
     """2D 5-point Laplacian on an N x N grid, lexicographic ordering
-    (4 on the diagonal, -1 for grid neighbours)."""
+    (4 on the diagonal, -1 for grid neighbours). ``device=None`` is the
+    current CUDA device."""
+    device = resolve(device)
     n = N * N
     i = torch.arange(n, dtype=torch.int64, device=device)
     one = torch.tensor(-1.0, dtype=dtype, device=device)
@@ -60,8 +63,9 @@ def _laplacian_3d_device(N: int, dtype, device) -> torch.Tensor:
     return torch.stack(rows)
 
 
-def laplacian_dirichlet_3d(N: int, dtype=torch.float32, device="cpu") -> DIAMatrix:
+def laplacian_dirichlet_3d(N: int, dtype=torch.float32, device=None) -> DIAMatrix:
     """3D 7-point Laplacian on an N^3 grid (the north-star problem)."""
+    device = resolve(device)
     n = N * N * N
     offsets = (-N * N, -N, -1, 0, 1, N, N * N)
     return DIAMatrix(
@@ -117,7 +121,7 @@ def elasticity_2d(
     nu: float = 0.3,
     dtype=torch.float64,
     lumped_mass: bool = True,
-    device="cpu",
+    device=None,
 ):
     """2D plane-stress linear elasticity on an N x N Q1 quad mesh, clamped
     boundary: the elasticity-type operator class the reference stores as
@@ -162,7 +166,7 @@ def elasticity_2d(
 
 def unstructured_laplacian(
     n: int, extra_edges: int = 0, seed: int = 0, dtype=torch.float64,
-    fmt: str = "ell", device="cpu",
+    fmt: str = "ell", device=None,
 ):
     """Graph Laplacian (+I) of a randomly permuted 1D chain with
     ``extra_edges`` random long-range couplings: an unstructured pattern no

@@ -18,7 +18,7 @@ from dune_eigensolver_tpu_torch.sparse.formats import bsr_from_scipy, ell_from_s
 
 
 def rcm_pencil(
-    A, B=None, block: Optional[Tuple[int, int]] = None, dtype=None, device="cpu"
+    A, B=None, block: Optional[Tuple[int, int]] = None, dtype=None, device=None
 ) -> Tuple[object, Optional[object], np.ndarray]:
     """(A', B', perm) with A' = A[perm][:, perm] in RCM order.
 

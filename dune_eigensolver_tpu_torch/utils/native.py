@@ -107,6 +107,27 @@ def load() -> ctypes.CDLL:
     # (b, bdata_t, bcols_t, nbr, k, ncols, x, y, m, stream)
     lib.bsr_spmm_t_launch.restype = i32
     lib.bsr_spmm_t_launch.argtypes = [i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
+    # copy probe: (x, y, rows, width, tile, stream), (x, rows, width, tile,
+    # stream), (d, x, y, rows, width, nd, tile, stream)
+    lib.copy_add1_launch.restype = i32
+    lib.copy_add1_launch.argtypes = [vp, vp, i32, i64, i32, vp]
+    lib.copy_add1_inplace_launch.restype = i32
+    lib.copy_add1_inplace_launch.argtypes = [vp, i32, i64, i32, vp]
+    lib.copy_add_row_launch.restype = i32
+    lib.copy_add_row_launch.argtypes = [vp, vp, vp, i32, i64, i32, i32, vp]
+    # DIA staging variants, each (data, x, y, [side,] n, m, ndiag, offsets, ...)
+    offs = ctypes.POINTER(i32)
+    lib.dia_c_launch.restype = i32  # ..., T, H, rows, nwalk, stream
+    lib.dia_c_launch.argtypes = [vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, vp]
+    lib.dia_b_launch.restype = i32  # ..., T, lo, W, rows, tpc, nslots, depth, stream
+    lib.dia_b_launch.argtypes = [
+        vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, i32, i32, i32, vp,
+    ]
+    lib.dia_d_launch.restype = i32  # ..., T, rows, tpc, stream
+    lib.dia_d_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, vp]
+    # (variant, ndiag, slots, rows, window) -> blocks per SM, 0, or -error
+    lib.dia_variant_blocks_per_sm.restype = i32
+    lib.dia_variant_blocks_per_sm.argtypes = [i32, i32, i32, i32, i32]
     lib.dune_cuda_error_string.restype = ctypes.c_char_p
     lib.dune_cuda_error_string.argtypes = [i32]
     _LIB = lib

@@ -34,8 +34,9 @@ torch.set_num_threads(2)
 
 def _bridge(J):
     if isinstance(J, jformats.BSRMatrix):
-        return bsr_from_numpy(np.asarray(J.bdata), np.asarray(J.bcols), J.shape, J.block, J.nnz)
-    return ell_from_numpy(np.asarray(J.data), np.asarray(J.cols), J.shape, J.nnz)
+        return bsr_from_numpy(np.asarray(J.bdata), np.asarray(J.bcols), J.shape, J.block, J.nnz,
+                              device="cpu")
+    return ell_from_numpy(np.asarray(J.data), np.asarray(J.cols), J.shape, J.nnz, device="cpu")
 
 
 def _operator(kind, dtype=np.float64):

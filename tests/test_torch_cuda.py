@@ -206,3 +206,133 @@ def test_general_sparsity_solves_small_on_card(cuda):
     ref, _ = smallest_standard(S, nev=4, sigma=-1e-3)
     ev = res.eigenvalues.cpu().numpy()
     assert np.isfinite(ev).all() and np.abs(ev - ref).max() / np.abs(ref).max() < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The copy probe and the DIA staging variants
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,tile", [((8, 4096), 1024), ((8, 40960), 32768),
+                                        ((3, 1001), 100), ((5, 2052), 512)])
+def test_copy_kernels_match_plain(cuda, shape, tile):
+    """One f32 add per element in kernel and plain version alike: exact.
+    (3, 1001) takes the 4-byte path, the others the 16-byte one; (5, 2052)
+    has a last tile that is not full."""
+    from dune_eigensolver_tpu_torch.experiments import pipeline_probe as pp
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    d = torch.from_numpy(rng.standard_normal((5, shape[1])).astype(np.float32)).to(cuda)
+    before = (pp.ident.launches, pp.identd.launches, pp.ident_alias.launches)
+    assert torch.equal(pp.ident(tile, x), pp.ident_reference(x))
+    assert torch.equal(pp.identd(tile, d, x), pp.identd_reference(d, x))
+    xa = x.clone()
+    assert pp.ident_alias(tile, xa) is xa
+    assert torch.equal(xa, pp.ident_reference(x))
+    assert (pp.ident.launches, pp.identd.launches, pp.ident_alias.launches) == tuple(
+        b + 1 for b in before)
+
+
+def _variant_calls(kv, tile, rows):
+    calls = [("c", lambda A, X: kv.spmm_c(A, X, tile=tile, rows=rows), kv.spmm_c)]
+    for s, q in kv.B_RINGS:
+        calls.append((f"b{s}{q}", lambda A, X, s=s, q=q: kv.spmm_b(A, X, s, q, tile=tile, rows=rows),
+                      kv.spmm_b))
+    calls.append(("d", lambda A, X: kv.spmm_d(A, X, tile=tile, rows=rows), kv.spmm_d))
+    calls.append(("d_alias", lambda A, X: kv.spmm_d(A, X, alias=True, tile=tile, rows=rows),
+                  kv.spmm_d))
+    return calls
+
+
+@pytest.mark.parametrize("N,m,tile,rows", [(32, 8, 256, 8), (45, 8, 256, 2), (46, 8, 256, 4),
+                                           (37, 5, 64, 2), (64, 8, 4096, 2), (100, 16, 128, 1)])
+def test_variants_match_plain(cuda, N, m, tile, rows):
+    """C, B at its three rings, D and D in place against the plain DIA
+    product on the 2D Laplacian with random diagonals kept: the same f32
+    sum FMA-contracted, 1e-5 of max|R|. n = 2025 is odd (4-byte copies),
+    2116 and 1369 are no multiples of the tile, (64, 4096) is one tile that
+    holds the whole operand, (100, 128) has many chunks."""
+    from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
+
+    A = problems.laplacian_dirichlet_2d(N, dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(1)
+    n = N * N
+    data = A.data * torch.from_numpy(rng.uniform(0.5, 1.5, (5, n)).astype(np.float32)).to(cuda)
+    A = DIAMatrix(data=data, offsets=A.offsets, shape=A.shape)
+    X = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(cuda)
+    R = kd.dia_spmm_t_reference(A, X)
+    tol = 1e-5 * R.abs().max().item()
+    for name, fn, wrapper in _variant_calls(kv, tile, rows):
+        before = wrapper.launches
+        Xin = X.clone()
+        Y = fn(A, Xin)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, name
+        assert (Y.data_ptr() == Xin.data_ptr()) == (name == "d_alias"), name
+        assert (Y - R).abs().max().item() <= tol, name
+
+
+def test_variant_d_in_place_two_chain(cuda):
+    """The in-place form fed its own output (the reference's 2-chain
+    check), with chunks of one and of several tiles."""
+    from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
+
+    for N, tile in ((96, 128), (300, 512)):
+        A = problems.laplacian_dirichlet_2d(N, dtype=torch.float32, device=cuda)
+        A = DIAMatrix(data=A.data / 8.0, offsets=A.offsets, shape=A.shape)
+        X = torch.randn((8, N * N), generator=torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+        R2 = kd.dia_spmm_t_reference(A, kd.dia_spmm_t_reference(A, X))
+        Y = kv.spmm_d(A, kv.spmm_d(A, X.clone(), alias=True, tile=tile), alias=True, tile=tile)
+        assert (Y - R2).abs().max().item() <= 1e-5 * R2.abs().max().item()
+
+
+def test_variant_wrappers_refuse(cuda):
+    from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
+    from dune_eigensolver_tpu_torch.experiments import pipeline_probe as pp
+
+    A = problems.laplacian_dirichlet_2d(64, dtype=torch.float32, device=cuda)
+    X = torch.ones((8, 64 * 64), device=cuda)
+    with pytest.raises(ValueError, match="exceeds the tile"):
+        kv.spmm_d(A, X, tile=32)
+    with pytest.raises(ValueError, match="depth < nslots"):
+        kv.spmm_b(A, X, nslots=2, depth=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.spmm_c(A, X, tile=32768, rows=8)  # two windows beyond 227 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.spmm_b(A, X, nslots=4, depth=3, tile=8192, rows=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.spmm_d(A, X, tile=8192, rows=8)
+    with pytest.raises(TypeError, match="float32"):
+        kv.spmm_c(A, X.double())
+    for fn in (kv.spmm_c, kv.spmm_b, kv.spmm_d):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(A, X.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        pp.ident(1024, X.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        pp.identd(1024, X[:5].contiguous(), X.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        pp.ident_alias(1024, X.cpu())
+
+
+def test_cli_and_experiments_on_card(cuda, capsys):
+    """The measurement path's entry points at a small size on the card:
+    every kernel variant prints its line."""
+    from dune_eigensolver_tpu_torch import cli
+    from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
+    from dune_eigensolver_tpu_torch.experiments import pipeline_probe as pp
+
+    assert cli.main(["--test", "matvec", "ev.N=64", "mv.m=8"]) == 0
+    assert cli.main(["--test", "mgs", "mgs.n=12"]) == 0
+    assert pp.main(["1024", "--width", "40960", "--mb", "4"]) == 0
+    assert kv.main(["256", "--N", "128", "--mb", "4"]) == 0
+    out = capsys.readouterr().out
+    for variant in ("plain", "plain_t", "cuda_t", "bsr_plain", "bsr_cuda", "ell_plain",
+                    "ell_cuda"):
+        assert f"RESULT {variant} " in out
+    assert "P_n_m_i_perfn_perfb: 1 4096 16 15 " in out
+    for label in ("ident T=1024", "ident+d", "ALIASED", "A shipped", "D rolling", "D in-place",
+                  "B s=4 d=3", "C r1-style"):
+        assert label in out

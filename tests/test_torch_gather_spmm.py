@@ -88,8 +88,9 @@ def _jax_operand(name, dtype):
 def _bridge(J):
     """The port's container holding the same bits as the JAX container J."""
     if isinstance(J, jformats.BSRMatrix):
-        return bsr_from_numpy(np.asarray(J.bdata), np.asarray(J.bcols), J.shape, J.block, J.nnz)
-    return ell_from_numpy(np.asarray(J.data), np.asarray(J.cols), J.shape, J.nnz)
+        return bsr_from_numpy(np.asarray(J.bdata), np.asarray(J.bcols), J.shape, J.block, J.nnz,
+                              device="cpu")
+    return ell_from_numpy(np.asarray(J.data), np.asarray(J.cols), J.shape, J.nnz, device="cpu")
 
 
 OPERANDS = ["ell900", "ell1001", "elast12_bsr", "elast12_ell", "kron4_bsr"]
@@ -201,9 +202,10 @@ def test_converters_and_setup_ops_match_jax_exactly():
     the JAX package's bits."""
     for S, block, k in _scipy_sources():
         if block is not None:
-            J, T = jformats.bsr_from_scipy(S, block=block), bsr_from_scipy(S, block=block)
+            J = jformats.bsr_from_scipy(S, block=block)
+            T = bsr_from_scipy(S, block=block, device="cpu")
         else:
-            J, T = jformats.ell_from_scipy(S, k=k), ell_from_scipy(S, k=k)
+            J, T = jformats.ell_from_scipy(S, k=k), ell_from_scipy(S, k=k, device="cpu")
         _assert_same_container(T, J)
         _assert_same_container(_bridge(J), J)
         assert T.cols.dtype == torch.int32 if isinstance(T, ELLMatrix) else T.bcols.dtype == torch.int32
@@ -233,32 +235,33 @@ def test_shifted_operand_on_ell_and_bsr_matches_jax():
 def test_generators_match_jax():
     """The vectorised elasticity assembly and the graph Laplacian give the
     JAX package's matrices bit for bit."""
-    for J, T in zip(jproblems.elasticity_2d(12), problems.elasticity_2d(12)):
+    for J, T in zip(jproblems.elasticity_2d(12), problems.elasticity_2d(12, device="cpu")):
         _assert_same_container(T, J)
     for J, T in zip(jproblems.elasticity_2d(5, E=2.0, nu=0.25, lumped_mass=False),
-                    problems.elasticity_2d(5, E=2.0, nu=0.25, lumped_mass=False)):
+                    problems.elasticity_2d(5, E=2.0, nu=0.25, lumped_mass=False, device="cpu")):
         _assert_same_container(T, J)
     _assert_same_container(
-        problems.unstructured_laplacian(800, 40, seed=5),
+        problems.unstructured_laplacian(800, 40, seed=5, device="cpu"),
         jproblems.unstructured_laplacian(800, 40, seed=5),
     )
     Sj = jproblems.unstructured_laplacian(500, 25, seed=3, fmt="scipy")
     St = problems.unstructured_laplacian(500, 25, seed=3, fmt="scipy")
     assert (Sj != St).nnz == 0
-    A32, _ = problems.elasticity_2d(4, dtype=torch.float32)
+    A32, _ = problems.elasticity_2d(4, dtype=torch.float32, device="cpu")
     assert A32.dtype == torch.float32 and A32.bcols.dtype == torch.int32
 
 
 def test_rcm_pencil_matches_jax():
     S = jproblems.unstructured_laplacian(800, extra_edges=40, seed=5, fmt="scipy")
     Aj, _, pj = jrcm_pencil(S)
-    At, Bt, pt = rcm_pencil(S)
+    At, Bt, pt = rcm_pencil(S, device="cpu")
     np.testing.assert_array_equal(pt, pj)
     _assert_same_container(At, Aj)
     assert Bt is None
     Ej, Mj = jproblems.elasticity_2d(7)
     Aj, Bj, pj = jrcm_pencil(Ej, Mj, block=(2, 2))
-    At, Bt, pt = rcm_pencil(_bridge(Ej), _bridge(Mj), block=(2, 2), dtype=torch.float32)
+    At, Bt, pt = rcm_pencil(_bridge(Ej), _bridge(Mj), block=(2, 2), dtype=torch.float32,
+                            device="cpu")
     np.testing.assert_array_equal(pt, pj)
     assert At.dtype == torch.float32 and isinstance(Bt, BSRMatrix)
     np.testing.assert_array_equal(At.bcols.numpy(), np.asarray(Aj.bcols))
@@ -280,7 +283,8 @@ def test_spmm_t_dispatch_and_cuda_wrappers_on_cpu():
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(M, X)
     with pytest.raises(ValueError, match="square blocks"):
-        kg.bsr_spmm_t_cuda(bsr_from_scipy(_kron_blocks(20, 3, seed=1), block=(3, 3)), X)
+        kg.bsr_spmm_t_cuda(
+            bsr_from_scipy(_kron_blocks(20, 3, seed=1), block=(3, 3), device="cpu"), X)
     with pytest.raises(TypeError, match="unsupported operand"):
         spmm_t(A.to_scipy(), X)
 
@@ -290,7 +294,7 @@ def test_make_engine_routes_bsr_blocks_the_kernel_lacks_to_ell():
     ELL at setup (the reference's windowed_from_bsr routing), DIA and ELL
     stay as they are, mixed pairs stay mixed; the operator is unchanged."""
     S3 = _kron_blocks(40, 3, seed=5)
-    B3 = bsr_from_scipy(S3, block=(3, 3))
+    B3 = bsr_from_scipy(S3, block=(3, 3), device="cpu")
     B2 = _bridge(_jax_operand("elast12_bsr", np.float64))
     D = DIAMatrix(torch.ones((1, B2.shape[0]), dtype=torch.float64), (0,), B2.shape)
     A_int, B_int = make_engine(B3, B3)

@@ -61,8 +61,9 @@ def windowed_tile_256(monkeypatch):
 
 def _bridge(J):
     if isinstance(J, jformats.BSRMatrix):
-        return bsr_from_numpy(np.asarray(J.bdata), np.asarray(J.bcols), J.shape, J.block, J.nnz)
-    return ell_from_numpy(np.asarray(J.data), np.asarray(J.cols), J.shape, J.nnz)
+        return bsr_from_numpy(np.asarray(J.bdata), np.asarray(J.bcols), J.shape, J.block, J.nnz,
+                              device="cpu")
+    return ell_from_numpy(np.asarray(J.data), np.asarray(J.cols), J.shape, J.nnz, device="cpu")
 
 
 def _max_subspace_sine(U, V):
@@ -169,7 +170,7 @@ def test_lobpcg_unstructured_matches_jax(windowed_tile_256, force_padded):
 def test_generalized_inverse_f32_vs_oracle():
     """f32 elasticity pencil from the port's own generator and seeded start
     block, against ARPACK shift-invert at sigma = -shift."""
-    A, B = problems.elasticity_2d(10, dtype=torch.float32)
+    A, B = problems.elasticity_2d(10, dtype=torch.float32, device="cpu")
     res = tgeneralized(A, B, nev=4, tol=1e-5, maxiter=300, shift=1e-3,
                        inverse=tcg_factory(rtol=1e-5, maxiter=1000))
     ref, _ = smallest_generalized(A, B, nev=4, sigma=-1e-3)
@@ -182,8 +183,8 @@ def test_lobpcg_unstructured_f32_vs_oracle():
     """f32 graph Laplacian in RCM order against ARPACK on the original
     order; the eigenvectors map back through the permutation."""
     S, _, _, _ = _unstructured()
-    A, _, perm = rcm_pencil(S, dtype=torch.float32)
-    B = ell_from_scipy(sp.eye(800), dtype=torch.float32)
+    A, _, perm = rcm_pencil(S, dtype=torch.float32, device="cpu")
+    B = ell_from_scipy(sp.eye(800), dtype=torch.float32, device="cpu")
     res = tlobpcg(A, B, nev=4, tol=1e-6, maxiter=300, shift=1e-3,
                   precond=tcg_factory(rtol=1e-2, maxiter=25))
     ref, _ = smallest_standard(S, nev=4, sigma=-1e-3)
@@ -197,7 +198,7 @@ def test_lobpcg_unstructured_f32_vs_oracle():
 def test_seeded_start_is_reproducible():
     """Without q0 the start block is a torch.Generator draw from ``seed``:
     the same seed gives the same iterates."""
-    A, B = problems.elasticity_2d(6)
+    A, B = problems.elasticity_2d(6, device="cpu")
     inv = tcg_factory(rtol=1e-8, maxiter=500)
     kw = dict(nev=3, tol=1e-6, maxiter=60, shift=1e-3, inverse=inv, seed=11)
     r1, r2 = tgeneralized(A, B, **kw), tgeneralized(A, B, **kw)
@@ -210,7 +211,7 @@ def test_default_inverses_are_refused():
     default_inverse_factory (the RCM-banded direct engine), which is not
     ported yet: both entry points say so instead of running something
     else."""
-    A, B = problems.elasticity_2d(4)
+    A, B = problems.elasticity_2d(4, device="cpu")
     with pytest.raises(ValueError, match="default_inverse_factory"):
         tgeneralized(A, B, nev=2, tol=1e-6, maxiter=10)
     with pytest.raises(ValueError, match="default_inverse_factory"):

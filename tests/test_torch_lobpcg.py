@@ -35,8 +35,8 @@ def _pencil(dtype):
     data = data.astype(dtype)
     Aj = JDIA(data=jnp.asarray(data), offsets=A0.offsets, shape=A0.shape)
     Bj = JDIA(data=jnp.ones((1, n), dtype), offsets=(0,), shape=A0.shape)
-    At = dia_from_numpy(data, A0.offsets, A0.shape)
-    Bt = dia_from_numpy(np.ones((1, n), dtype), (0,), A0.shape)
+    At = dia_from_numpy(data, A0.offsets, A0.shape, device="cpu")
+    Bt = dia_from_numpy(np.ones((1, n), dtype), (0,), A0.shape, device="cpu")
     q0 = np.random.default_rng(7).standard_normal((n, 8)).astype(dtype)
     return Aj, Bj, At, Bt, q0
 
@@ -119,7 +119,7 @@ def test_shifted_operand_and_normalize_inverse_match_jax():
     n = Aj.shape[0]
     w = np.random.default_rng(9).random(n)
     Bj = JDIA(data=jnp.asarray(w[None, :]), offsets=(0,), shape=Aj.shape)
-    Bt = dia_from_numpy(w[None, :], (0,), Aj.shape)
+    Bt = dia_from_numpy(w[None, :], (0,), Aj.shape, device="cpu")
     for B_j, B_t, shift, reg in ((Bj, Bt, 0.5, 0.1), (None, None, 0.25, 0.0),
                                  (Bj, Bt, 0.0, 0.0)):
         Sj = jstandard.shifted_operand(Aj, B_j, shift, reg)

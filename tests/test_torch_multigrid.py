@@ -17,7 +17,7 @@ torch.set_num_threads(2)
 
 
 def _port(Aj):
-    return dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape)
+    return dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -73,11 +73,11 @@ def test_coarse_operator_matches_jax_exactly(dims):
 def test_port_problem_builders_match_jax():
     for N in (5, 8):
         Aj = jproblems.laplacian_dirichlet_3d(N, dtype=np.float64)
-        At = tproblems.laplacian_dirichlet_3d(N, dtype=torch.float64)
+        At = tproblems.laplacian_dirichlet_3d(N, dtype=torch.float64, device="cpu")
         assert At.offsets == Aj.offsets
         np.testing.assert_array_equal(At.data.numpy(), np.asarray(Aj.data))
     Aj = jproblems.laplacian_dirichlet_2d(9, dtype=np.float64)
-    At = tproblems.laplacian_dirichlet_2d(9, dtype=torch.float64)
+    At = tproblems.laplacian_dirichlet_2d(9, dtype=torch.float64, device="cpu")
     assert At.offsets == Aj.offsets
     np.testing.assert_array_equal(At.data.numpy(), np.asarray(Aj.data))
 
@@ -131,6 +131,6 @@ def test_mg_inverse_apply_bf16_matches_jax_loosely():
 
 def test_mg_inverse_rejects_unstructured_operands():
     n = 64
-    A = dia_from_numpy(np.full((1, n), 2.0), (0,), (n, n))
+    A = dia_from_numpy(np.full((1, n), 2.0), (0,), (n, n), device="cpu")
     with pytest.raises(ValueError, match="structured"):
         tmg.mg_inverse_factory()(A)

@@ -34,8 +34,8 @@ def _problem(dtype):
     Aj = jproblems.laplacian_dirichlet_3d(N, dtype=dtype)
     n = Aj.shape[0]
     Bj = JDIA(data=jnp.ones((1, n), dtype), offsets=(0,), shape=Aj.shape)
-    At = dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape)
-    Bt = dia_from_numpy(np.ones((1, n), dtype), (0,), Aj.shape)
+    At = dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape, device="cpu")
+    Bt = dia_from_numpy(np.ones((1, n), dtype), (0,), Aj.shape, device="cpu")
     return Aj, Bj, At, Bt
 
 
@@ -116,6 +116,6 @@ def test_nested_refusals():
         tnested(At, Bt, nev=2, tol=1e-4, maxiter=50, b_identity=True,
                 q0=torch.zeros(N**3, 8, dtype=torch.float64))
     n = 64
-    A1 = dia_from_numpy(np.full((1, n), 2.0), (0,), (n, n))
+    A1 = dia_from_numpy(np.full((1, n), 2.0), (0,), (n, n), device="cpu")
     with pytest.raises(ValueError, match="structured"):
         tnested(A1, A1, nev=2, tol=1e-4, maxiter=50, b_identity=True)

@@ -17,7 +17,7 @@ torch.set_num_threads(2)
 def _laplacian_pair(N=14):
     """The 2D Laplacian (SPD, n = N^2) in both packages."""
     Aj = jproblems.laplacian_dirichlet_2d(N, dtype=np.float64)
-    At = dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape)
+    At = dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape, device="cpu")
     return Aj, At
 
 

@@ -57,7 +57,7 @@ def _jax_op(data, offsets, n):
 def test_reference_matches_xla(pattern, m, dtype, rtol):
     data, offsets, n, Xt = _operands(pattern, m, dtype)
     Yj = np.asarray(dia_spmm_t_xla(_jax_op(data, offsets, n), jnp.asarray(Xt)))
-    A = dia_from_numpy(data, offsets, (n, n))
+    A = dia_from_numpy(data, offsets, (n, n), device="cpu")
     Yt = kd.dia_spmm_t_reference(A, torch.from_numpy(Xt)).numpy()
     assert Yt.dtype == dtype
     np.testing.assert_allclose(Yt, Yj, rtol=rtol, atol=rtol * np.abs(Yj).max())
@@ -91,7 +91,7 @@ def test_reference_bf16_matches_pallas_interpret(pattern, m):
 
 def test_spmm_t_dispatch_on_cpu():
     data, offsets, n, Xt = _operands("3d7", 8, np.float64)
-    A = dia_from_numpy(data, offsets, (n, n))
+    A = dia_from_numpy(data, offsets, (n, n), device="cpu")
     X = torch.from_numpy(Xt)
     before = kd.dia_spmm_t_cuda.launches
     torch.testing.assert_close(spmm_t(A, X), kd.dia_spmm_t_reference(A, X))
@@ -104,7 +104,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     """The kernel wrapper checks its operands before it loads anything, and
     never falls back to the plain version."""
     data, offsets, n, Xt = _operands("2d16", 8, np.float32)
-    A = dia_from_numpy(data, offsets, (n, n))
+    A = dia_from_numpy(data, offsets, (n, n), device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         kd.dia_spmm_t_cuda(A, torch.from_numpy(Xt))
 
@@ -113,16 +113,16 @@ def test_dia_from_numpy_and_scipy_roundtrip():
     from dune_eigensolver_tpu_torch.sparse import dia_from_scipy
 
     data, offsets, n, Xt = _operands("3d7", 4, np.float64)
-    A = dia_from_numpy(data, offsets, (n, n))
+    A = dia_from_numpy(data, offsets, (n, n), device="cpu")
     S = A.to_scipy()
     X = torch.from_numpy(Xt)
     # entries past the matrix edge are dropped by scipy and masked by spmm_t
     expect = (S @ Xt.T).T
     np.testing.assert_allclose(spmm_t(A, X).numpy(), expect, rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(spmm_t(dia_from_scipy(S), X).numpy(), expect,
+    np.testing.assert_allclose(spmm_t(dia_from_scipy(S, device="cpu"), X).numpy(), expect,
                                rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError, match="offsets"):
-        dia_from_numpy(data[:3], offsets, (n, n))
+        dia_from_numpy(data[:3], offsets, (n, n), device="cpu")
 
 
 def test_port_imports_no_jax():
@@ -137,7 +137,15 @@ def test_port_imports_no_jax():
         "dune_eigensolver_tpu_torch.sparse.problems, "
         "dune_eigensolver_tpu_torch.sparse.reorder, "
         "dune_eigensolver_tpu_torch.oracle.scipy_oracle, "
-        "dune_eigensolver_tpu_torch.utils.native; "
+        "dune_eigensolver_tpu_torch.utils.native, "
+        "dune_eigensolver_tpu_torch.utils.device, "
+        "dune_eigensolver_tpu_torch.utils.printers, "
+        "dune_eigensolver_tpu_torch.cli, "
+        "dune_eigensolver_tpu_torch.config, "
+        "dune_eigensolver_tpu_torch.bench.models, "
+        "dune_eigensolver_tpu_torch.bench.timing, "
+        "dune_eigensolver_tpu_torch.experiments.pipeline_probe, "
+        "dune_eigensolver_tpu_torch.experiments.kernel_variants; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k.startswith('dune_eigensolver_tpu.') or k == 'dune_eigensolver_tpu']; "
         "assert not bad, bad"
