@@ -80,6 +80,40 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               printed in the row (the only exception caught here, around
               the library's constructor and first product alone).
 
+15. study check — every ablation variant of the ELL kernel
+              (csrc/ell_ablate.cu) against its plain version at odd sizes (n
+              no multiple of a block; k = 17, 33, 51 from requested 7, 18,
+              33 plus the diagonal; m = 1, 8, 24): the ablation source's
+              full body must give ``ell_spmm_t_cuda``'s bits at every
+              (KC, threads), ``nogather``/``nodyn`` stay within 1e-5 of the
+              row's |data|.|X|, ``nofma`` is exact; then the eleven gather
+              probes (csrc/gather_probe.cu) and the shuffle form of the
+              first, none of which may print anything but OK.
+16. study   — the gather-kernel study path through its entry points, every
+              launch counter of its kernels zeroed just before and read just
+              after: ``gather_ablate.ablate_table`` at Nel=512 m=8 and on
+              the 2^20 graph (``ABLATE`` lines: the four variants, then the
+              (KC, threads) sweep), ``gather_probe.form_table`` at
+              (8, 4,194,304) (``FORM`` lines). These tables are the only
+              timing of the new kernels; every one must have been launched.
+17. standard — ``standard_largest`` on laplacian_dirichlet_2d(2048)
+              (n = 4,194,304), nev=8, tol 2e-3, twice, timing the second
+              (``LARGEST``: seconds, iterations, max_err against the closed
+              form, each returned pair's residual and Rayleigh quotient
+              by the plain product, DIA launches, and the same with
+              ``rayleigh_ritz=True``); ``standard_inverse`` with
+              ``inverse=None`` on laplacian_dirichlet_3d(128)
+              (n = 2,097,152), nev=8, which must route to V-cycle-CG
+              (``INVERSE``); both must stop by their change-based criterion
+              and stay under the gates stated, with their reasons, at
+              ``phase_standard``. Then the
+              CLI in process: ``--test largest ev.N=256``, ``--test smallest
+              ev.dim=3 ev.N=32 ev.inverse=mgcg`` and ``--test eigenvalues
+              ev.method=lobpcg ev.nested=1 ev.dim=3 ev.N=64``, each
+              returning 0 and printing its result line.
+
+Phases 15-17 run before phase 14, the kernel table, which comes last.
+
 Each solve phase zeroes every kernel's launch counter just before its
 timed run and reads the counters just after; a phase whose kernel was not
 launched fails. Results flagged PLATEAU have an oracle error above 5x the
@@ -87,7 +121,8 @@ change-based stopping tolerance (the reference's own flag).
 
 Output: progress lines, then one JSON line with the kernel table (each
 kernel's launches from the timed run of its own path: DIA phase 4, BSR
-phase 7, ELL phase 9, the probe and variant kernels phase 12; ``bound_ms``
+phase 7, ELL phase 9, the probe and variant kernels phase 12, the ablation
+and gather-probe kernels phase 16; ``bound_ms``
 is the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s, the card's
 published rates, over the least bytes the function needs: coefficients,
 one index per scalar (ELL) or per block (BSR), X and Y once; row 0 of the
@@ -662,6 +697,200 @@ def phase_library(torch, cases):
     return out
 
 
+#: kernel of csrc/gather_probe.cu -> the lines of the TPU probes it serves
+#: (experiments/mosaic_gather_probe.py)
+PROBE_LINES = {
+    "gather_lanes_smem": "31,44,147", "gather_lanes_shfl": "31", "gather_lanes_global": "31",
+    "gather_lanes_int8": "211", "block_select_scratch": "57", "lane_slice": "106",
+    "block_select": "84,175", "roll_lanes": "128", "gather_axis0": "160", "int8_widen": "197",
+}
+
+
+def phase_study_check(torch, ga, gp):
+    """Phase 15: the ablation variants and the gather probes against their
+    plain versions. Nothing is caught: a mismatch raises."""
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for n, k in ((1001, 7), (2049, 18), (777, 33)):
+        S = sp.random(n, n, density=(k - 1) / n, random_state=k, format="csr") + sp.eye(n)
+        A = ell_from_scipy(sp.csr_matrix(S), dtype=torch.float32, device="cuda")
+        for m in (1, 8, 24):
+            X = torch.randn((m, n), generator=gen, device="cuda")
+            errs = ga.check_variants(A, X)  # raises on a mismatch; full: bit for bit
+            torch.cuda.synchronize()
+            log(f"ablate check n={n} k={A.k} m={m}: full body == ell_spmm_t_cuda at "
+                f"{len(ga.KCS) + 1}x{len(ga.THREADS)} settings; max_abs_err " + json.dumps(errs))
+    verdicts = gp.run_probes(None)
+    torch.cuda.synchronize()
+    bad = {name: v for name, v in verdicts.items() if v != "OK"}
+    if len(verdicts) != 12 or bad:
+        raise RuntimeError(f"gather probes: {len(verdicts)} verdicts, not OK: {bad}")
+
+
+def phase_study(torch, study_kernels, ga, gp):
+    """Phase 16: the study path through its entry points, inside one counted
+    window. Returns (launches, operands, ablation rows, form rows by name)."""
+    t0 = time.perf_counter()
+    operands = ga.ablate_operands(None, 512)
+    log(f"ablate operands: {time.perf_counter() - t0:.1f} s host setup; " + ", ".join(
+        f"{name} n={A.shape[0]} k={A.k} nnz={A.nnz}" for name, A in operands))
+    torch.cuda.synchronize()
+    set_counts(study_kernels)
+    t0 = time.perf_counter()
+    ablate_rows = ga.ablate_table(None, 512, 8, operands=operands)
+    forms = {row["name"]: row for row in gp.form_table(None)}
+    torch.cuda.synchronize()
+    launches = read_counts(study_kernels)
+    idle = [name for name, count in launches.items() if count <= 0]
+    if idle:
+        raise RuntimeError(f"study: kernels launched no time on the study path: {idle}")
+    variants = [r for r in ablate_rows if "variant" in r]
+    sweep = [r for r in ablate_rows if "kc" in r]
+    if len(variants) != 2 * len(ga.VARIANTS) or len(sweep) != 2 * len(ga.KCS) * len(ga.THREADS):
+        raise RuntimeError(f"study: {len(variants)} variant rows, {len(sweep)} sweep rows")
+    numbers = [r["us"] for r in ablate_rows] + [r["us"] for r in forms.values()]
+    if not all(np.isfinite(x) and x > 0 for x in numbers):
+        raise RuntimeError(f"study: non-finite or non-positive times {numbers}")
+    best = {}
+    for r in sweep:
+        if r["operand"] not in best or r["us"] < best[r["operand"]]["us"]:
+            best[r["operand"]] = r
+    log("STUDY " + json.dumps(dict(
+        seconds=time.perf_counter() - t0, launches=launches,
+        best_sweep={k: dict(kc=r["kc"], threads=r["threads"], us=r["us"]) for k, r in best.items()},
+    )))
+    return launches, operands, ablate_rows, forms
+
+
+def phase_standard(torch, kernels, problems):
+    """Phase 17: ``standard_largest``, ``standard_inverse`` with the default
+    inverse, and the CLI's three convergence protocols.
+
+    Gates, and why. Both solvers stop when no eigenvalue moved by more than
+    ``tol`` in one iteration (the reference's criterion), which bounds the
+    change, not the error. LARGEST: the 8 largest eigenvalues of the 2D
+    operator at N = 2048 lie within 3e-5 of each other just below 8, at the
+    end of a spectrum whose density is constant there, so after k power
+    iterations a vector's weight over the distance d = 8 - lambda falls like
+    exp(-2 k d / 8): its Rayleigh quotient sits 4/k below 8 and its
+    residual ||A q - theta q|| is the same 4/k. The quotient moves 4/k^2 an
+    iteration, so the stop fires near k = sqrt(4 / tol), where error and
+    residual are sqrt(4 * tol) = 0.089 at tol 2e-3 (the run plateaus by
+    design, as PERF.md section 2 records for the flagship; ``plateau`` flags
+    an error above 5 * tol). The gate is twice that, 4 * sqrt(tol), for both:
+    it depends on tol alone, so a solve that runs on without closing in does
+    not pass by its length. Besides, each returned pair is held to its own
+    vector: orthonormal to 1e-4, and the returned value within tol / 2 of
+    the vector's Rayleigh quotient under the plain DIA product, summed in
+    float64. INVERSE: the smallest eigenvalues of the 3D
+    operator at N = 128 are 1.8e-3..5.3e-3 and well separated, so tol is
+    1e-6 absolute and the gate 1e-5 (shift-invert converges linearly at a
+    rate rho, and a change-based stop leaves rho/(1-rho) changes: 10x tol
+    holds up to rho = 0.9)."""
+    from dune_eigensolver_tpu_torch import cli, factorize
+    from dune_eigensolver_tpu_torch.kernels import dia_spmm as kd
+    from dune_eigensolver_tpu_torch.oracle.analytic import (
+        eigenvalues_laplace_dirichlet_2d,
+        eigenvalues_laplace_dirichlet_3d,
+    )
+    from dune_eigensolver_tpu_torch.solvers import standard_inverse, standard_largest
+
+    N2, nev = 2048, 8
+    A2 = problems.laplacian_dirichlet_2d(N2, dtype=torch.float32, device="cuda")
+    exact = eigenvalues_laplace_dirichlet_2d(N2)[::-1][:nev]
+
+    def largest(rr):
+        return lambda: standard_largest(A2, nev=nev, tol=2e-3, maxiter=4000, rayleigh_ritz=rr)
+
+    def pair_check(r):
+        # by the plain product, in float64: nothing of the kernel under test
+        Qt = r.eigenvectors.T.contiguous()
+        AQ = kd.dia_spmm_t_reference(A2, Qt).double()
+        Qd, lam = Qt.double(), r.eigenvalues.double()
+        quotient = (Qd * AQ).sum(dim=1) / (Qd * Qd).sum(dim=1)
+        eye = torch.eye(nev, dtype=torch.float64, device=Qd.device)
+        return dict(max_residual=(AQ - lam[:, None] * Qd).norm(dim=1).max().item(),
+                    max_quotient_gap=(quotient - lam).abs().max().item(),
+                    max_ortho_gap=(Qd @ Qd.T - eye).abs().max().item())
+
+    res, rec = timed_twice(torch, largest(False), kernels)
+    ev = check_solve(torch, "largest", res, N2 * N2, nev)
+    err = float(np.abs(ev - exact).max())
+    res_rr = largest(True)()
+    ev_rr = check_solve(torch, "largest rr", res_rr, N2 * N2, nev)
+    err_rr = float(np.abs(ev_rr - exact).max())
+    launches = rec["launches"]["dia_spmm_t"]
+    gate = 4 * np.sqrt(2e-3)
+    pairs, pairs_rr = pair_check(res), pair_check(res_rr)
+    rec.update(n=N2 * N2, nev=nev, tol=2e-3, max_err=err, gate=gate,
+               plateau=plateau(err, 2e-3), dia_spmm_launches=launches, **pairs,
+               rayleigh_ritz=dict(iterations=int(res_rr.iterations), max_err=err_rr, **pairs_rr),
+               eigenvalues=ev.tolist())
+    log("LARGEST " + json.dumps(rec))
+    if launches != 2 * rec["iterations"]:
+        raise RuntimeError(f"largest: {launches} DIA launches in {rec['iterations']} iterations")
+    if not (err <= gate and err_rr <= gate):
+        raise RuntimeError(f"largest: max_err {err:.3e} or, with rayleigh_ritz, {err_rr:.3e} "
+                           f"> {gate:.3e}")
+    for what, got in (("largest", pairs), ("largest rr", pairs_rr)):
+        if not (got["max_residual"] <= gate and got["max_quotient_gap"] <= 1e-3
+                and got["max_ortho_gap"] <= 1e-4):
+            raise RuntimeError(f"{what}: returned pairs fail their own check {got} "
+                               f"(residual gate {gate:.3e}, quotient 1e-3, orthonormal 1e-4)")
+    del A2, res, res_rr
+    torch.cuda.empty_cache()
+
+    N3 = 128
+    A3 = problems.laplacian_dirichlet_3d(N3, dtype=torch.float32, device="cuda")
+    route = factorize.default_inverse_factory(A3)[1].__qualname__
+    if "_mg_cg_solve_fn" not in route:
+        raise RuntimeError(f"inverse: default_inverse_factory routed to {route}, not to MG-CG")
+    res, rec = timed_twice(
+        torch, lambda: standard_inverse(A3, nev=nev, tol=1e-6, maxiter=200), kernels)
+    ev = check_solve(torch, "inverse", res, N3**3, nev)
+    err = float(np.abs(ev - eigenvalues_laplace_dirichlet_3d(N3, count=nev)).max())
+    rec.update(n=N3**3, nev=nev, tol=1e-6, max_err=err, gate=1e-5, route=route,
+               dia_spmm_launches=rec["launches"]["dia_spmm_t"], eigenvalues=ev.tolist())
+    log("INVERSE " + json.dumps(rec))
+    if rec["launches"]["dia_spmm_t"] <= 0:
+        raise RuntimeError("inverse: the solve launched the DIA kernel no time")
+    if not err <= 1e-5:
+        raise RuntimeError(f"inverse: max_err {err:.3e} > 1e-5")
+    del A3, res
+    torch.cuda.empty_cache()
+
+    ini = os.path.join(ROOT, "dune-eigensolver.ini")
+    protocols = (
+        (["--test", "largest", "ev.N=256"], "N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO:"),
+        (["--test", "smallest", "ev.dim=3", "ev.N=32", "ev.inverse=mgcg"],
+         "N_M_TOL_RASERROR_ARPERROR_TIMERATIO:"),
+        (["--test", "eigenvalues", "ev.method=lobpcg", "ev.nested=1", "ev.dim=3", "ev.N=64",
+          "ev.inverse=mg", "ev.b_identity=1", "ev.min_coarse=16"], "RESULT eigenvalues_test"),
+    )
+    for argv, head in protocols:
+        tee = Tee(sys.stdout)
+        set_counts(kernels)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main([ini, *argv])
+        seconds = time.perf_counter() - t0
+        lines = [ln for ln in tee.getvalue().splitlines() if ln.startswith(head)]
+        if rc != 0 or len(lines) != 1:
+            raise RuntimeError(f"cli.main({argv}) returned {rc} with result lines {lines}")
+        numbers = [float(f) for f in lines[0].split(":")[-1].split() if f[0].isdigit()
+                   and "=" not in f]
+        if not all(np.isfinite(numbers)):
+            raise RuntimeError(f"cli.main({argv}): non-finite result {lines[0]}")
+        launches = read_counts(kernels)["dia_spmm_t"]
+        if launches <= 0:
+            raise RuntimeError(f"cli.main({argv}) launched the DIA kernel no time")
+        log("PROTOCOL " + json.dumps(dict(argv=argv, seconds=seconds, dia_spmm_launches=launches,
+                                          line=lines[0])))
+
+
 def main():
     import torch
 
@@ -820,8 +1049,28 @@ def main():
     del A2, A3
     torch.cuda.empty_cache()
 
+    # --- phases 15-16: the gather-kernel study path ---
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    study_kernels = {"ell_spmm_t": kg.ell_spmm_t_cuda, "ablate_full": ga.ablate_full,
+                     "ablate_nogather": ga.ablate_nogather, "ablate_nodyn": ga.ablate_nodyn,
+                     "ablate_nofma": ga.ablate_nofma, **gp.KERNELS}
+    phase_study_check(torch, ga, gp)
+    study_launches, ablate_ops, ablate_rows, forms = phase_study(torch, study_kernels, ga, gp)
+    e512 = next(A for name, A in ablate_ops if name == "elasticity_512")
+    ablate_library = phase_library(torch, [
+        ("ell elasticity N=512 scalar scaled m=8", e512,
+         torch.randn((8, e512.shape[0]), generator=gen, device="cuda"), ga.ablate_full),
+    ])["ell elasticity N=512 scalar scaled m=8"]
+    del e512
+    torch.cuda.empty_cache()
+
+    # --- phase 17: the standard entry points and the CLI's protocols ---
+    phase_standard(torch, kernels, problems)
+
     # --- phase 14: the kernel table ---
-    def entry(name, source, replaces, launches, rec, nbytes, flops, library_ms):
+    def entry(name, source, replaces, launches, rec, nbytes, flops, library_ms, **more):
         b_ms, b_by = bound(nbytes, flops)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -829,7 +1078,7 @@ def main():
                 "library_ms": library_ms, "shape": rec["case"],
                 "copy_bound_ms": nbytes / copy_gbps / 1e6,
                 "share_of_copy_bound": nbytes / copy_gbps / 1e6 / rec["ms"],
-                "cli_launches": cli_launches[name]}
+                "cli_launches": cli_launches.get(name), **more}
 
     def gather_entry(name, source, replaces, launches, rec, per_index):
         # coefficients once, one 4-byte index per ``per_index`` of them (a
@@ -868,6 +1117,37 @@ def main():
         table.append(entry(name, csrc + "copy_probe.cu", f"experiments/pipeline_probe.py:{line}",
                            cli_launches[name], rec, rec["nbytes"], rec["flops"],
                            rec["library_ms"]))
+    for row in (r for r in ablate_rows if r["operand"] == "elasticity_512" and "variant" in r):
+        v, k = row["variant"], row["k"]
+        us = row["us"]
+        if v == "full":
+            # the table's `full` row times the shipped kernel; the ablation
+            # source's own full body is timed by the sweep, here at the
+            # shipped kernel's setting (KC from k, 256 threads)
+            kc = 8 if k <= 8 else 16 if k <= 16 else 24 if k <= 24 else 32
+            us = next(r["us"] for r in ablate_rows if r["operand"] == "elasticity_512"
+                      and r.get("kc") == kc and r.get("threads") == 256)
+        rec = dict(max_abs_err=row["max_abs_err"], ms=us / 1e3, plain_ms=row["plain_us"] / 1e3,
+                   case=f"ell elasticity N=512 scalar scaled k={k} m={row['m']} f32 "
+                   f"({v}; {row['share']:.3f} of the shipped kernel's time)")
+        flops = row["n"] * row["m"] if v == "nofma" else 2.0 * row["nnz"] * row["m"]
+        table.append(entry(f"ablate_{v}", csrc + "ell_ablate.cu", "experiments/gather_ablate.py:35",
+                           study_launches[f"ablate_{v}"], rec, row["nbytes"], flops,
+                           ablate_library if v == "full" else None))
+    for name, lines in PROBE_LINES.items():
+        row = forms[name]
+        rec = dict(max_abs_err=row["max_abs_err"], ms=row["us"] / 1e3,
+                   plain_ms=row["plain_us"] / 1e3,
+                   case="x".join(str(d) for d in row["shape"]) + " f32")
+        flops = row["nbytes"] // 9 if name == "int8_widen" else 0  # one add per 9 bytes
+        # nbytes: the function's (a block selection: one block in, one out);
+        # what the scratch form stages beyond that stands beside it
+        table.append(entry(name, csrc + "gather_probe.cu",
+                           "experiments/mosaic_gather_probe.py:" + lines,
+                           study_launches[name], rec, row["nbytes"], flops,
+                           row["library_us"] / 1e3, share_of_form_copy=row["share"],
+                           streamed_bytes=row["streamed_bytes"],
+                           streamed_gbps=row["streamed_bytes"] / row["us"] / 1e3))
     log(json.dumps({"kernels": table}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,10 @@ counterpart of the same path and function names there, and the tests in
 inputs. This package imports ``torch``, ``numpy`` and ``scipy`` and never
 ``jax`` (nor the JAX package, whose ``__init__`` imports jax).
 
-Layout (the ported slices: the nested-LOBPCG north-star solve, and the
+Layout (the ported slices: the nested-LOBPCG north-star solve, the
 general-sparsity ELL/BSR path with the CG inverse and
-``generalized_inverse``):
+``generalized_inverse``, the kernel-measurement path, and the standard
+entry points with the iterative inverse engines):
 
 * ``sparse``     — ``DIAMatrix``/``ELLMatrix``/``BSRMatrix`` containers,
   problem builders, RCM reordering, ``spmm_t``
@@ -17,9 +18,13 @@ general-sparsity ELL/BSR path with the CG inverse and
 * ``csrc``       — hand-written CUDA C++ for sm_90a (built at first use by
   ``utils.native`` into ``_build/``)
 * ``ops``        — blocked (B-)orthonormalization with spectral whitening
-* ``factorize``  — geometric-multigrid V-cycle and Jacobi-CG inverses
-* ``solvers``    — LOBPCG on the reciprocal pencil, nested iteration,
-  shift-invert ``generalized_inverse``
+* ``factorize``  — Jacobi-CG, Chebyshev, Chebyshev-CG, multigrid V-cycle
+  and V-cycle-CG inverses, and ``default_inverse_factory``'s routing
+* ``solvers``    — ``standard_largest``/``standard_inverse``, LOBPCG on the
+  reciprocal pencil, nested iteration, shift-invert ``generalized_inverse``
+* ``experiments`` — the kernel studies: copy probe, DIA staging variants,
+  ELL ablation, gather probes
+* ``cli``        — the reference program's protocols (``python -m``)
 * ``oracle``     — closed-form Dirichlet Laplacian spectra, scipy/ARPACK
   oracles
 
@@ -54,9 +59,15 @@ from dune_eigensolver_tpu_torch.solvers import (  # noqa: E402
     generalized_inverse,
     lobpcg_generalized,
     lobpcg_nested,
+    standard_inverse,
+    standard_largest,
 )
 from dune_eigensolver_tpu_torch.factorize import (  # noqa: E402
     cg_inverse_factory,
+    cheb_cg_inverse_factory,
+    chebyshev_inverse_factory,
+    default_inverse_factory,
+    mg_cg_inverse_factory,
     mg_inverse_factory,
 )
 
@@ -76,6 +87,12 @@ __all__ = [
     "generalized_inverse",
     "lobpcg_generalized",
     "lobpcg_nested",
+    "standard_inverse",
+    "standard_largest",
     "cg_inverse_factory",
+    "cheb_cg_inverse_factory",
+    "chebyshev_inverse_factory",
+    "default_inverse_factory",
+    "mg_cg_inverse_factory",
     "mg_inverse_factory",
 ]

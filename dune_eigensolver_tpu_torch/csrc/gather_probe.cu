@@ -1,0 +1,315 @@
+// Gather and run-time indexing probes for Hopper (sm_90a): the forms a
+// redesign of the ELL and BSR SpMMs (csrc/ell_spmm.cu, csrc/bsr_spmm.cu)
+// can choose from.
+//
+// Replaces the eleven probes of experiments/mosaic_gather_probe.py, which
+// ask the TPU toolchain which in-kernel gathers and dynamic indexings it
+// lowers at all. Here every one of them is expressible; the probes check
+// that each form is right and the timing table says what each costs
+// against a copy. Same functions, same shapes, in the form a GPU kernel
+// would use:
+//
+//   gather_lanes   out[r, c] = x[r, seg(c) + idx[r, c]], idx in [0, seg)
+//                  a gather along the row within segments of `seg` columns
+//                  (seg = 128 is the TPU's one-vreg gather). Three forms:
+//                  SMEM   a block stages its columns in shared memory and
+//                         reads smem[idx];
+//                  SHFL   seg = 128 only: a warp holds a segment in four
+//                         registers a lane and answers with four
+//                         __shfl_sync rounds an output;
+//                  GLOBAL each thread reads x through L1/L2 directly (what
+//                         the shipped kernels do).
+//                  With int8 indices (widened in registers) it is the
+//                  probe int8_gather_idx.
+//                  (probes gather_1vreg_8x128, gather_2sublane_16x128,
+//                  gather_2lane_8x256, int8_gather_idx)
+//   block_select   out = block p of x, p read from device memory by the
+//                  kernel (__ldg): either through a shared-memory scratch
+//                  that holds all nb blocks (dyn_scratch_load_3d), or
+//                  straight from device memory at the run-time offset
+//                  (dyn_input_load_3d, dyn_lane_slice_aligned,
+//                  vmem_scalar_index: the strides say which).
+//   roll_lanes     out[r, c] = x[r, seg(c) + (c + s) mod seg], s read from
+//                  device memory; through shared memory (dyn_roll_lane).
+//   gather_axis0   out[r, c] = x[idx[r, c], c]: a gather across rows,
+//                  through L1/L2 (gather_sublane_axis0).
+//   int8_widen     out = x + float(i8): char4 loads widened in registers
+//                  (int8_widen).
+//
+// Indices are clamped into range, so no access leaves its tensor. `seg` is
+// a power of two. What bounds them: device-memory bytes (every input read
+// once, the output written once); none does arithmetic worth counting.
+//
+// Interface: plain C for ctypes; launches go on the caller's stream and
+// return cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define GP_THREADS 256
+#define GP_CHUNK 2048        // columns a block of the shared-memory forms stages
+#define GP_MAX_BLOCKS 4224   // 32 blocks on each of 132 SMs, for grid-stride kernels
+
+__device__ __forceinline__ int clampi(int v, int hi) { return min(max(v, 0), hi); }
+
+// --- gather along the row, within segments ---------------------------------
+
+template <typename IDX>
+__global__ void __launch_bounds__(GP_THREADS)
+gather_lanes_smem_kernel(const float* __restrict__ x, const IDX* __restrict__ idx,
+                         float* __restrict__ out, long long width, int seg, int chunk) {
+  extern __shared__ float sm[];
+  const size_t at0 = (size_t)blockIdx.y * width + (size_t)blockIdx.x * chunk;
+  const int w = (int)min((long long)chunk, width - (long long)blockIdx.x * chunk);
+  for (int c = threadIdx.x; c < w; c += GP_THREADS) sm[c] = x[at0 + c];
+  __syncthreads();
+  for (int c = threadIdx.x; c < w; c += GP_THREADS) {
+    const int j = clampi((int)idx[at0 + c], seg - 1);  // int8 widens here
+    out[at0 + c] = sm[(c & ~(seg - 1)) + j];
+  }
+}
+
+// one warp per 128-column segment; (rows, width) is contiguous and width a
+// multiple of 128, so segment s is the flat range [128 s, 128 s + 128)
+__global__ void __launch_bounds__(GP_THREADS)
+gather_lanes_shfl_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                         float* __restrict__ out, long long nseg) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (GP_THREADS / 32);
+  for (long long s = (long long)blockIdx.x * (GP_THREADS / 32) + (threadIdx.x >> 5); s < nseg;
+       s += warps) {
+    const size_t base = (size_t)s * 128;
+    float v[4];
+    int j[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      v[g] = x[base + 32 * g + lane];
+      j[g] = clampi(idx[base + 32 * g + lane], 127);
+    }
+#pragma unroll
+    for (int go = 0; go < 4; ++go) {
+      float o = 0.f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float t = __shfl_sync(0xffffffffu, v[g], j[go] & 31);
+        if ((j[go] >> 5) == g) o = t;
+      }
+      out[base + 32 * go + lane] = o;
+    }
+  }
+}
+
+template <typename IDX>
+__global__ void __launch_bounds__(GP_THREADS)
+gather_lanes_global_kernel(const float* __restrict__ x, const IDX* __restrict__ idx,
+                           float* __restrict__ out, long long total, int seg) {
+  const long long stride = (long long)gridDim.x * GP_THREADS;
+  for (long long f = (long long)blockIdx.x * GP_THREADS + threadIdx.x; f < total; f += stride) {
+    const int j = clampi((int)idx[f], seg - 1);
+    out[f] = __ldg(x + (f & ~(long long)(seg - 1)) + j);
+  }
+}
+
+// --- a block chosen by an index the kernel reads from device memory --------
+
+// x is (rows, nb * bw); shared memory holds this block's columns of all nb
+// blocks (the scratch), then block p of the scratch is written out
+__global__ void __launch_bounds__(GP_THREADS)
+block_select_smem_kernel(const float* __restrict__ x, const int* __restrict__ p_ptr,
+                         float* __restrict__ out, int bw, int nb, int chunk) {
+  extern __shared__ float sm[];
+  const int c0 = blockIdx.x * chunk;
+  const int w = min(chunk, bw - c0);
+  const float* xr = x + (size_t)blockIdx.y * nb * bw;
+  for (int t = threadIdx.x; t < nb * w; t += GP_THREADS) {
+    const int b = t / w, c = t - b * w;
+    sm[b * chunk + c] = xr[(size_t)b * bw + c0 + c];
+  }
+  __syncthreads();
+  const int p = clampi(__ldg(p_ptr), nb - 1);
+  for (int c = threadIdx.x; c < w; c += GP_THREADS)
+    out[(size_t)blockIdx.y * bw + c0 + c] = sm[p * chunk + c];
+}
+
+// out[r, c] = x[p * block_stride + r * row_stride + c]
+__global__ void __launch_bounds__(GP_THREADS)
+block_select_global_kernel(const float* __restrict__ x, const int* __restrict__ p_ptr,
+                           float* __restrict__ out, int rows, int bw, int nb,
+                           long long row_stride, long long block_stride) {
+  const int p = clampi(__ldg(p_ptr), nb - 1);
+  const float* src = x + (size_t)p * block_stride;
+  const long long total = (long long)rows * bw;
+  const long long stride = (long long)gridDim.x * GP_THREADS;
+  for (long long f = (long long)blockIdx.x * GP_THREADS + threadIdx.x; f < total; f += stride) {
+    const long long r = f / bw;
+    out[f] = src[(size_t)r * row_stride + (f - r * bw)];
+  }
+}
+
+// --- roll by a shift read from device memory -------------------------------
+
+__global__ void __launch_bounds__(GP_THREADS)
+roll_lanes_smem_kernel(const float* __restrict__ x, const int* __restrict__ s_ptr,
+                       float* __restrict__ out, long long width, int seg, int chunk) {
+  extern __shared__ float sm[];
+  const size_t at0 = (size_t)blockIdx.y * width + (size_t)blockIdx.x * chunk;
+  const int w = (int)min((long long)chunk, width - (long long)blockIdx.x * chunk);
+  for (int c = threadIdx.x; c < w; c += GP_THREADS) sm[c] = x[at0 + c];
+  __syncthreads();
+  const int s = __ldg(s_ptr) & (seg - 1);  // two's complement: right for s < 0 too
+  for (int c = threadIdx.x; c < w; c += GP_THREADS)
+    out[at0 + c] = sm[(c & ~(seg - 1)) + ((c + s) & (seg - 1))];
+}
+
+// --- gather across rows ----------------------------------------------------
+
+__global__ void __launch_bounds__(GP_THREADS)
+gather_axis0_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                    float* __restrict__ out, int rows, long long width) {
+  const long long total = (long long)rows * width;
+  const long long stride = (long long)gridDim.x * GP_THREADS;
+  for (long long f = (long long)blockIdx.x * GP_THREADS + threadIdx.x; f < total; f += stride) {
+    const long long c = f % width;
+    out[f] = __ldg(x + (size_t)clampi(idx[f], rows - 1) * width + c);
+  }
+}
+
+// --- int8 widened in registers ---------------------------------------------
+
+template <bool VEC>
+__global__ void __launch_bounds__(GP_THREADS)
+int8_widen_kernel(const float* __restrict__ x, const signed char* __restrict__ i8,
+                  float* __restrict__ out, long long total) {
+  const long long stride = (long long)gridDim.x * GP_THREADS;
+  const long long t0 = (long long)blockIdx.x * GP_THREADS + threadIdx.x;
+  if (VEC) {
+    for (long long q = t0; q < total / 4; q += stride) {
+      const float4 v = reinterpret_cast<const float4*>(x)[q];
+      const char4 b = reinterpret_cast<const char4*>(i8)[q];
+      reinterpret_cast<float4*>(out)[q] =
+          make_float4(v.x + (float)b.x, v.y + (float)b.y, v.z + (float)b.z, v.w + (float)b.w);
+    }
+  } else {
+    for (long long f = t0; f < total; f += stride) out[f] = x[f] + (float)i8[f];
+  }
+}
+
+namespace {
+
+unsigned stride_grid(long long work_items) {
+  const long long blocks = (work_items + GP_THREADS - 1) / GP_THREADS;
+  return (unsigned)(blocks < 1 ? 1 : (blocks > GP_MAX_BLOCKS ? GP_MAX_BLOCKS : blocks));
+}
+
+bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// columns a block stages: a multiple of seg, GP_CHUNK unless seg is larger
+int chunk_for(int seg) { return seg > GP_CHUNK ? seg : GP_CHUNK; }
+
+}  // namespace
+
+extern "C" {
+
+// form: 0 shared memory, 1 warp shuffles (seg = 128, int32 indices), 2
+// global; idx_bytes: 4 (int32) or 1 (int8)
+int gather_lanes_launch(int form, int idx_bytes, const void* x, const void* idx, void* out,
+                        int rows, long long width, int seg, void* stream) {
+  if (rows < 1 || rows > 65535 || width < 1 || !pow2(seg) || width % seg ||
+      (idx_bytes != 4 && idx_bytes != 1) || form < 0 || form > 2 ||
+      (form == 1 && (seg != 128 || idx_bytes != 4)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xp = (const float*)x;
+  float* op = (float*)out;
+  const long long total = (long long)rows * width;
+  if (form == 0) {
+    const int chunk = chunk_for(seg);
+    const size_t smem = (size_t)chunk * sizeof(float);
+    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)((width + chunk - 1) / chunk), (unsigned)rows);
+    if (idx_bytes == 4)
+      gather_lanes_smem_kernel<int><<<grid, GP_THREADS, smem, s>>>(
+          xp, (const int*)idx, op, width, seg, chunk);
+    else
+      gather_lanes_smem_kernel<signed char><<<grid, GP_THREADS, smem, s>>>(
+          xp, (const signed char*)idx, op, width, seg, chunk);
+  } else if (form == 1) {
+    const long long nseg = total / 128;
+    gather_lanes_shfl_kernel<<<stride_grid(nseg * 32), GP_THREADS, 0, s>>>(
+        xp, (const int*)idx, op, nseg);
+  } else if (idx_bytes == 4) {
+    gather_lanes_global_kernel<int><<<stride_grid(total), GP_THREADS, 0, s>>>(
+        xp, (const int*)idx, op, total, seg);
+  } else {
+    gather_lanes_global_kernel<signed char><<<stride_grid(total), GP_THREADS, 0, s>>>(
+        xp, (const signed char*)idx, op, total, seg);
+  }
+  return (int)cudaGetLastError();
+}
+
+// via_smem: x is (rows, nb * bw) and the strides are ignored; else block p
+// starts at p * block_stride and its rows are row_stride apart. p is read
+// from p_ptr[0].
+int block_select_launch(int via_smem, const void* x, const void* p_ptr, void* out, int rows,
+                        int bw, int nb, long long row_stride, long long block_stride,
+                        void* stream) {
+  if (rows < 1 || rows > 65535 || bw < 1 || nb < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (via_smem) {
+    const int chunk = bw < GP_CHUNK ? bw : GP_CHUNK;
+    const size_t smem = (size_t)nb * chunk * sizeof(float);
+    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(block_select_smem_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const dim3 grid((unsigned)((bw + chunk - 1) / chunk), (unsigned)rows);
+    block_select_smem_kernel<<<grid, GP_THREADS, smem, s>>>(
+        (const float*)x, (const int*)p_ptr, (float*)out, bw, nb, chunk);
+  } else {
+    block_select_global_kernel<<<stride_grid((long long)rows * bw), GP_THREADS, 0, s>>>(
+        (const float*)x, (const int*)p_ptr, (float*)out, rows, bw, nb, row_stride,
+        block_stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+int roll_lanes_launch(const void* x, const void* s_ptr, void* out, int rows, long long width,
+                      int seg, void* stream) {
+  if (rows < 1 || rows > 65535 || width < 1 || !pow2(seg) || width % seg)
+    return (int)cudaErrorInvalidValue;
+  const int chunk = chunk_for(seg);
+  const size_t smem = (size_t)chunk * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((width + chunk - 1) / chunk), (unsigned)rows);
+  roll_lanes_smem_kernel<<<grid, GP_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const int*)s_ptr, (float*)out, width, seg, chunk);
+  return (int)cudaGetLastError();
+}
+
+int gather_axis0_launch(const void* x, const void* idx, void* out, int rows, long long width,
+                        void* stream) {
+  if (rows < 1 || width < 1) return (int)cudaErrorInvalidValue;
+  gather_axis0_kernel<<<stride_grid((long long)rows * width), GP_THREADS, 0,
+                        (cudaStream_t)stream>>>((const float*)x, (const int*)idx,
+                                                (float*)out, rows, width);
+  return (int)cudaGetLastError();
+}
+
+int int8_widen_launch(const void* x, const void* i8, void* out, long long total, void* stream) {
+  if (total < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (total % 4 == 0 && aligned16(x) && aligned16(out) && ((uintptr_t)i8 & 3) == 0)
+    int8_widen_kernel<true><<<stride_grid(total / 4), GP_THREADS, 0, s>>>(
+        (const float*)x, (const signed char*)i8, (float*)out, total);
+  else
+    int8_widen_kernel<false><<<stride_grid(total), GP_THREADS, 0, s>>>(
+        (const float*)x, (const signed char*)i8, (float*)out, total);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

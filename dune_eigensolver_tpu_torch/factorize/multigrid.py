@@ -1,10 +1,11 @@
 """Geometric multigrid V-cycle for structured-stencil DIA operators.
 
-Counterpart of the JAX package's ``factorize/multigrid.py`` (the
-``mg_inverse_factory`` path; ``mg_cg_inverse_factory`` is not ported yet).
-For the constant-coefficient Dirichlet stencils a rediscretized geometric
-V-cycle is spectrally equivalent to A'^-1 independently of n, so one cycle
-serves as the LOBPCG preconditioner.
+Counterpart of the JAX package's ``factorize/multigrid.py``. For the
+constant-coefficient Dirichlet stencils a rediscretized geometric V-cycle
+is spectrally equivalent to A'^-1 independently of n, so one cycle serves
+as the LOBPCG preconditioner (``mg_inverse_factory``) and as the
+preconditioner of a CG that converges in an n-independent number of steps
+(``mg_cg_inverse_factory``, the inner solve of shift-invert on 3D stencils).
 
 * Grid detection is structural: offsets ``{0, +-1, +-Nx[, +-Nx*Ny]}`` with
   matching ``n`` give dims ``(Ny, Nx)`` / ``(Nz, Ny, Nx)``. Stencil
@@ -26,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from dune_eigensolver_tpu_torch.factorize.cg import _cast_floating, _inv_diag_of
+from dune_eigensolver_tpu_torch.factorize.cg import _cast_floating, _inv_diag_of, cg_solve_t
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
 
 
@@ -285,6 +286,56 @@ def mg_inverse_factory(
         geom = _geom_of(A_int)
         levels = _coarse_levels(geom[0], min_coarse)
         fn = _mg_solve_fn(geom, levels, cycles, nu1, nu2, omega, coarse_iters, dtype)
+        return ((A_int, _inv_diag_of(A_int)), fn)
+
+    return inverse
+
+
+def _mg_cg_solve_fn(geom, levels, rtol, maxiter, cycles, nu1, nu2, omega, coarse_iters, dtype):
+    """V-cycle-preconditioned CG ``fn(aux, Xt)`` for one geometry and
+    setting; with ``dtype`` the whole solve (operand, iterate, V-cycle) runs
+    in it."""
+    mg_fn = _mg_solve_fn(geom, levels, cycles, nu1, nu2, omega, coarse_iters, dtype=None)
+
+    def solve(aux, Xt):
+        out_dt = Xt.dtype
+        if dtype is not None:
+            aux = _cast_floating(aux, dtype)
+            Xt = Xt.to(dtype)
+        A_, _ = aux
+        Y, _ = cg_solve_t(
+            lambda V: spmm_t(A_, V), Xt, rtol=rtol, maxiter=maxiter,
+            precond_apply=lambda R: mg_fn(aux, R),
+        )
+        return Y.to(out_dt)
+
+    solve.layout_t = True
+    return solve
+
+
+def mg_cg_inverse_factory(
+    rtol: float = 1e-5,
+    maxiter: int = 100,
+    cycles: int = 1,
+    nu1: int = 2,
+    nu2: int = 2,
+    omega: float = 0.8,
+    coarse_iters: int = 48,
+    min_coarse: int = 6,
+    dtype=None,
+):
+    """V-cycle-preconditioned CG to ``rtol``: the converging inner solve for
+    shift-invert subspace iteration on wide-band (3D) stencils, with an
+    O(1) condition number after preconditioning against O(sqrt(kappa)) for
+    the Chebyshev-Jacobi route (factorize/chebyshev.py). ``inverse(A)``
+    raises ValueError when the offsets are not a structured stencil
+    pattern."""
+
+    def inverse(A_int):
+        geom = _geom_of(A_int)
+        levels = _coarse_levels(geom[0], min_coarse)
+        fn = _mg_cg_solve_fn(geom, levels, rtol, maxiter, cycles, nu1, nu2, omega,
+                             coarse_iters, dtype)
         return ((A_int, _inv_diag_of(A_int)), fn)
 
     return inverse

@@ -1,7 +1,8 @@
 """Blocked multivector orthonormalization and dot products.
 
 Counterpart of the JAX package's ``ops/ortho.py``: the transposed-layout
-functions, and the column-layout (n, m) wrappers over them. Each b-row block of the (m, n) multivector is projected
+functions, and the column-layout (n, m) wrappers over them. Each b-row
+block of the (m, n) multivector is projected
 against the finished prefix and then whitened by its Gram matrix —
 CholeskyQR per block, with a spectral-whitening fallback when the
 Cholesky fails.
@@ -169,3 +170,21 @@ def b_orthonormalize_blocked_t(
     if return_mass:
         return Xt, norm, mass
     return Xt, norm
+
+
+def b_orthonormalize_blocked(
+    b_op,
+    X: torch.Tensor,
+    block: int = 8,
+    iterations: int = 1,
+    eps: float = 0.0,
+    return_mass: bool = False,
+):
+    """Column-layout wrapper over ``b_orthonormalize_blocked_t``: X is
+    (n, m), ``b_op`` a sparse operand or a callable on (n, m)."""
+    apply_b_t = (lambda Vt: b_op(Vt.T).T) if callable(b_op) else b_op
+    out = b_orthonormalize_blocked_t(
+        apply_b_t, X.T.contiguous(), block=block, iterations=iterations, eps=eps,
+        return_mass=return_mass,
+    )
+    return (out[0].T, *out[1:])

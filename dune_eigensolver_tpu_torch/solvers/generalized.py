@@ -104,6 +104,8 @@ def generalized_inverse(
     rayleigh_ritz: bool = False,
     inverse: Optional[Callable] = None,
     q0: Optional[torch.Tensor] = None,
+    eval_shift: Optional[float] = None,
+    dtype=None,
 ) -> EigenResult:
     """Smallest-nev eigenpairs of ``A x = lambda B x``.
 
@@ -112,23 +114,29 @@ def generalized_inverse(
     plain callable ``X -> A'^-1 X`` or a pair ``(aux, fn)`` with
     ``fn(aux, X)``; column-layout solves are bridged to the internal
     transposed layout. Pass ``cg_inverse_factory(...)`` for the matrix-free
-    path. The JAX package's default, ``default_inverse_factory`` (the
-    RCM-banded direct engine for ELL/BSR), is not ported yet, so
-    ``inverse=None`` raises.
+    path. Default: ``factorize.default_inverse_factory``, which picks the
+    engine by the operand (V-cycle-CG for 3D stencils, Chebyshev-CG for
+    other wide DIA) and raises ``NotImplementedError`` where the reference
+    takes a direct engine that is not ported yet (narrow-band DIA, ELL,
+    BSR).
 
     ``q0``: (n, m) start block, m = nev rounded up to ``block``; default a
-    ``torch.Generator`` draw from ``seed`` on A's device, in A's dtype.
+    ``torch.Generator`` draw from ``seed`` on A's device, in ``dtype``
+    (default A's).
+
+    ``eval_shift``: the shift the Rayleigh quotients are un-shifted by
+    (default ``shift``), for a caller that folded the shift into A itself
+    and passes ``shift=0``.
 
     Not ported yet from the JAX signature: the ``apply_a``/``apply_b``/
-    ``gram_reduce`` hooks and ``eval_shift`` of the distributed layer,
-    ``dtype`` and ``force_padded``.
+    ``gram_reduce`` hooks of the distributed layer. ``force_padded`` has no
+    counterpart.
     """
     if inverse is None:
-        raise ValueError(
-            "generalized_inverse: inverse=None selects default_inverse_factory "
-            "(the RCM-banded direct engine), which is not ported yet; pass a "
-            "factory, e.g. cg_inverse_factory(rtol=1e-5)"
-        )
+        from dune_eigensolver_tpu_torch.factorize import default_inverse_factory
+
+        inverse = default_inverse_factory
+    dtype = dtype or A.dtype
     m = padded_width(nev, block)
     n = A.shape[0]
 
@@ -150,10 +158,11 @@ def generalized_inverse(
         Q0 = to_internal(q0.T)
     else:
         gen = torch.Generator(device=A.device).manual_seed(seed)
-        Q0 = to_internal(random_multivector_t(gen, n, m, A.dtype, A.device))
+        Q0 = to_internal(random_multivector_t(gen, n, m, dtype, A.device))
     with torch.no_grad():
         return _gen_core(
             lambda X: spmm_t(A_int, X), lambda X: spmm_t(B_int, X), inv_aux, inv_fn,
-            Q0, nev, float(tol), int(maxiter), float(shift), int(block),
+            Q0, nev, float(tol), int(maxiter),
+            float(shift if eval_shift is None else eval_shift), int(block),
             int(min_iter), int(ortho_iterations), bool(rayleigh_ritz),
         )

@@ -148,6 +148,8 @@ def lobpcg_generalized(
     b_identity: bool = False,
     precond=None,
     q0: Optional[torch.Tensor] = None,
+    eval_shift: Optional[float] = None,
+    dtype=None,
 ) -> EigenResult:
     """Smallest-nev eigenpairs of ``A x = lambda B x`` by preconditioned
     LOBPCG on the reciprocal pencil (module docstring). Requires
@@ -159,22 +161,24 @@ def lobpcg_generalized(
     ``b_identity=True`` asserts B is the identity, so ``B @ X`` is skipped;
     the assertion is the caller's and is not checked.
     ``precond``: factory mapping A' to an approximate inverse apply (a
-    callable or an ``(aux, fn)`` pair), or ``False`` for none. The JAX
-    package's default, ``default_inverse_factory``, is not ported yet, so
-    ``precond=None`` raises.
+    callable or an ``(aux, fn)`` pair), or ``False`` for none. Default:
+    ``factorize.default_inverse_factory``, the engine the shift-invert
+    solvers use (it raises ``NotImplementedError`` for operands whose
+    default is a direct engine that is not ported yet).
     ``q0``: (n, m) start block; default a ``torch.Generator`` draw from
-    ``seed`` on A's device, in A's dtype.
+    ``seed`` on A's device, in ``dtype`` (default A's).
+    ``eval_shift``: the shift the eigenvalues are un-shifted by (default
+    ``shift``), for a caller that folded the shift into A itself.
 
     Not ported yet from the JAX signature: the ``apply_a``/``apply_b``/
-    ``gram_reduce`` hooks of the distributed layer, ``eval_shift``,
-    ``dtype`` and ``ortho_block='full'``.
+    ``gram_reduce`` hooks of the distributed layer and
+    ``ortho_block='full'``.
     """
     if precond is None:
-        raise ValueError(
-            "lobpcg_generalized: precond=None selects default_inverse_factory, "
-            "which is not ported yet; pass a factory (e.g. mg_inverse_factory()) "
-            "or precond=False"
-        )
+        from dune_eigensolver_tpu_torch.factorize import default_inverse_factory
+
+        precond = default_inverse_factory
+    dtype = dtype or A.dtype
     m = padded_width(nev, block)
     n = A.shape[0]
 
@@ -199,11 +203,12 @@ def lobpcg_generalized(
         Q0 = to_internal(q0.T)
     else:
         gen = torch.Generator(device=A.device).manual_seed(seed)
-        Q0 = to_internal(random_multivector_t(gen, n, m, A.dtype, A.device))
+        Q0 = to_internal(random_multivector_t(gen, n, m, dtype, A.device))
     apply_b = _identity_apply if b_identity else (lambda X: spmm_t(B_int, X))
     with torch.no_grad():
         return _lobpcg_core(
             lambda X: spmm_t(A_int, X), apply_b, prec_aux, prec_fn, Q0,
-            nev, float(tol), int(maxiter), float(shift), int(min_iter),
+            nev, float(tol), int(maxiter),
+            float(shift if eval_shift is None else eval_shift), int(min_iter),
             float(ortho_eps), int(ortho_iterations), int(ortho_block or block),
         )

@@ -12,7 +12,8 @@ import torch
 class EigenResult:
     """Result of an eigensolver run.
 
-    ``eigenvalues``: (nev,), sorted ascending for smallest-seeking solvers.
+    ``eigenvalues``: (nev,), sorted ascending for smallest-seeking solvers,
+    descending for ``standard_largest``.
     ``eigenvectors``: (n, nev), columns are the (B-)normalized eigenvector
     approximations.
     ``iterations``: outer iterations executed.
@@ -28,6 +29,12 @@ class EigenResult:
     converged: torch.Tensor
     criterion: torch.Tensor
     ortho_monitor: torch.Tensor
+
+
+def sort_result(evals: torch.Tensor, Q: torch.Tensor, nev: int, descending: bool):
+    """Order eigenpairs and truncate to nev (column layout)."""
+    order = torch.argsort(-evals if descending else evals, stable=True)
+    return evals[order][:nev], Q[:, order][:, :nev]
 
 
 def sort_result_t(evals: torch.Tensor, Qt: torch.Tensor, nev: int, descending: bool):

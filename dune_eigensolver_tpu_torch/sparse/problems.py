@@ -1,10 +1,12 @@
-"""Test-problem generators (the ported subset of the JAX package's
+"""Test-problem generators (counterpart of the JAX package's
 ``sparse/problems.py``):
 
-* the 2D 5-point and 3D 7-point Dirichlet Laplacians in DIA form. Their
-  diagonals are assembled on the target device from index arithmetic: at
-  216^3 the seven diagonals are 280 MB in f32, so nothing is built on the
-  host and copied;
+* the 2D 5-point and 3D 7-point Dirichlet Laplacians in DIA form and the
+  operators derived from the 2D one (Neumann variant, the GenEO mass
+  matrix, the identity on a pattern, the islands and the rectangular
+  operand). Their diagonals are assembled on the target device from index
+  arithmetic: at 216^3 the seven diagonals are 280 MB in f32, so nothing
+  is built on the host and copied;
 * the non-stencil operators: the 2D elasticity pencil (BSR, 2x2 blocks)
   and the unstructured graph Laplacian (ELL). These are assembled on the
   host with numpy/scipy, as in the reference, and then moved to the
@@ -43,6 +45,76 @@ def laplacian_dirichlet_2d(N: int, dtype=torch.float64, device=None) -> DIAMatri
     return DIAMatrix(
         data=torch.stack(rows), offsets=(-N, -1, 0, 1, N), shape=(n, n)
     )
+
+
+def laplacian_neumann_2d(N: int, dtype=torch.float64, device=None) -> DIAMatrix:
+    """Neumann-type variant: diagonal := |sum of off-diagonal entries|."""
+    A = laplacian_dirichlet_2d(N, dtype=dtype, device=device)
+    d0 = A.offsets.index(0)
+    data = A.data.clone()
+    data[d0] = (A.data.sum(dim=0) - A.data[d0]).abs()
+    return DIAMatrix(data=data, offsets=A.offsets, shape=A.shape)
+
+
+def partition_of_unity_2d(N: int, overlap: int, dtype=torch.float64, device=None) -> torch.Tensor:
+    """pu[k] = 0 within ``overlap`` of the grid boundary, else 1, as a
+    tensor of N*N entries."""
+    device = resolve(device)
+    k = torch.arange(N * N, dtype=torch.int64, device=device)
+    i, j = k // N, k % N
+    near = (i < overlap) | (i > N - 1 - overlap) | (j < overlap) | (j > N - 1 - overlap)
+    return torch.where(near, 0.0, 1.0).to(dtype)
+
+
+def laplacian_b_2d(N: int, overlap: int, dtype=torch.float64, device=None) -> DIAMatrix:
+    """GenEO-style B: Laplacian entries masked by the partition of unity,
+    B_ij = A_ij * pu_i * pu_j."""
+    A = laplacian_dirichlet_2d(N, dtype=dtype, device=device)
+    n = A.shape[0]
+    pu = partition_of_unity_2d(N, overlap, dtype=dtype, device=A.device)
+    i = torch.arange(n, dtype=torch.int64, device=A.device)
+    rows = []
+    for d, off in enumerate(A.offsets):
+        col = i + off
+        inside = (col >= 0) & (col < n)
+        pu_col = torch.where(inside, pu[col.clamp(0, n - 1)], torch.zeros((), dtype=dtype,
+                                                                          device=A.device))
+        rows.append(A.data[d] * pu * pu_col)
+    return DIAMatrix(data=torch.stack(rows), offsets=A.offsets, shape=A.shape)
+
+
+def identity_on_pattern(A: DIAMatrix, dtype=None) -> DIAMatrix:
+    """Identity matrix stored on A's diagonal pattern, on A's device."""
+    data = torch.zeros(A.data.shape, dtype=dtype or A.dtype, device=A.device)
+    data[A.offsets.index(0)] = 1.0
+    return DIAMatrix(data=data, offsets=A.offsets, shape=A.shape)
+
+
+def laplacian_islands_2d(N: int, islands: int, dtype=torch.float64, device=None) -> DIAMatrix:
+    """``islands`` decoupled N x N Dirichlet Laplacians in one operator:
+    constant work per partition and no coupling across partitions."""
+    A = laplacian_dirichlet_2d(N, dtype=dtype, device=device)
+    n = A.shape[0] * islands
+    return DIAMatrix(data=A.data.repeat(1, islands), offsets=A.offsets, shape=(n, n))
+
+
+def laplacian_dirichlet_rect(Nx: int, Ny: int, dtype=torch.float64, device=None) -> DIAMatrix:
+    """2D 5-point Laplacian on an Nx x Ny grid (row-major over y then x):
+    the connected weak-scaling operand, whose row partitions cut real -1
+    couplings."""
+    device = resolve(device)
+    n = Nx * Ny
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    one = torch.tensor(-1.0, dtype=dtype, device=device)
+    zero = torch.tensor(0.0, dtype=dtype, device=device)
+    rows = [
+        torch.where(i >= Nx, one, zero),
+        torch.where(i % Nx != 0, one, zero),
+        torch.full((n,), 4.0, dtype=dtype, device=device),
+        torch.where(i % Nx != Nx - 1, one, zero),
+        torch.where(i < n - Nx, one, zero),
+    ]
+    return DIAMatrix(data=torch.stack(rows), offsets=(-Nx, -1, 0, 1, Nx), shape=(n, n))
 
 
 def _laplacian_3d_device(N: int, dtype, device) -> torch.Tensor:

@@ -128,6 +128,23 @@ def load() -> ctypes.CDLL:
     # (variant, ndiag, slots, rows, window) -> blocks per SM, 0, or -error
     lib.dia_variant_blocks_per_sm.restype = i32
     lib.dia_variant_blocks_per_sm.argtypes = [i32, i32, i32, i32, i32]
+    # ELL ablation: (variant, kc, threads, data_t, cols_t, n, k, ncols, x, y, m, stream)
+    lib.ell_ablate_launch.restype = i32
+    lib.ell_ablate_launch.argtypes = [i32, i32, i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
+    # gather probes: (form, idx_bytes, x, idx, out, rows, width, seg, stream),
+    # (via_smem, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
+    # (x, s, out, rows, width, seg, stream), (x, idx, out, rows, width, stream),
+    # (x, i8, out, total, stream)
+    lib.gather_lanes_launch.restype = i32
+    lib.gather_lanes_launch.argtypes = [i32, i32, vp, vp, vp, i32, i64, i32, vp]
+    lib.block_select_launch.restype = i32
+    lib.block_select_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i64, i64, vp]
+    lib.roll_lanes_launch.restype = i32
+    lib.roll_lanes_launch.argtypes = [vp, vp, vp, i32, i64, i32, vp]
+    lib.gather_axis0_launch.restype = i32
+    lib.gather_axis0_launch.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.int8_widen_launch.restype = i32
+    lib.int8_widen_launch.argtypes = [vp, vp, vp, i64, vp]
     lib.dune_cuda_error_string.restype = ctypes.c_char_p
     lib.dune_cuda_error_string.argtypes = [i32]
     _LIB = lib

@@ -4,7 +4,10 @@ CLI against the JAX package's, on the CPU.
 Both ``ParameterTree``s read the same INI text and overrides; every function
 of ``bench/models.py`` is held to its JAX counterpart exactly; the CLI's
 ``matvec`` and ``mgs`` protocols run at a small size with ``ev.device=cpu``
-and must print the reference's line formats.
+and must print the reference's line formats; the ``largest``, ``smallest``
+and ``eigenvalues`` protocols run in both packages at a small size (the
+JAX package on its CPU backend) and are held to each other as far as two
+different random start blocks allow.
 """
 
 import inspect
@@ -175,19 +178,183 @@ def test_mgs_protocol_cpu(capsys):
     assert re.fullmatch(rf"P_n_m_i_perfn_perfb: 1 1024 16 15 {FLOAT} {FLOAT}", line), line
 
 
+#: what of each protocol still waits for an unported module, and for which
+UNPORTED = {
+    "largest": (["ev.refine=on"], "solvers/refine.py"),
+    "smallest": (["ev.N=12"], "item 10"),  # ev.inverse=auto on a 2D stencil: banded
+    "eigenvalues": (["ev.method=adaptive"], "solvers/adaptive.py"),
+    "scaling": ([], "item 14"),
+    "nonsense": ([], "unknown test"),
+}
+
+
 @pytest.mark.parametrize("name", ["largest", "smallest", "eigenvalues", "scaling", "nonsense"])
 def test_unported_protocol_returns_2(name, capsys):
-    assert cli.main(["--test", name, "ev.device=cpu"]) == 2
+    """``scaling`` and an unknown name return 2 before anything runs; the
+    three ported protocols return 2, saying what they wait for, when an
+    option asks for an unported module."""
+    extra, waits_for = UNPORTED[name]
+    assert cli.main(["--test", name, "ev.device=cpu", *extra]) == 2
     out = capsys.readouterr().out
     assert ("not ported yet" in out) == (name != "nonsense")
-    assert "matvec" in out and "mgs" in out
+    assert waits_for in out
+    if name in ("scaling", "nonsense"):
+        assert "matvec" in out and "mgs" in out and "largest" in out
+
+
+@pytest.mark.parametrize("method", ["dist", "dist_general"])
+def test_distributed_methods_return_2(method, capsys):
+    assert cli.main(["--test", "eigenvalues", f"ev.method={method}", "ev.device=cpu"]) == 2
+    assert "item 14" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="unknown ev.method"):
+        cli.main(["--test", "eigenvalues", "ev.method=nope", "ev.device=cpu"])
 
 
 def test_default_test_is_the_reference_one_and_unported(capsys):
-    """Without --test the reference runs ``largest``; the port says that it
-    is not ported and returns 2."""
-    assert cli.main(["ev.device=cpu"]) == 2
-    assert "'largest' not ported yet" in capsys.readouterr().out
+    """Without --test the reference runs ``largest``. (It was not ported when
+    this test was named; now it runs and prints its result line.)"""
+    assert cli.main(["ev.device=cpu", "ev.N=12", "ev.dtype=float64"]) == 0
+    assert "N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO: 12 8 " in capsys.readouterr().out
+
+
+SCI = r"\d\.\d{3}e[+-]\d\d"
+
+
+def _trees(overrides):
+    """The same configuration for both packages (the JAX tree has no
+    ``ev.device``; its backend in these tests is the CPU)."""
+    t = tconfig.ParameterTree().read_ini(INI).read_cli([*overrides, "ev.device=cpu"])
+    j = jconfig.ParameterTree().read_ini(INI).read_cli(overrides)
+    return t, j
+
+
+def test_largest_protocol_cpu(capsys):
+    """f64, N = 16: both packages find the oracle equal to the closed form
+    (1e-10), and stop on the same change-based criterion from different
+    random blocks, so their errors against the oracle are of one size
+    (both below 0.2, within a factor 4 of each other)."""
+    import dune_eigensolver_tpu.cli as jcli
+
+    t, j = _trees(["ev.N=16", "ev.dtype=float64", "ev.m=4"])
+    rt = cli.largest_eigenvalues_convergence_test(t)
+    (line,) = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("N_M_TOL")]
+    assert re.fullmatch(rf"N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO: 16 8 2\.0e-03 "
+                        rf"{SCI} {SCI} {SCI} {FLOAT}", line), line
+    rj = jcli.largest_eigenvalues_convergence_test(j)
+    capsys.readouterr()
+    assert set(rt) == set(rj)
+    assert rt["oracle_vs_analytic"] <= 1e-10 and rj["oracle_vs_analytic"] <= 1e-10
+    assert rt["err_refined"] is None and rt["iterations"] >= 2
+    assert rt["err_vs_oracle"] <= 0.2 and rj["err_vs_oracle"] <= 0.2
+    assert 0.25 <= rt["err_vs_oracle"] / rj["err_vs_oracle"] <= 4.0
+
+
+@pytest.mark.parametrize("overrides", [
+    ["ev.N=12", "ev.inverse=cg", "ev.dtype=float64"],
+    ["ev.N=8", "ev.dim=3", "ev.inverse=mgcg"],
+    ["ev.N=6", "ev.problem=elasticity", "ev.inverse=cg", "ev.dtype=float64"],
+], ids=["geneo-cg", "3d-mgcg", "elasticity-cg"])
+def test_smallest_protocol_cpu(overrides, capsys):
+    """Both packages against the ARPACK truth on the same pencil: converged,
+    and the reference's line. The error is the largest over the whole block
+    of 8, whose trailing values a change-based stop at 2e-3 leaves least
+    converged: held to 5e-2 of the largest of them, and the two packages'
+    errors (different random start blocks) within a factor 4 of each
+    other."""
+    import dune_eigensolver_tpu.cli as jcli
+    from dune_eigensolver_tpu_torch.oracle import smallest_generalized
+
+    t, j = _trees(overrides)
+    rt = cli.smallest_eigenvalues_convergence_test(t)
+    (line,) = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("N_M_TOL")]
+    assert re.fullmatch(rf"N_M_TOL_RASERROR_ARPERROR_TIMERATIO: \d+ 8 2\.0e-03 {SCI} {SCI} "
+                        rf"{FLOAT}", line), line
+    rj = jcli.smallest_eigenvalues_convergence_test(j)
+    capsys.readouterr()
+    assert set(rt) == set(rj)
+    assert rt["converged"] and rj["converged"]
+    truth, _ = smallest_generalized(*cli._problem_pair(t), 8, sigma=-float(t["ev.shift"]))
+    assert rt["err_vs_truth"] <= 5e-2 * truth.max() and rj["err_vs_truth"] <= 5e-2 * truth.max()
+    assert 0.25 <= rt["err_vs_truth"] / rj["err_vs_truth"] <= 4.0
+    assert abs(rt["iterations"] - rj["iterations"]) <= 8  # ~11-16 each, by the start block
+
+
+@pytest.mark.parametrize("overrides", [
+    ["ev.method=raes", "ev.N=12", "ev.inverse=cg"],
+    ["ev.method=tpu", "ev.N=8", "ev.dim=3", "ev.inverse=chebcg"],
+    ["ev.method=lobpcg", "ev.N=12", "ev.inverse=cg16"],
+    ["ev.method=lobpcg", "ev.N=12", "ev.inverse=none"],
+    ["ev.method=lobpcg", "ev.nested=1", "ev.dim=3", "ev.N=16", "ev.inverse=mg",
+     "ev.b_identity=1", "ev.min_coarse=6", "ev.ortho_block=8"],
+    ["ev.method=arpack", "ev.N=12"],
+], ids=["raes", "tpu", "lobpcg-cg16", "lobpcg-none", "lobpcg-nested", "arpack"])
+def test_eigenvalues_protocol_cpu(overrides, capsys):
+    """``ev.method`` dispatch in both packages on the same pencil: the
+    reference's RESULT line; ARPACK's eigenvalues equal (1e-10); the
+    solvers' smallest ``ev.m`` = 4 eigenvalues of the block of 8, from
+    different random blocks with a change-based stop at 2e-3, within 1e-2
+    (relative to the largest) of each other."""
+    import dune_eigensolver_tpu.cli as jcli
+
+    t, j = _trees(overrides)
+    rt = cli.eigenvalues_test(t)
+    method = t["ev.method"]
+    (line,) = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("RESULT")]
+    assert re.fullmatch(rf"RESULT eigenvalues_test {method} N=\d+ m=8 iters=-?\d+ "
+                        rf"time={FLOAT}s", line), line
+    rj = jcli.eigenvalues_test(j)
+    capsys.readouterr()
+    et, ej = np.asarray(rt["eigenvalues"], np.float64), np.asarray(rj["eigenvalues"], np.float64)
+    assert et.shape == ej.shape == (8,)
+    if method == "arpack":
+        assert rt["iterations"] == -1 and np.abs(et - ej).max() <= 1e-10
+    else:
+        assert rt["iterations"] > 0
+        assert np.abs(et - ej)[:4].max() <= 1e-2 * np.abs(ej)[:4].max()
+
+
+def test_eigenvalues_protocol_guards(capsys):
+    with pytest.raises(ValueError, match="ev.b_identity=1 requires"):
+        cli.main(["--test", "eigenvalues", "ev.method=lobpcg", "ev.b_identity=1", "ev.N=8",
+                  "ev.device=cpu"])
+    with pytest.raises(ValueError, match="unknown ev.inverse"):
+        cli.main(["--test", "eigenvalues", "ev.inverse=qr", "ev.N=8", "ev.device=cpu"])
+    assert cli.main(["--test", "eigenvalues", "ev.method=lobpcg", "ev.ortho_block=full",
+                     "ev.N=8", "ev.inverse=cg", "ev.device=cpu"]) == 2
+    assert "item 5" in capsys.readouterr().out
+
+
+def test_inverse_factory_kinds():
+    """All seven kinds of the reference; ``auto``/``banded``/``lu`` are the
+    solver's default (None)."""
+    from dune_eigensolver_tpu_torch.sparse import problems
+
+    A = problems.laplacian_dirichlet_3d(8, dtype=torch.float32, device="cpu")
+    pt = tconfig.ParameterTree()
+    for kind in ("auto", "banded", "lu"):
+        pt["ev.inverse"] = kind
+        assert cli._inverse_factory(pt) is None
+    X = torch.ones((2, 512))
+    for kind in ("cg", "cg16", "chebcg", "mg", "mgcg", "cheb"):
+        pt["ev.inverse"] = kind
+        aux, fn = cli._inverse_factory(pt)(A)
+        Y = fn(aux, X)
+        assert Y.shape == X.shape and Y.dtype == torch.float32 and torch.isfinite(Y).all()
+    assert cli._want_refine(pt) is False
+    pt["ev.dtype"] = "float64"
+    assert cli._want_refine(pt) is False  # native f64 on the card: auto never refines
+
+
+def test_problem_pair_kinds():
+    pt = tconfig.ParameterTree().read_cli(["ev.N=6", "ev.device=cpu", "ev.overlap=1"])
+    A, B = cli._problem_pair(pt)
+    assert A.shape == B.shape == (36, 36) and float(A.data.sum()) == pytest.approx(0.0)
+    pt["ev.dim"] = 3
+    A, B = cli._problem_pair(pt)
+    assert A.shape == (216, 216) and B.offsets == A.offsets and float(B.data.sum()) == 216.0
+    pt["ev.problem"] = "elasticity"
+    A, B = cli._problem_pair(pt)
+    assert A.block == (2, 2) and A.shape == (50, 50)
 
 
 def test_dtype_and_float64(capsys):

@@ -336,3 +336,198 @@ def test_cli_and_experiments_on_card(cuda, capsys):
     for label in ("ident T=1024", "ident+d", "ALIASED", "A shipped", "D rolling", "D in-place",
                   "B s=4 d=3", "C r1-style"):
         assert label in out
+
+
+# ---------------------------------------------------------------------------
+# The ELL ablation, the gather probes and the standard entry points
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k", [(1001, 7), (2049, 18), (777, 33), (300, 3)])
+@pytest.mark.parametrize("m", [1, 8, 24])
+def test_ablate_variants_match_plain(cuda, n, k, m):
+    """``check_variants``: the ablation source's full body gives the shipped
+    kernel's bits at every (KC, threads); ``nogather`` and ``nodyn`` stay
+    within 1e-5 of the largest row's sum of |data| |X| of their plain
+    versions; ``nofma`` is exact. n is no multiple of a block, k spans one
+    to two register chunks."""
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+
+    S = sp.random(n, n, density=(k - 1) / n, random_state=k, format="csr") + sp.eye(n)
+    A = ell_from_scipy(sp.csr_matrix(S), dtype=torch.float32, device=cuda)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, n)).astype(np.float32)).to(cuda)
+    before = {v: f.launches for v, f in ga.VARIANT_KERNELS.items()}
+    full_before = ga.ablate_full.launches
+    errs = ga.check_variants(A, X)
+    torch.cuda.synchronize()
+    assert set(errs) == set(ga.VARIANTS) and errs["nofma"] == 0.0
+    assert ga.ablate_full.launches == full_before + 15  # (1 + 4 chunks) x 3 block sizes
+    for v, f in ga.VARIANT_KERNELS.items():
+        assert f.launches >= before[v] + 1
+
+
+def test_ablate_wrappers_refuse_bad_operands(cuda):
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+
+    A = ell_from_scipy(sp.random(50, 20, density=0.9, random_state=0, format="csr"),
+                       dtype=torch.float32, device=cuda)
+    X = torch.ones((8, 20), device=cuda)
+    assert ga.ablate_nogather(A, X).shape == (8, 50)  # rectangular: i' = min(i, ncols - 1)
+    assert A.k <= 20 and ga.ablate_nodyn(A, X).shape == (8, 50)
+    wide = ell_from_scipy(sp.csr_matrix(np.ones((4, 3))), dtype=torch.float32, device=cuda)
+    wide = type(wide)(data=wide.data.repeat(1, 2), cols=wide.cols.repeat(1, 2), shape=wide.shape,
+                      nnz=wide.nnz)
+    with pytest.raises(ValueError, match="exceeds"):
+        ga.ablate_nodyn(wide, torch.ones((2, 3), device=cuda))
+    with pytest.raises(ValueError, match="kc"):
+        ga.ablate_full(A, X, kc=12)
+    with pytest.raises(ValueError, match="threads"):
+        ga.ablate_full(A, X, threads=64)
+    with pytest.raises(TypeError, match="float32"):
+        ga.ablate_nofma(A, X.double())
+
+
+def test_gather_probes_all_ok_on_card(cuda, capsys):
+    """The eleven probes and the shuffle form of the first: on this card
+    none may fail."""
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    gp_before = {k: f.launches for k, f in gp.KERNELS.items()}
+    verdicts = gp.run_probes(cuda)
+    assert len(verdicts) == 12 and set(verdicts.values()) == {"OK"}
+    # every kernel serves a probe but the L1/L2 form of the row gather,
+    # which only the timing table runs
+    assert all(f.launches > gp_before[k] for k, f in gp.KERNELS.items()
+               if k != "gather_lanes_global")
+    assert capsys.readouterr().out.count(": OK") == 12
+
+
+@pytest.mark.parametrize("rows,width,seg", [(8, 4096, 128), (3, 2560, 256), (5, 10240, 64),
+                                            (1, 512, 512), (16, 8192, 128)])
+def test_gather_forms_match_plain(cuda, rows, width, seg):
+    """Every probe kernel against its plain version on random data and
+    indices (exact): several chunks a row, a last chunk that is not full,
+    one segment a row; then the timed table itself at (8, width), which
+    raises on a mismatch."""
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    gen = torch.Generator(device="cuda").manual_seed(rows * width + seg)
+    x = torch.randn((rows, width), generator=gen, device=cuda)
+    lanes = torch.randint(0, seg, (rows, width), generator=gen, device=cuda, dtype=torch.int32)
+    want = gp.gather_lanes_reference(x, lanes, seg)
+    assert torch.equal(gp.gather_lanes_smem(x, lanes, seg), want)
+    assert torch.equal(gp.gather_lanes_global(x, lanes, seg), want)
+    if seg == 128:
+        assert torch.equal(gp.gather_lanes_shfl(x, lanes), want)
+    if seg <= 128:
+        assert torch.equal(gp.gather_lanes_int8(x, lanes.to(torch.int8), seg), want)
+    across = torch.randint(0, rows, (rows, width), generator=gen, device=cuda, dtype=torch.int32)
+    assert torch.equal(gp.gather_axis0(x, across), gp.gather_axis0_reference(x, across))
+    s = torch.tensor([37], dtype=torch.int32, device=cuda)
+    assert torch.equal(gp.roll_lanes(x, s, min(256, seg)),
+                       gp.roll_lanes_reference(x, s, min(256, seg)))
+    i8 = torch.randint(-128, 128, (rows, width), generator=gen, device=cuda, dtype=torch.int8)
+    assert torch.equal(gp.int8_widen(x, i8), gp.int8_widen_reference(x, i8))
+    p, bw = torch.tensor([2], dtype=torch.int32, device=cuda), width // 4
+    want = gp.lane_slice_reference(x, p, bw)
+    assert torch.equal(gp.lane_slice(x, p, bw), want)
+    assert torch.equal(gp.block_select_scratch(x, p, bw), want)
+    x3 = x.reshape(rows, 4, bw).transpose(0, 1).contiguous()
+    assert torch.equal(gp.block_select(x3, p), gp.block_select_reference(x3, p))
+    table = list(gp.form_table(cuda, width))
+    assert sorted(r["name"] for r in table[1:]) == sorted(gp.KERNELS)
+    assert all(r["max_abs_err"] == 0.0 for r in table[1:])
+
+
+def test_probe_kernels_clamp_and_refuse(cuda):
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    x = torch.randn((4, 256), device=cuda)
+    wild = torch.randint(-500, 500, (4, 256), device=cuda, dtype=torch.int32)
+    for fn in (gp.gather_lanes_smem, gp.gather_lanes_global):
+        assert torch.equal(fn(x, wild, 128), gp.gather_lanes_reference(x, wild, 128))
+    assert torch.equal(gp.gather_lanes_shfl(x, wild), gp.gather_lanes_reference(x, wild, 128))
+    assert torch.equal(gp.gather_axis0(x, wild), gp.gather_axis0_reference(x, wild))
+    for s in (-5, 0, 300):
+        st = torch.tensor([s], dtype=torch.int32, device=cuda)
+        assert torch.equal(gp.roll_lanes(x, st, 64), gp.roll_lanes_reference(x, st, 64))
+    for p in (-3, 1, 9):
+        pt = torch.tensor([p], dtype=torch.int32, device=cuda)
+        assert torch.equal(gp.lane_slice(x, pt, 64), gp.lane_slice_reference(x, pt, 64))
+        assert torch.equal(gp.block_select_scratch(x, pt, 64), gp.lane_slice_reference(x, pt, 64))
+        assert torch.equal(gp.block_select(x.reshape(4, 4, 64), pt),
+                           gp.block_select_reference(x.reshape(4, 4, 64), pt))
+    odd = torch.randn((3, 7), device=cuda)  # 21 elements: the byte path of the widen-add
+    i8 = torch.randint(-128, 128, (3, 7), device=cuda, dtype=torch.int8)
+    assert torch.equal(gp.int8_widen(odd, i8), gp.int8_widen_reference(odd, i8))
+    with pytest.raises(ValueError, match="power of two"):
+        gp.gather_lanes_smem(x, wild, 96)
+    with pytest.raises(ValueError, match="seg = 128"):
+        gp.gather_lanes_shfl(x, wild, 64)
+    with pytest.raises(TypeError, match="idx dtype"):
+        gp.gather_lanes_int8(x, wild, 128)
+    with pytest.raises(TypeError, match="float32"):
+        gp.roll_lanes(x.double(), torch.zeros(1, dtype=torch.int32, device=cuda), 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        gp.block_select_scratch(torch.zeros((1, 64 * 2048), device=cuda),
+                                torch.zeros(1, dtype=torch.int32, device=cuda), 2048)
+
+
+def test_standard_entry_points_on_card(cuda):
+    """``standard_largest`` on the 2D Laplacian (N = 96) and
+    ``standard_inverse`` with the default inverse on the 3D one (N = 48,
+    band 2304 > 2048: V-cycle-CG) on the card, through the DIA kernel,
+    against the closed form: the largest 4 within 4 * sqrt(tol) (a
+    change-based stop on a dense upper end fires near k = sqrt(4 / tol)
+    iterations, where a Rayleigh quotient sits 4 / k = sqrt(4 * tol) below
+    the top: the gate is twice that and depends on tol alone), the smallest
+    4 within 1e-4 (tol 1e-6)."""
+    from dune_eigensolver_tpu_torch.oracle import (
+        eigenvalues_laplace_dirichlet_2d,
+        eigenvalues_laplace_dirichlet_3d,
+    )
+    from dune_eigensolver_tpu_torch.solvers import standard_inverse, standard_largest
+
+    A2 = problems.laplacian_dirichlet_2d(96, dtype=torch.float32, device=cuda)
+    before = kd.dia_spmm_t_cuda.launches
+    res = standard_largest(A2, nev=4, tol=2e-3, maxiter=2000, rayleigh_ritz=True)
+    assert kd.dia_spmm_t_cuda.launches == before + 2 * int(res.iterations)
+    ev = res.eigenvalues.cpu().numpy()
+    assert bool(res.converged) and res.eigenvectors.shape == (96 * 96, 4)
+    err = np.abs(ev - eigenvalues_laplace_dirichlet_2d(96)[::-1][:4]).max()
+    assert err <= 4 * np.sqrt(2e-3)
+    A3 = problems.laplacian_dirichlet_3d(48, dtype=torch.float32, device=cuda)
+    before = kd.dia_spmm_t_cuda.launches
+    res = standard_inverse(A3, nev=4, tol=1e-6, maxiter=100)
+    assert kd.dia_spmm_t_cuda.launches > before and bool(res.converged)
+    ev = res.eigenvalues.cpu().numpy()
+    assert np.abs(ev - eigenvalues_laplace_dirichlet_3d(48, count=4)).max() <= 1e-4
+    with pytest.raises(NotImplementedError, match="item 10"):
+        standard_inverse(A2, nev=4, tol=1e-6, maxiter=10)
+
+
+def test_study_path_and_protocols_on_card(cuda, capsys):
+    """The new entry points at a small size on the card: the ablation and
+    probe mains and the three convergence protocols print their lines."""
+    from dune_eigensolver_tpu_torch import cli
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    assert ga.main(["32", "--graph-n", "20000"]) == 0
+    assert gp.main(["--width", "65536"]) == 0
+    assert cli.main(["--test", "largest", "ev.N=32"]) == 0
+    assert cli.main(["--test", "smallest", "ev.N=12", "ev.dim=3", "ev.inverse=mgcg"]) == 0
+    assert cli.main(["--test", "eigenvalues", "ev.method=lobpcg", "ev.nested=1", "ev.dim=3",
+                     "ev.N=24", "ev.inverse=mg", "ev.b_identity=1", "ev.min_coarse=6"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("ABLATE variant=") == 8 and out.count("ABLATE kc=") == 24
+    assert out.count(": OK") == 12 and "probe done" in out and "FORM name=gather_lanes_shfl" in out
+    assert "N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO: 32 8 " in out
+    assert "N_M_TOL_RASERROR_ARPERROR_TIMERATIO: 12 8 " in out
+    assert "RESULT eigenvalues_test lobpcg N=24 m=8 " in out

@@ -207,12 +207,12 @@ def test_seeded_start_is_reproducible():
 
 
 def test_default_inverses_are_refused():
-    """``inverse=None``/``precond=None`` select the JAX package's
-    default_inverse_factory (the RCM-banded direct engine), which is not
-    ported yet: both entry points say so instead of running something
-    else."""
+    """``inverse=None``/``precond=None`` select ``default_inverse_factory``,
+    whose choice for a BSR operand is the RCM-banded direct engine, which is
+    not ported yet: both entry points say so (naming the ROADMAP item)
+    instead of running something else."""
     A, B = problems.elasticity_2d(4, device="cpu")
-    with pytest.raises(ValueError, match="default_inverse_factory"):
+    with pytest.raises(NotImplementedError, match="RCM-banded.*item 10"):
         tgeneralized(A, B, nev=2, tol=1e-6, maxiter=10)
-    with pytest.raises(ValueError, match="default_inverse_factory"):
+    with pytest.raises(NotImplementedError, match="RCM-banded.*item 10"):
         tlobpcg(A, B, nev=2, tol=1e-6, maxiter=10)

@@ -145,9 +145,15 @@ def test_port_imports_no_jax():
         "dune_eigensolver_tpu_torch.bench.models, "
         "dune_eigensolver_tpu_torch.bench.timing, "
         "dune_eigensolver_tpu_torch.experiments.pipeline_probe, "
-        "dune_eigensolver_tpu_torch.experiments.kernel_variants; "
+        "dune_eigensolver_tpu_torch.experiments.kernel_variants, "
+        "dune_eigensolver_tpu_torch.experiments.gather_ablate, "
+        "dune_eigensolver_tpu_torch.experiments.gather_probe, "
+        "dune_eigensolver_tpu_torch.solvers.standard, "
+        "dune_eigensolver_tpu_torch.factorize.chebyshev, "
+        "dune_eigensolver_tpu_torch.factorize.multigrid; "
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
-        "or k.startswith('dune_eigensolver_tpu.') or k == 'dune_eigensolver_tpu']; "
+        "or k.startswith('dune_eigensolver_tpu.') or k == 'dune_eigensolver_tpu' "
+        "or k == 'experiments' or k.startswith('experiments.')]; "
         "assert not bad, bad"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
