@@ -10,20 +10,29 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               into the package's ``_build/`` and prints ptxas' report.
 3. kernel   — the CUDA DIA SpMM against its plain PyTorch version on the
               card, at the main path's shapes (2D N=2048 m=8; 3D N=216
-              m=24/72 in f32 and bf16; 3D N=37, whose n is not a multiple
-              of the 256-thread block), each with its tolerance; median
-              times of both with CUDA events, and GB/s under the byte model
-              ``(ndiag*n + 2*n*m) * itemsize``.
+              m=24/72 in f32 and bf16; the nested solve's coarser grids
+              N=108 and N=54 at m=24 in both; ``standard_inverse``'s N=128
+              m=8; 3D N=37, whose n is odd), each with its tolerance and the
+              columns a thread of the kernel must own there (4, 4, 2 at
+              N=54, 1 at N=37); the kernel's median time launched in a
+              loop from the host (``ms``) and its device time by CUDA-graph
+              replay (``device_ms``: the shortest kernels do not keep the
+              host's loop busy), the plain version's median time, and GB/s
+              under the byte model ``(ndiag*n + 2*n*m) * itemsize`` over
+              ``ms`` and over ``device_ms``.
 4. solve    — the north-star recipe through the port's entry points:
               ``lobpcg_nested`` on the 3D 7-point Dirichlet Laplacian, first
               at N=24 against the analytic spectrum, then at N=216
               (10,077,696 dof) twice, timing the second run. The kernel's
               launch counter is zeroed just before the timed run and read
               just after; the run must converge, be finite, launch the
-              kernel, and match the analytic smallest 20 to 1e-5.
+              kernel, take 4 columns a thread at every fine-level launch,
+              and match the analytic smallest 20 to 1e-5.
 5. spread   — two more timed 216^3 solves, then one under torch.profiler:
               device time, device operations, and the device's busy share
-              of the unprofiled solve, with the top of the operator table.
+              of the unprofiled solve, with the top of the operator table
+              (``PROFILE north star``; phase 7 does the same for its solve,
+              ``PROFILE geneo``).
 6. gather   — the CUDA ELL and BSR SpMMs against their plain PyTorch
               versions on the card, f32, at the general-sparsity path's
               shapes (elasticity_2d(512) as 2x2 BSR at m=8 and 24 and
@@ -32,8 +41,11 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               as ELL at m=8 and 24; a 100,003-row graph, whose n is not a
               multiple of the 256-thread block; the operands of the CLI's
               ``matvec`` at ev.N=2048, elasticity_2d(1024) scaled by its
-              max row sum as BSR and as ELL at m=8), with median times of
-              both and GFLOP/s as 2*nnz*m/t.
+              max row sum as BSR and as ELL at m=8), with the kernel's
+              times (``ms``, ``device_ms`` as in phase 3), the plain
+              version's median time and GFLOP/s as 2*nnz*m/t. Then one
+              ``REREAD`` line per operand of ``phase_reread``: what the far
+              re-reads of X cost the DIA and the BSR kernel.
 7. geneo    — the GenEO elasticity pencil at full size: elasticity_2d(512)
               f32 (n = 522,242) through ``lobpcg_generalized`` with the
               cg25 Jacobi-CG preconditioner, twice, timing the second run;
@@ -127,8 +139,12 @@ is the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s, the card's
 published rates, over the least bytes the function needs: coefficients,
 one index per scalar (ELL) or per block (BSR), X and Y once; row 0 of the
 copy probe's ``d``, whose other rows the kernel streams by design;
-``copy_bound_ms`` is the same bytes over the measured ``copy_gbps``), then the card's name and power limit as nvidia-smi reports
-them, then the last line ``{"ok": true, "device": {...}}``.
+``copy_bound_ms`` is the same bytes over the measured ``copy_gbps``; the
+DIA row and the two BSR rows, at elasticity_2d(512) m=8 and at the
+flagship's elasticity_2d(96) m=128, carry ``device_ms`` beside ``ms``),
+then the card's name and
+power limit as nvidia-smi reports them, then the last line
+``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -183,20 +199,33 @@ def median_ms(fn, reps=7, inner=5):
     return times[len(times) // 2]
 
 
+def replay_ms(fn):
+    """Device time of one call by CUDA-graph replay (bench/timing.py)."""
+    from dune_eigensolver_tpu_torch.bench.timing import replay_ms as timed
+
+    return timed(fn)
+
+
 def phase_kernel(torch, kd, problems):
     """Kernel against plain version; returns the per-case records."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # the last entry: the columns a thread of the kernel must own there
     cases = [
-        ("2d N=2048 m=8 f32", 2, 2048, 8, torch.float32),
-        ("3d N=216 m=24 f32", 3, 216, 24, torch.float32),
-        ("3d N=216 m=72 f32", 3, 216, 72, torch.float32),
-        ("3d N=216 m=24 bf16", 3, 216, 24, torch.bfloat16),
-        ("3d N=216 m=72 bf16", 3, 216, 72, torch.bfloat16),
-        ("3d N=37 m=24 f32", 3, 37, 24, torch.float32),
-        ("3d N=37 m=24 bf16", 3, 37, 24, torch.bfloat16),
+        ("2d N=2048 m=8 f32", 2, 2048, 8, torch.float32, 4),
+        ("3d N=216 m=24 f32", 3, 216, 24, torch.float32, 4),
+        ("3d N=216 m=72 f32", 3, 216, 72, torch.float32, 4),
+        ("3d N=216 m=24 bf16", 3, 216, 24, torch.bfloat16, 4),
+        ("3d N=216 m=72 bf16", 3, 216, 72, torch.bfloat16, 4),
+        ("3d N=108 m=24 f32", 3, 108, 24, torch.float32, 4),
+        ("3d N=108 m=24 bf16", 3, 108, 24, torch.bfloat16, 4),
+        ("3d N=54 m=24 f32", 3, 54, 24, torch.float32, 2),
+        ("3d N=54 m=24 bf16", 3, 54, 24, torch.bfloat16, 2),
+        ("3d N=128 m=8 f32", 3, 128, 8, torch.float32, 4),
+        ("3d N=37 m=24 f32", 3, 37, 24, torch.float32, 1),
+        ("3d N=37 m=24 bf16", 3, 37, 24, torch.bfloat16, 1),
     ]
     records = []
-    for name, dim, N, m, dtype in cases:
+    for name, dim, N, m, dtype, width in cases:
         build = problems.laplacian_dirichlet_2d if dim == 2 else problems.laplacian_dirichlet_3d
         A32 = build(N, dtype=torch.float32, device="cuda")
         A = type(A32)(data=A32.data.to(dtype), offsets=A32.offsets, shape=A32.shape)
@@ -206,6 +235,9 @@ def phase_kernel(torch, kd, problems):
         Y = kd.dia_spmm_t_cuda(A, X)
         R = kd.dia_spmm_t_reference(A, X)
         torch.cuda.synchronize()
+        if kd.dia_spmm_t_cuda.width != width:
+            raise RuntimeError(f"{name}: the kernel took {kd.dia_spmm_t_cuda.width} columns "
+                               f"a thread, expected {width}")
         if not torch.isfinite(Y).all():
             raise RuntimeError(f"{name}: kernel output not finite")
         err = (Y.float() - R.float()).abs().max().item()
@@ -216,17 +248,81 @@ def phase_kernel(torch, kd, problems):
         if not err <= tol:
             raise RuntimeError(f"{name}: max_abs_err {err:.3e} > tol {tol:.3e}")
         del Y, R
+        # ms: a loop of launches from the host, which the shortest kernels
+        # do not keep busy; device_ms: device time by graph replay
         ms = median_ms(lambda: kd.dia_spmm_t_cuda(A, X))
+        device_ms = replay_ms(lambda: kd.dia_spmm_t_cuda(A, X))
         plain_ms = median_ms(lambda: kd.dia_spmm_t_reference(A, X), reps=5, inner=2)
         nbytes = (len(A.offsets) * n + 2 * n * m) * X.element_size()
-        rec = dict(case=name, n=n, m=m, max_abs_err=err, tol=tol, ms=ms,
-                   plain_ms=plain_ms, gbps=nbytes / ms / 1e6,
-                   plain_gbps=nbytes / plain_ms / 1e6)
+        rec = dict(case=name, n=n, m=m, width=width, max_abs_err=err, tol=tol, ms=ms,
+                   device_ms=device_ms, plain_ms=plain_ms, gbps=nbytes / ms / 1e6,
+                   device_gbps=nbytes / device_ms / 1e6, plain_gbps=nbytes / plain_ms / 1e6)
         log("KERNEL " + json.dumps(rec))
         records.append(rec)
         del A, X
         torch.cuda.empty_cache()
     return records
+
+
+def phase_reread(torch, kd, kg, problems, A512):
+    """What the far re-reads of X cost: the DIA kernel at n = 216^3, m = 24 on
+    seven-diagonal stencils around (-1, 0, 1) whose far offsets are 4 and 8
+    (every re-read of X near by), N and 2N (a grid row away), and the
+    operator's own N and N^2; the BSR kernel at elasticity_2d(512), m = 8,
+    with every block column set to its own block row, and as it is. Bytes,
+    flops, the kernel's body (4 columns a thread, asserted) and its count of
+    loads are the same within each group; each operand is held to the plain
+    version first. One ``REREAD`` line each, ``ms`` by graph replay."""
+    import dataclasses
+
+    N, m = 216, 24
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    A3 = problems.laplacian_dirichlet_3d(N, dtype=torch.float32, device="cuda")
+    n = A3.shape[0]
+    operands = (
+        ("near", (-8, -4, -1, 0, 1, 4, 8)),
+        ("rows", (-2 * N, -N, -1, 0, 1, N, 2 * N)),
+        ("stencil", A3.offsets),
+    )
+    for dtype in (torch.float32, torch.bfloat16):
+        X = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+        rows = []
+        for name, offsets in operands:
+            A = type(A3)(data=A3.data.to(dtype), offsets=offsets, shape=A3.shape)
+            Y = kd.dia_spmm_t_cuda(A, X)
+            if kd.dia_spmm_t_cuda.width != 4:
+                raise RuntimeError(f"reread {name}: the kernel took "
+                                   f"{kd.dia_spmm_t_cuda.width} columns a thread, expected 4")
+            R = kd.dia_spmm_t_reference(A, X)
+            err = (Y.float() - R.float()).abs().max().item()
+            # as phase 3: the same sum FMA-contracted, or one bf16 ulp
+            tol = (1e-5 if dtype == torch.float32 else 1e-2) * R.float().abs().max().item()
+            if not err <= tol:
+                raise RuntimeError(f"reread {name}: max_abs_err {err:.3e} > tol {tol:.3e}")
+            del Y, R
+            rows.append(dict(kernel="dia_spmm_t", operand=name, offsets=list(offsets),
+                             dtype=str(dtype).split(".")[1], n=n, m=m, width=4,
+                             ms=replay_ms(lambda: kd.dia_spmm_t_cuda(A, X))))
+            del A
+        for row in rows:
+            log("REREAD " + json.dumps(dict(row, of_stencil=row["ms"] / rows[-1]["ms"])))
+        del X
+        torch.cuda.empty_cache()
+    del A3
+    own = torch.arange(A512.nbr, dtype=torch.int32, device="cuda")[:, None]
+    A_own = dataclasses.replace(A512, bcols=own.expand(-1, A512.bcols.shape[1]).contiguous())
+    X = torch.randn((8, A512.shape[0]), generator=gen, device="cuda")
+    rows = []
+    for name, A in (("own block row", A_own), ("mesh", A512)):
+        err = (kg.bsr_spmm_t_cuda(A, X) - kg.bsr_spmm_t_reference(A, X)).abs().max().item()
+        absA = dataclasses.replace(A, bdata=A.bdata.abs())
+        tol = 1e-5 * kg.bsr_spmm_t_reference(absA, X.abs()).max().item()  # as phase 6
+        if not err <= tol:
+            raise RuntimeError(f"reread bsr {name}: max_abs_err {err:.3e} > tol {tol:.3e}")
+        rows.append(dict(kernel="bsr_spmm_t", operand=name, n=A.shape[0], m=8,
+                         ms=replay_ms(lambda: kg.bsr_spmm_t_cuda(A, X))))
+    for row in rows:
+        log("REREAD " + json.dumps(dict(row, of_mesh=row["ms"] / rows[-1]["ms"])))
 
 
 def north_star(torch, N, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory):
@@ -250,17 +346,11 @@ def check_result(torch, res, N, nev_err, tol_err, exact):
     return err
 
 
-def profile_solve(torch, run, t_solve):
-    """Phase 5: spread of the solve time, and where the device time goes."""
+def profile_solve(torch, name, run, t_solve, rows=25):
+    """One solve under torch.profiler: where the device time goes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reps = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        run().eigenvalues.cpu()
-        reps.append(time.perf_counter() - t0)
-    log(f"REPEAT seconds {json.dumps(reps)}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -271,10 +361,10 @@ def profile_solve(torch, run, t_solve):
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     # the profiler slows the host many times over, so the busy share is the
     # device time over the UNPROFILED solve's wall time
-    log(f"PROFILE device time {busy_s:.3f} s in {sum(e.count for e in kernels)} "
+    log(f"PROFILE {name}: device time {busy_s:.3f} s in {sum(e.count for e in kernels)} "
         f"device operations; busy share {100 * busy_s / t_solve:.1f}% of the "
         f"{t_solve:.3f} s solve (profiled wall {wall:.3f} s)")
-    table = events.table(sort_by="self_device_time_total", row_limit=25,
+    table = events.table(sort_by="self_device_time_total", row_limit=rows,
                          max_name_column_width=60)
     log(table)
 
@@ -358,14 +448,16 @@ def phase_gather(torch, kg, cases):
         if not err <= tol:
             raise RuntimeError(f"{name}: max_abs_err {err:.3e} > tol {tol:.3e}")
         del Y, R, absA
-        ms = median_ms(lambda: kernel(A, X))
+        ms = median_ms(lambda: kernel(A, X))  # launched in a loop from the host
+        device_ms = replay_ms(lambda: kernel(A, X))  # device time by graph replay
         plain_ms = median_ms(lambda: plain(A, X), reps=5, inner=2)
         flops = 2.0 * A.nnz * m
-        # launches of this case: the check, the warm-up and 7x5 timed
+        # launches of this case: the check, the warm-up, 7x5 timed and the graph's capture
         rec = dict(case=name, kernel=kernel.__name__, n=n, nnz=A.nnz, m=m,
                    launches=kernel.launches - before,
-                   max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                   gflops=flops / ms / 1e6, plain_gflops=flops / plain_ms / 1e6)
+                   max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                   gflops=flops / ms / 1e6, device_gflops=flops / device_ms / 1e6,
+                   plain_gflops=flops / plain_ms / 1e6)
         log("GATHER " + json.dumps(rec))
         records.append(rec)
         del X
@@ -400,6 +492,7 @@ def phase_geneo(torch, kernels, A, B):
     log("GENEO " + json.dumps(rec))
     if not err <= 1e-2:
         raise RuntimeError(f"geneo: relerr {err:.3e} > 1e-2")
+    profile_solve(torch, "geneo", run, rec["seconds"], rows=12)
     return rec
 
 
@@ -927,7 +1020,8 @@ def main():
     native.load()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)}")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if ("registers" in line or "spill" in line or "error" in line.lower()
+                or "dia_spmm_t" in line or "bsr_spmm_t" in line):
             log("  ptxas: " + line.strip())
 
     # --- phase 3: kernel against plain version ---
@@ -954,11 +1048,17 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     set_counts(kernels)
+    kd.dia_spmm_t_cuda.taken.clear()
     t0 = time.perf_counter()
     res = run()
     res.eigenvalues.cpu()
     t_solve = time.perf_counter() - t0
     launches = kd.dia_spmm_t_cuda.launches
+    taken = {f"n={n} width={w}": c for (n, w), c in sorted(kd.dia_spmm_t_cuda.taken.items())}
+    fine = {w: c for (n, w), c in kd.dia_spmm_t_cuda.taken.items() if n == N3**3}
+    if set(fine) != {4} or sum(kd.dia_spmm_t_cuda.taken.values()) != launches:
+        raise RuntimeError(f"the 216^3 solve's fine-level launches did not all take 4 columns "
+                           f"a thread: {taken} of {launches} launches")
     peak = torch.cuda.max_memory_allocated()
     exact = eigenvalues_laplace_dirichlet_3d(N3, count=20)
     err = check_result(torch, res, N3, 20, 1e-5, exact)
@@ -967,13 +1067,19 @@ def main():
     log("SOLVE " + json.dumps(dict(
         n=N3**3, nev=20, seconds=t_solve, first_run_seconds=t_first,
         iterations=int(res.iterations), converged=bool(res.converged),
-        max_err=err, dia_spmm_launches=launches, peak_bytes=peak,
+        max_err=err, dia_spmm_launches=launches, dia_spmm_taken=taken, peak_bytes=peak,
         first_run_peak_bytes=peak_first,
     )))
     del res
 
     # --- phase 5: spread and profile ---
-    profile_solve(torch, run, t_solve)
+    reps = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run().eigenvalues.cpu()
+        reps.append(time.perf_counter() - t0)
+    log(f"REPEAT seconds {json.dumps(reps)}")
+    profile_solve(torch, "north star", run, t_solve)
     del run
     torch.cuda.empty_cache()
 
@@ -1005,19 +1111,22 @@ def main():
     ])
     del E512, A_odd, B1024, E1024
     torch.cuda.empty_cache()
+    phase_reread(torch, kd, kg, problems, A512)
     gen = torch.Generator(device="cuda").manual_seed(4)
     library = phase_library(torch, [
         ("bsr elasticity N=512 m=8", A512,
          torch.randn((8, A512.shape[0]), generator=gen, device="cuda"), kg.bsr_spmm_t_cuda),
         ("ell graph n=2^20 m=8", A_graph,
          torch.randn((8, A_graph.shape[0]), generator=gen, device="cuda"), kg.ell_spmm_t_cuda),
+        ("bsr elasticity N=96 m=128", A96,
+         torch.randn((128, A96.shape[0]), generator=gen, device="cuda"), kg.bsr_spmm_t_cuda),
     ])
 
     # --- phases 7-9: the general-sparsity path ---
     geneo = phase_geneo(torch, kernels, A512, B512)
     del A512, B512
     torch.cuda.empty_cache()
-    phase_flagship(torch, kernels, A96, B96)
+    flagship = phase_flagship(torch, kernels, A96, B96)
     S20 = problems.unstructured_laplacian(20_000, extra_edges=1_000, seed=5, fmt="scipy")
     graph_small = (S20, rcm_pencil(S20, dtype=torch.float32, device="cuda")[0])
     graph = phase_graph(torch, kernels, A_graph, graph_small)
@@ -1080,12 +1189,12 @@ def main():
                 "share_of_copy_bound": nbytes / copy_gbps / 1e6 / rec["ms"],
                 "cli_launches": cli_launches.get(name), **more}
 
-    def gather_entry(name, source, replaces, launches, rec, per_index):
+    def gather_entry(name, source, replaces, launches, rec, per_index, **more):
         # coefficients once, one 4-byte index per ``per_index`` of them (a
         # scalar in ELL, a 2x2 block in BSR), X and Y once
         nbytes = (rec["nnz"] + rec["nnz"] // per_index + 2 * rec["n"] * rec["m"]) * 4
         return entry(name, source, replaces, launches, rec, nbytes,
-                     2.0 * rec["nnz"] * rec["m"], library[rec["case"]])
+                     2.0 * rec["nnz"] * rec["m"], library[rec["case"]], **more)
 
     csrc = "dune_eigensolver_tpu_torch/csrc/"
     gathered = {r["case"]: r for r in gather}
@@ -1094,13 +1203,20 @@ def main():
     k1_nnz = sum(k1["n"] - abs(o) for o in (-N3 * N3, -N3, -1, 0, 1, N3, N3 * N3))
     table = [
         entry("dia_spmm_t", csrc + "dia_spmm.cu", "dune_eigensolver_tpu/kernels/dia_spmm.py:288",
-              launches, k1, k1_bytes, 2.0 * k1_nnz * k1["m"], library[k1["case"]]),
+              launches, k1, k1_bytes, 2.0 * k1_nnz * k1["m"], library[k1["case"]],
+              device_ms=k1["device_ms"], width=k1["width"]),
         gather_entry("ell_spmm_t", csrc + "ell_spmm.cu",
                      "dune_eigensolver_tpu/kernels/gather_spmm.py:792",
                      graph["launches"]["ell_spmm_t"], gathered["ell graph n=2^20 m=8"], 1),
         gather_entry("bsr_spmm_t", csrc + "bsr_spmm.cu",
                      "dune_eigensolver_tpu/kernels/gather_spmm.py:845",
-                     geneo["launches"]["bsr_spmm_t"], gathered["bsr elasticity N=512 m=8"], 4),
+                     geneo["launches"]["bsr_spmm_t"], gathered["bsr elasticity N=512 m=8"], 4,
+                     device_ms=gathered["bsr elasticity N=512 m=8"]["device_ms"]),
+        # the flagship's shape: the rows split over the grid's second dimension
+        gather_entry("bsr_spmm_t", csrc + "bsr_spmm.cu",
+                     "dune_eigensolver_tpu/kernels/gather_spmm.py:845",
+                     flagship[0]["launches"]["bsr_spmm_t"], gathered["bsr elasticity N=96 m=128"],
+                     4, device_ms=gathered["bsr elasticity N=96 m=128"]["device_ms"]),
     ]
     n2, m2 = 2048**2, 8
     v_bytes = (5 * n2 + 2 * n2 * m2) * 4  # bytes_spmm_dia

@@ -1,6 +1,7 @@
 from dune_eigensolver_tpu_torch.kernels.dia_spmm import (
     dia_spmm_t_cuda,
     dia_spmm_t_reference,
+    dia_vector_width,
 )
 from dune_eigensolver_tpu_torch.kernels.gather_spmm import (
     bsr_spmm_t_cuda,
@@ -14,6 +15,7 @@ __all__ = [
     "bsr_spmm_t_reference",
     "dia_spmm_t_cuda",
     "dia_spmm_t_reference",
+    "dia_vector_width",
     "ell_spmm_t_cuda",
     "ell_spmm_t_reference",
 ]

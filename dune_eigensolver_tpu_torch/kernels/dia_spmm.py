@@ -7,7 +7,11 @@ Counterpart of ``dune_eigensolver_tpu/kernels/dia_spmm.py``:
   (f32 accumulation for bf16/f16 storage, output in the input's dtype).
 * ``dia_spmm_t_cuda`` — wrapper of the hand-written CUDA kernel
   ``csrc/dia_spmm.cu`` (replaces the Pallas ``_kernel``/``padded_spmm``).
-  It counts its launches in ``dia_spmm_t_cuda.launches``.
+  It counts its launches in ``dia_spmm_t_cuda.launches`` and records the
+  vector width of the last one in ``dia_spmm_t_cuda.width`` and a tally by
+  ``(n, width)`` in ``dia_spmm_t_cuda.taken``.
+* ``dia_vector_width`` — which of the kernel's specialisations (4, 2 or 1
+  columns a thread) an operand takes, from its shape alone.
 
 ``sparse/spmm.py::spmm_t`` dispatches between the two by device.
 
@@ -18,7 +22,10 @@ contiguous (m, n) tensor.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
+from typing import Sequence, Tuple
 
 import torch
 
@@ -47,12 +54,49 @@ def dia_spmm_t_reference(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
     return acc.to(Xt.dtype)
 
 
+#: diagonal counts the vector kernels are instantiated for (launch_vec in
+#: csrc/dia_spmm.cu): the 2D and 3D stencils around (-1, 0, 1)
+_STENCIL_COUNTS = (5, 7)
+
+
+def dia_vector_width(offsets: Sequence[int], n: int, dtype: torch.dtype,
+                     align: int = 16) -> int:
+    """How many consecutive columns a thread of the CUDA kernel owns on this
+    operand: 4, 2 or 1, moved as one request of as many elements.
+
+    A width V > 1 needs a stencil the vector kernels are built for (5 or 7
+    diagonals whose middle three are (-1, 0, 1): the kernel takes the +-1
+    neighbours from the centre vector and its neighbouring lanes),
+    ``n % V == 0`` (so that every row of X, Y and ``data`` starts on a
+    vector boundary), every other offset a multiple of V (so that a diagonal
+    is one aligned vector load), and operands whose addresses are multiples
+    of ``align`` bytes with ``V * itemsize`` dividing it. Everything else
+    takes width 1, which has no condition. The choice depends on shapes
+    alone; it is a dispatch between hand-written specialisations that all
+    give the same bits."""
+    return _vector_width(tuple(int(o) for o in offsets), int(n),
+                         torch.finfo(dtype).bits // 8, int(align))
+
+
+@functools.lru_cache(maxsize=None)
+def _vector_width(offsets: Tuple[int, ...], n: int, itemsize: int, align: int) -> int:
+    c = len(offsets) // 2
+    if len(offsets) in _STENCIL_COUNTS and offsets[c - 1 : c + 2] == (-1, 0, 1):
+        far = offsets[: c - 1] + offsets[c + 2 :]
+        for width in (4, 2):
+            if (n % width == 0 and align % (width * itemsize) == 0
+                    and all(o % width == 0 for o in far)):
+                return width
+    return 1
+
+
 def dia_spmm_t_cuda(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
     """Yt = (A @ Xt.T).T by the CUDA kernel, on the current stream.
 
     Takes f32 or bf16, with ``A.data`` and ``Xt`` of one dtype, on one CUDA
     device, both contiguous; raises on anything else and on a launch the
-    driver refuses."""
+    CUDA runtime refuses. The specialisation is ``dia_vector_width``'s, recorded
+    in ``dia_spmm_t_cuda.width``."""
     from dune_eigensolver_tpu_torch.utils import native
 
     data = A.data
@@ -77,16 +121,23 @@ def dia_spmm_t_cuda(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
     lib = native.load()
     Y = torch.empty_like(Xt)
     offs = (ctypes.c_int * ndiag)(*A.offsets)
+    # the largest power of two, up to 16, dividing every operand's address
+    ptrs = data.data_ptr() | Xt.data_ptr() | Y.data_ptr() | 16
+    width = dia_vector_width(A.offsets, n, Xt.dtype, align=ptrs & -ptrs)
     with torch.cuda.device(Xt.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dia_spmm_t_launch(
             _KERNEL_DTYPES[Xt.dtype], data.data_ptr(), Xt.data_ptr(),
-            Y.data_ptr(), n, m, ndiag, offs, stream,
+            Y.data_ptr(), n, m, ndiag, offs, width, stream,
         )
     native.check(err, "dia_spmm_t_launch")
     dia_spmm_t_cuda.launches += 1
+    dia_spmm_t_cuda.width = width
+    dia_spmm_t_cuda.taken[n, width] += 1
     return Y
 
 
 dia_spmm_t_cuda.launches = 0
+dia_spmm_t_cuda.width = None  # of the last launch
+dia_spmm_t_cuda.taken = collections.Counter()  # launches by (n, width)
 

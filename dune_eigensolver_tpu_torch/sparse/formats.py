@@ -198,8 +198,10 @@ class BSRMatrix:
     @functools.cached_property
     def kernel_streams(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(bdata, bcols)`` as contiguous ``(k, nbr, br, bc)`` and
-        ``(k, nbr)`` copies, made once per container: one thread per block
-        row then reads its blocks as adjacent 16-byte vectors."""
+        ``(k, nbr)`` copies, made once per container: a block is then
+        ``br * bc`` contiguous values on a 16-byte boundary, and the CUDA
+        kernel's one thread per block row reads each 2x2 block with one
+        16-byte request (a 4x4 block with four), adjacent across the warp."""
         return self.bdata.transpose(0, 1).contiguous(), self.bcols.T.contiguous()
 
     def _first_on_diag(self):

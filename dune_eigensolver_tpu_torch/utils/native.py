@@ -99,8 +99,8 @@ def load() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dia_spmm_t_launch.restype = i32
     lib.dia_spmm_t_launch.argtypes = [
-        i32, vp, vp, vp, i64, i32, i32, ctypes.POINTER(i32), vp,
-    ]
+        i32, vp, vp, vp, i64, i32, i32, ctypes.POINTER(i32), i32, vp,
+    ]  # (dtype, data, x, y, n, m, ndiag, offsets, width, stream)
     # (data_t, cols_t, n, k, ncols, x, y, m, stream)
     lib.ell_spmm_t_launch.restype = i32
     lib.ell_spmm_t_launch.argtypes = [vp, vp, i64, i32, i64, vp, vp, i32, vp]

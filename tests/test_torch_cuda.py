@@ -16,12 +16,24 @@ from dune_eigensolver_tpu_torch.sparse import DIAMatrix, problems, spmm_t
 
 pytestmark = pytest.mark.cuda
 
-# 2D 5-point and 3D 7-point patterns; 7^3 = 343 and 37^3 = 50653 are not
-# multiples of the 256-thread block
+# (n, offsets, columns a thread of the kernel owns). 2D 5-point and 3D
+# 7-point patterns; 7^3 = 343 and 37^3 = 50653 are odd and no multiples of a
+# block; 54^3 and 108^3 are the nested solve's coarser grids (54 = 2 mod 4);
+# n = 1002 = 2 mod 4 caps the width at 2; n = 1000 leaves the last warp of
+# the 4-wide kernel with lanes past n; the last four are no stencil the
+# vector kernels are built for
 PATTERNS = {
-    "2d16": (256, (-16, -1, 0, 1, 16)),
-    "3d7": (343, (-49, -7, -1, 0, 1, 7, 49)),
-    "3d37": (50653, (-1369, -37, -1, 0, 1, 37, 1369)),
+    "2d16": (256, (-16, -1, 0, 1, 16), 4),
+    "3d7": (343, (-49, -7, -1, 0, 1, 7, 49), 1),
+    "3d37": (50653, (-1369, -37, -1, 0, 1, 37, 1369), 1),
+    "3d54": (157464, (-2916, -54, -1, 0, 1, 54, 2916), 2),
+    "3d108": (1259712, (-11664, -108, -1, 0, 1, 108, 11664), 4),
+    "n1002": (1002, (-30, -1, 0, 1, 30), 2),
+    "n1000": (1000, (-100, -1, 0, 1, 100), 4),
+    "1d": (4100, (-1, 0, 1), 1),
+    "mass": (1000, (0,), 1),
+    "by4": (1000, (-12, -8, -4, 0, 4, 8, 12), 1),
+    "adjacent": (1000, (-3, -2, -1, 0, 1, 2, 3), 1),
 }
 
 
@@ -33,7 +45,7 @@ def cuda():
 
 
 def _operands(pattern, m, dtype, device, seed=0):
-    n, offsets = PATTERNS[pattern]
+    n, offsets, _ = PATTERNS[pattern]
     rng = np.random.default_rng(seed)
     data = torch.from_numpy(rng.standard_normal((len(offsets), n))).to(device, dtype)
     X = torch.from_numpy(rng.standard_normal((m, n))).to(device, dtype)
@@ -41,20 +53,56 @@ def _operands(pattern, m, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("pattern", sorted(PATTERNS))
-@pytest.mark.parametrize("m", [8, 24, 72])
+@pytest.mark.parametrize("m", [1, 3, 8, 24, 72])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_reference(cuda, pattern, m, dtype):
     """f32: the same sum, FMA-contracted, 1e-5 of the output magnitude;
-    bf16: both round one f32 sum, at most one bf16 ulp (2^-7) apart."""
+    bf16: both round one f32 sum, at most one bf16 ulp (2^-7) apart. The
+    data are random everywhere, so a coefficient the kernel must mask (a
+    column outside [0, n)) shows. m = 1 and 3 leave the unrolled row loop a
+    remainder."""
     A, X = _operands(pattern, m, dtype, cuda)
     before = kd.dia_spmm_t_cuda.launches
     Y = spmm_t(A, X)
     torch.cuda.synchronize()
     assert kd.dia_spmm_t_cuda.launches == before + 1
+    assert kd.dia_spmm_t_cuda.width == PATTERNS[pattern][2]
     assert Y.dtype == dtype and Y.shape == X.shape
     R = kd.dia_spmm_t_reference(A, X)
     tol = (1e-5 if dtype == torch.float32 else 1e-2) * R.float().abs().max().item()
     assert (Y.float() - R.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_widths_give_the_same_bits(cuda, dtype):
+    """One chain of fused multiply-adds per output in offset order at every
+    width: rows of X taken at an offset address (a narrower vector, down to
+    one column a thread) give the aligned call's bits."""
+    A, X = _operands("3d108", 5, dtype, cuda)
+    Y = kd.dia_spmm_t_cuda(A, X)
+    assert kd.dia_spmm_t_cuda.width == 4
+    flat = torch.empty(X.numel() + 8, dtype=dtype, device=cuda)
+    widths = []
+    for shift in (4, 2, 1):  # elements; a vector of as many stays aligned
+        Xs = flat[shift : shift + X.numel()].view_as(X).copy_(X)
+        assert torch.equal(kd.dia_spmm_t_cuda(A, Xs), Y)
+        widths.append(kd.dia_spmm_t_cuda.width)
+    assert widths == [4, 2, 1]
+
+
+@pytest.mark.parametrize("pattern", ["n1000", "n1002", "3d7"])
+def test_kernel_masks_a_column_outside_with_its_own(cuda, pattern):
+    """A neighbour outside [0, n) enters as a zero coefficient times the
+    thread's own column, at every width: an infinite value in X shows only
+    in the outputs whose stencil holds its column."""
+    A, X = _operands(pattern, 3, torch.float32, cuda)
+    n = X.shape[1]
+    for column in (n - 4, n - 2, 1, 3):
+        Xi = X.clone()
+        Xi[:, column] = float("inf")
+        Y = kd.dia_spmm_t_cuda(A, Xi)
+        R = kd.dia_spmm_t_reference(A, Xi)
+        assert torch.equal(torch.isfinite(Y), torch.isfinite(R)), column
 
 
 def test_kernel_wrapper_refuses_bad_operands(cuda):
@@ -114,20 +162,27 @@ def _gather_operand(kind, device):
         return ell_from_scipy(S, dtype=f32, device=device)
     if kind == "bsr2-elasticity":
         return problems.elasticity_2d(13, dtype=f32, device=device)[0]
-    pattern = sp.random(90, 90, density=0.2, random_state=2, format="csr") + sp.eye(90)
-    b = 2 if kind == "bsr2-wide" else 4  # k > 16 (b=2) or > 4 (b=4): chunked
+    if kind == "bsr2-k11":  # 11 blocks a block row: one chunk and a remainder
+        pattern = sp.diags([np.ones(400 - abs(o)) for o in range(-5, 6)], list(range(-5, 6)),
+                           format="csr")
+    else:
+        pattern = sp.random(90, 90, density=0.2, random_state=2, format="csr") + sp.eye(90)
+    b = 4 if kind == "bsr4" else 2  # k > 9 (b=2) or > 4 (b=4): chunked
     block = np.random.default_rng(3).standard_normal((b, b))
     return bsr_from_scipy(sp.kron(pattern, block).tocsr(), block=(b, b), dtype=f32, device=device)
 
 
-GATHER_KINDS = ["ell-graph", "ell-wide", "ell-rect", "bsr2-elasticity", "bsr2-wide", "bsr4"]
+GATHER_KINDS = ["ell-graph", "ell-wide", "ell-rect", "bsr2-elasticity", "bsr2-wide", "bsr2-k11",
+                "bsr4"]
 
 
 @pytest.mark.parametrize("kind", GATHER_KINDS)
-@pytest.mark.parametrize("m", [8, 24])
+@pytest.mark.parametrize("m", [1, 3, 8, 24, 128])
 def test_gather_kernels_match_reference(cuda, kind, m):
     """Both sum the same f32 products of a row in other orders: within
-    1e-5 of the row's |A|.|X|."""
+    1e-5 of the row's |A|.|X|. m = 1 and 3 leave the unrolled row loops a
+    remainder; at m = 128 these small operands split their rows over the
+    grid's second dimension."""
     import dataclasses
 
     from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg

@@ -118,6 +118,20 @@ def test_reference_matches_xla(name, m, dtype, rtol):
     np.testing.assert_allclose(Yt, Yj, rtol=rtol, atol=rtol * np.abs(Yj).max())
 
 
+@pytest.mark.parametrize("name", OPERANDS)
+@pytest.mark.parametrize("m", [1, 3, 9])
+def test_reference_matches_xla_at_remainder_rows(name, m):
+    """The row counts that leave a remainder in the CUDA kernels' unrolled
+    row loops (m = 1, m odd), f32: one f32 rounding per term, 1e-5 of the
+    output's magnitude."""
+    J = _jax_operand(name, np.float32)
+    Xt = np.random.default_rng(100 + m).standard_normal((m, J.shape[1])).astype(np.float32)
+    Yj = np.asarray(_jax_spmm(J, jnp.asarray(Xt)))
+    Yt = spmm_t(_bridge(J), torch.from_numpy(Xt)).numpy()
+    assert Yt.shape == (m, J.shape[0])
+    np.testing.assert_allclose(Yt, Yj, rtol=1e-5, atol=1e-5 * np.abs(Yj).max())
+
+
 @pytest.mark.parametrize(
     "name,m",
     # every operand at m=8, the 2x2 BSR and an ELL also at 24 and 128 (the

@@ -89,6 +89,72 @@ def test_reference_bf16_matches_pallas_interpret(pattern, m):
     assert err <= 2e-2 * np.abs(Yj).max(), err
 
 
+@pytest.mark.parametrize("pattern", sorted(PATTERNS))
+@pytest.mark.parametrize("m", [1, 3, 9])
+def test_reference_matches_xla_at_remainder_rows(pattern, m):
+    """The row counts that leave a remainder in the CUDA kernel's unrolled
+    row loop (m = 1, m odd), f32: one f32 rounding per term, 1e-5 of the
+    output's magnitude."""
+    data, offsets, n, Xt = _operands(pattern, m, np.float32, seed=m)
+    Yj = np.asarray(dia_spmm_t_xla(_jax_op(data, offsets, n), jnp.asarray(Xt)))
+    A = dia_from_numpy(data, offsets, (n, n), device="cpu")
+    Yt = kd.dia_spmm_t_reference(A, torch.from_numpy(Xt)).numpy()
+    assert Yt.shape == (m, n)
+    np.testing.assert_allclose(Yt, Yj, rtol=1e-5, atol=1e-5 * np.abs(Yj).max())
+
+
+def _stencil(N, dim):
+    return tuple(sorted({s * N**p for p in range(dim) for s in (-1, 1)} | {0}))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "N,dim,width",
+    # 216, 128, 108, 2048: N a multiple of 4; 54: N = 2 mod 4; 37: n odd
+    [(216, 3, 4), (128, 3, 4), (108, 3, 4), (54, 3, 2), (37, 3, 1), (2048, 2, 4), (54, 2, 2),
+     (37, 2, 1)],
+)
+def test_vector_width_of_the_stencils(N, dim, width, dtype):
+    """The specialisation of the CUDA kernel each grid of the solves takes."""
+    assert kd.dia_vector_width(_stencil(N, dim), N**dim, dtype) == width
+
+
+@pytest.mark.parametrize(
+    "offsets,n,expect",
+    [
+        ((-30, -1, 0, 1, 30), 1002, 2),  # n = 2 mod 4 caps the width
+        ((-30, -1, 0, 1, 30), 1000, 2),  # 30 = 2 mod 4
+        ((-32, -1, 0, 1, 32), 1000, 4),
+        ((-32, -1, 0, 1, 32), 1001, 1),  # n odd: rows of X start off a vector boundary
+        ((-33, -1, 0, 1, 33), 1000, 1),  # an odd far offset fits no vector
+        ((-64, -8, -1, 0, 1, 8, 64), 1024, 4),
+        ((-64, -6, -1, 0, 1, 6, 64), 1024, 2),
+        ((-1, 0, 1), 1000, 1),  # the 1D stencil: no vector kernel built for three
+        ((0,), 1000, 1),  # a diagonal mass matrix
+        ((-3, -2, -1, 0, 1, 2, 3), 1000, 1),  # adjacent diagonals beyond +-1
+        ((-12, -8, -4, 0, 4, 8, 12), 1000, 1),  # multiples of 4 without the +-1 neighbours
+        ((-8, 0, 1, 2, 8), 1000, 1),  # +1 without -1: not a stencil the kernel knows
+        ((-64, -8, -1, 0, 1, 8, 64, 128, 256), 1024, 1),  # nine diagonals
+        ((-4, -1, 0, 1, 4), 4, 4),
+        ((-4, -1, 0, 1, 4), 2, 2),
+        ((-4, -1, 0, 1, 4), 1, 1),
+    ],
+)
+def test_vector_width_of_invented_offsets(offsets, n, expect):
+    assert kd.dia_vector_width(offsets, n, torch.float32) == expect
+    assert kd.dia_vector_width(offsets, n, torch.bfloat16) == expect
+
+
+def test_vector_width_follows_the_operands_alignment():
+    """A width needs every operand's address on a vector boundary: 16 bytes
+    for four f32, 8 for four bf16 or two f32, 4 for two bf16."""
+    offsets = _stencil(216, 3)
+    for dtype, by_align in ((torch.float32, {16: 4, 8: 2, 4: 1}),
+                            (torch.bfloat16, {16: 4, 8: 4, 4: 2, 2: 1})):
+        for align, width in by_align.items():
+            assert kd.dia_vector_width(offsets, 216**3, dtype, align=align) == width
+
+
 def test_spmm_t_dispatch_on_cpu():
     data, offsets, n, Xt = _operands("3d7", 8, np.float64)
     A = dia_from_numpy(data, offsets, (n, n), device="cpu")
