@@ -36,14 +36,25 @@ Phases (any failure raises and exits non-zero; there is no fallback):
 6. gather   — the CUDA ELL and BSR SpMMs against their plain PyTorch
               versions on the card, f32, at the general-sparsity path's
               shapes (elasticity_2d(512) as 2x2 BSR at m=8 and 24 and
-              scalar-expanded to ELL at m=24; elasticity_2d(96) BSR at
+              scalar-expanded to ELL at m=8 and 24; elasticity_2d(96) BSR at
               m=128; the RCM-ordered 2^20-node unstructured graph Laplacian
               as ELL at m=8 and 24; a 100,003-row graph, whose n is not a
               multiple of the 256-thread block; the operands of the CLI's
               ``matvec`` at ev.N=2048, elasticity_2d(1024) scaled by its
               max row sum as BSR and as ELL at m=8), with the kernel's
               times (``ms``, ``device_ms`` as in phase 3), the plain
-              version's median time and GFLOP/s as 2*nnz*m/t. Then one
+              version's median time and GFLOP/s as 2*nnz*m/t. The ELL
+              kernel stops each warp at its last stored entry
+              (``ELLMatrix.warp_slots``; the graph's mean count is logged,
+              4.00 against k = 7) and must give, on every ELL case, the
+              bits of its first version, which the ablation source keeps
+              (``gather_ablate.ablate_full`` at KC from k, 256 threads),
+              whose device time is taken in turns with K2's
+              (``first_version_device_ms``, ``in_turns_device_ms``);
+              it reads int32 columns on the graph and int16 offsets on
+              the elasticity operands (the index stream of
+              ``ELLMatrix.kernel_streams``), asserted.
+              Then one
               ``REREAD`` line per operand of ``phase_reread``: what the far
               re-reads of X cost the DIA and the BSR kernel.
 7. geneo    — the GenEO elasticity pencil at full size: elasticity_2d(512)
@@ -58,8 +69,12 @@ Phases (any failure raises and exits non-zero; there is no fallback):
 9. graph    — the RCM-ordered 2^20-node unstructured graph Laplacian (ELL)
               through ``lobpcg_generalized`` with the cg25 preconditioner
               and an identity ELL mass, twice, timing the second; every
-              Ritz pair's relative residual within 0.1; the same recipe at
-              n = 20,000 within 2e-2 of the oracle.
+              Ritz pair's relative residual within 0.1; then under
+              torch.profiler twice, as it stands and with K2's first
+              version (``gather_ablate.ablate_full``, the same bits) in
+              K2's place (``PROFILE graph``: the solve's device time and
+              K2's share of it, each way); the same recipe at n = 20,000
+              within 2e-2 of the oracle.
 
 10. copy    — the copy probe's three kernels (csrc/copy_probe.cu) against
               their plain versions (exact), at an odd width and at the
@@ -87,7 +102,8 @@ Phases (any failure raises and exits non-zero; there is no fallback):
 13. library — one PyTorch call computing the same function, where there is
               one: ``torch.sparse.mm`` on a CSR tensor for the DIA and ELL
               operands and on a BSR tensor for the BSR operand, at the
-              kernel table's shapes, held to the kernel's result. An
+              shapes of phases 3 and 6, held to the kernel's result (1e-5
+              of the largest |Y| in f32, 1e-2 in bf16, as phase 3). An
               installation that refuses a layout gets its error text
               printed in the row (the only exception caught here, around
               the library's constructor and first product alone).
@@ -105,7 +121,8 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               launch counter of its kernels zeroed just before and read just
               after: ``gather_ablate.ablate_table`` at Nel=512 m=8 and on
               the 2^20 graph (``ABLATE`` lines: the four variants, then the
-              (KC, threads) sweep), ``gather_probe.form_table`` at
+              (KC, threads) sweep; K2's launches counted per operand),
+              ``gather_probe.form_table`` at
               (8, 4,194,304) (``FORM`` lines). These tables are the only
               timing of the new kernels; every one must have been launched.
 17. standard — ``standard_largest`` on laplacian_dirichlet_2d(2048)
@@ -137,11 +154,16 @@ phase 7, ELL phase 9, the probe and variant kernels phase 12, the ablation
 and gather-probe kernels phase 16; ``bound_ms``
 is the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s, the card's
 published rates, over the least bytes the function needs: coefficients,
-one index per scalar (ELL) or per block (BSR), X and Y once; row 0 of the
+one index per scalar (ELL: 2 bytes where K2 reads int16 offsets, else 4)
+or per block (BSR, 4 bytes), X and Y once; row 0 of the
 copy probe's ``d``, whose other rows the kernel streams by design;
 ``copy_bound_ms`` is the same bytes over the measured ``copy_gbps``; the
 DIA row and the two BSR rows, at elasticity_2d(512) m=8 and at the
-flagship's elasticity_2d(96) m=128, carry ``device_ms`` beside ``ms``),
+flagship's elasticity_2d(96) m=128, carry ``device_ms`` beside ``ms``;
+so do the four ELL rows: the 2^20 graph at m=8 (the graph solve's
+launches), the CLI ``matvec`` operand at m=8 (its launches),
+elasticity_2d(512) scalar at m=8 (the launches of ``ablate_table`` on that
+operand, scaled) and at m=24 (no path launches it: 0)),
 then the card's name and
 power limit as nvidia-smi reports them, then the last line
 ``{"ok": true, "device": {...}}``.
@@ -149,6 +171,7 @@ power limit as nvidia-smi reports them, then the last line
 
 import contextlib
 import dataclasses
+import importlib
 import io
 import json
 import os
@@ -206,11 +229,10 @@ def replay_ms(fn):
     return timed(fn)
 
 
-def phase_kernel(torch, kd, problems):
-    """Kernel against plain version; returns the per-case records."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    # the last entry: the columns a thread of the kernel must own there
-    cases = [
+def phase_kernel_cases(torch):
+    """Phase 3's shapes: (name, dim, N, m, dtype, the columns a thread of
+    the kernel must own there)."""
+    return [
         ("2d N=2048 m=8 f32", 2, 2048, 8, torch.float32, 4),
         ("3d N=216 m=24 f32", 3, 216, 24, torch.float32, 4),
         ("3d N=216 m=72 f32", 3, 216, 72, torch.float32, 4),
@@ -224,8 +246,13 @@ def phase_kernel(torch, kd, problems):
         ("3d N=37 m=24 f32", 3, 37, 24, torch.float32, 1),
         ("3d N=37 m=24 bf16", 3, 37, 24, torch.bfloat16, 1),
     ]
+
+
+def phase_kernel(torch, kd, problems):
+    """Kernel against plain version; returns the per-case records."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
-    for name, dim, N, m, dtype, width in cases:
+    for name, dim, N, m, dtype, width in phase_kernel_cases(torch):
         build = problems.laplacian_dirichlet_2d if dim == 2 else problems.laplacian_dirichlet_3d
         A32 = build(N, dtype=torch.float32, device="cuda")
         A = type(A32)(data=A32.data.to(dtype), offsets=A32.offsets, shape=A32.shape)
@@ -347,7 +374,8 @@ def check_result(torch, res, N, nev_err, tol_err, exact):
 
 
 def profile_solve(torch, name, run, t_solve, rows=25):
-    """One solve under torch.profiler: where the device time goes."""
+    """One solve under torch.profiler: where the device time goes. Returns
+    (device seconds, the device operations' averaged events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,6 +395,12 @@ def profile_solve(torch, name, run, t_solve, rows=25):
     table = events.table(sort_by="self_device_time_total", row_limit=rows,
                          max_name_column_width=60)
     log(table)
+    return busy_s, kernels
+
+
+def kernel_device_s(events, name):
+    """Seconds of device time of the kernels whose name holds ``name``."""
+    return sum(e.self_device_time_total for e in events if name in e.key) / 1e6
 
 
 def set_counts(kernels, value=0):
@@ -423,6 +457,7 @@ def check_solve(torch, name, res, n, nev):
 
 def phase_gather(torch, kg, cases):
     """Phase 6: the ELL and BSR kernels against their plain versions."""
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
     from dune_eigensolver_tpu_torch.sparse import BSRMatrix
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -447,13 +482,28 @@ def phase_gather(torch, kg, cases):
         tol = 1e-5 * plain(absA, X.abs()).max().item()
         if not err <= tol:
             raise RuntimeError(f"{name}: max_abs_err {err:.3e} > tol {tol:.3e}")
+        more = {}
+        if kernel is kg.ell_spmm_t_cuda:
+            # K2's first version, kept by the ablation source: the same bits
+            # on finite X (the slots a warp skips are padding, zero products)
+            if not torch.equal(Y, ga.ablate_full(A, X, 0, 256)):
+                raise RuntimeError(f"{name}: differs from K2's first version")
+            more = dict(bits_of_first_version=True, mean_warp_slots=A.warp_slots.float().mean().item(),
+                        k=A.k, index_bytes=A.kernel_streams[1].element_size())
         del Y, R, absA
         ms = median_ms(lambda: kernel(A, X))  # launched in a loop from the host
         device_ms = replay_ms(lambda: kernel(A, X))  # device time by graph replay
+        if kernel is kg.ell_spmm_t_cuda:
+            # K2 against its first version, device times in turns: first,
+            # current, current, first
+            turns = [replay_ms(lambda: ga.ablate_full(A, X, 0, 256)), replay_ms(lambda: kernel(A, X)),
+                     replay_ms(lambda: kernel(A, X)), replay_ms(lambda: ga.ablate_full(A, X, 0, 256))]
+            more.update(first_version_device_ms=[turns[0], turns[3]],
+                        in_turns_device_ms=[turns[1], turns[2]])
         plain_ms = median_ms(lambda: plain(A, X), reps=5, inner=2)
         flops = 2.0 * A.nnz * m
         # launches of this case: the check, the warm-up, 7x5 timed and the graph's capture
-        rec = dict(case=name, kernel=kernel.__name__, n=n, nnz=A.nnz, m=m,
+        rec = dict(case=name, kernel=kernel.__name__, n=n, nnz=A.nnz, m=m, **more,
                    launches=kernel.launches - before,
                    max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                    gflops=flops / ms / 1e6, device_gflops=flops / device_ms / 1e6,
@@ -531,10 +581,14 @@ def phase_graph(torch, kernels, Au, small):
     """Phase 9: the RCM-ordered unstructured graph Laplacian (ELL)."""
     import scipy.sparse as sp
 
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
     from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
     from dune_eigensolver_tpu_torch.oracle import smallest_standard
     from dune_eigensolver_tpu_torch.solvers import lobpcg_generalized
-    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy, spmm_t
+    from dune_eigensolver_tpu_torch.sparse import ELLMatrix, ell_from_scipy, spmm_t
+
+    # the module, not the function of that name the package exports
+    spmm_mod = importlib.import_module("dune_eigensolver_tpu_torch.sparse.spmm")
 
     def recipe(A_):
         B_ = ell_from_scipy(sp.eye(A_.shape[0]), dtype=A_.dtype, device=A_.device)
@@ -544,7 +598,8 @@ def phase_graph(torch, kernels, Au, small):
         )
 
     n = Au.shape[0]
-    res, rec = timed_twice(torch, recipe(Au), kernels)
+    run = recipe(Au)
+    res, rec = timed_twice(torch, run, kernels)
     ev = check_solve(torch, "graph", res, n, 4)
     if rec["launches"]["ell_spmm_t"] <= 0:
         raise RuntimeError("graph: the solve launched the ELL kernel no time")
@@ -555,6 +610,27 @@ def phase_graph(torch, kernels, Au, small):
     if not (resid <= 0.1).all():
         raise RuntimeError(f"graph: relative residuals {resid} > 0.1")
     del res, Xt, AX
+    # the solve's device time and K2's part of it, then the same with K2's
+    # first version in K2's place (it gives the same bits, so the same
+    # solve); that version's unprofiled wall time is one warm run's
+    busy, events = profile_solve(torch, "graph", run, rec["seconds"], rows=10)
+    route = spmm_mod._ROUTES[ELLMatrix]
+    spmm_mod._ROUTES[ELLMatrix] = (lambda A_, X_: ga.ablate_full(A_, X_, 0, 256), route[1])
+    try:
+        run().eigenvalues.cpu()  # makes the int32 columns the first version reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iterations = int(run().iterations)
+        t_first = time.perf_counter() - t0
+        busy0, events0 = profile_solve(torch, "graph, K2's first version", run, t_first, rows=10)
+    finally:
+        spmm_mod._ROUTES[ELLMatrix] = route
+    if iterations != rec["iterations"]:
+        raise RuntimeError(f"graph: {iterations} iterations with K2's first version, "
+                           f"{rec['iterations']} with K2")
+    rec.update(device_s=busy, k2_device_s=kernel_device_s(events, "ell_spmm_t_kernel"),
+               first_version_seconds=t_first, first_version_device_s=busy0,
+               first_version_k2_device_s=kernel_device_s(events0, "ell_ablate_kernel"))
     S, A20 = small
     res = recipe(A20)()
     ev20 = check_solve(torch, "graph n=20000", res, A20.shape[0], 4)
@@ -774,10 +850,11 @@ def phase_library(torch, cases):
             log("LIBRARY " + json.dumps(rec))
             out[name] = None
             continue
-        err = (Z.T - Y).abs().max().item()
-        scale = Y.abs().max().item()
+        err = (Z.T.float() - Y.float()).abs().max().item()
+        scale = Y.float().abs().max().item()
         # the same products summed in another order: 1e-5 of the largest |Y|
-        if not err <= 1e-5 * scale:
+        # in f32; in bf16 both round a sum once, one bf16 ulp (as phase 3)
+        if not err <= (1e-5 if Y.dtype == torch.float32 else 1e-2) * scale:
             raise RuntimeError(f"library {name}: differs from the kernel by {err:.3e}")
         ms = median_ms(lambda: torch.sparse.mm(S, X))
         kernel_ms = median_ms(lambda: kernel(A, Xt))
@@ -825,7 +902,8 @@ def phase_study_check(torch, ga, gp):
 
 def phase_study(torch, study_kernels, ga, gp):
     """Phase 16: the study path through its entry points, inside one counted
-    window. Returns (launches, operands, ablation rows, form rows by name)."""
+    window. Returns (launches, K2's launches by ablation operand, operands,
+    ablation rows, form rows by name)."""
     t0 = time.perf_counter()
     operands = ga.ablate_operands(None, 512)
     log(f"ablate operands: {time.perf_counter() - t0:.1f} s host setup; " + ", ".join(
@@ -833,7 +911,11 @@ def phase_study(torch, study_kernels, ga, gp):
     torch.cuda.synchronize()
     set_counts(study_kernels)
     t0 = time.perf_counter()
-    ablate_rows = ga.ablate_table(None, 512, 8, operands=operands)
+    ablate_rows, k2_by_operand = [], {}
+    for name, A in operands:  # one table per operand, to count K2's launches on each
+        before = study_kernels["ell_spmm_t"].launches
+        ablate_rows += ga.ablate_table(None, 512, 8, operands=[(name, A)])
+        k2_by_operand[name] = study_kernels["ell_spmm_t"].launches - before
     forms = {row["name"]: row for row in gp.form_table(None)}
     torch.cuda.synchronize()
     launches = read_counts(study_kernels)
@@ -852,10 +934,10 @@ def phase_study(torch, study_kernels, ga, gp):
         if r["operand"] not in best or r["us"] < best[r["operand"]]["us"]:
             best[r["operand"]] = r
     log("STUDY " + json.dumps(dict(
-        seconds=time.perf_counter() - t0, launches=launches,
+        seconds=time.perf_counter() - t0, launches=launches, ell_spmm_t_by_operand=k2_by_operand,
         best_sweep={k: dict(kc=r["kc"], threads=r["threads"], us=r["us"]) for k, r in best.items()},
     )))
-    return launches, operands, ablate_rows, forms
+    return launches, k2_by_operand, operands, ablate_rows, forms
 
 
 def phase_standard(torch, kernels, problems):
@@ -1021,7 +1103,7 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)}")
     for line in build_log.splitlines():
         if ("registers" in line or "spill" in line or "error" in line.lower()
-                or "dia_spmm_t" in line or "bsr_spmm_t" in line):
+                or "dia_spmm_t" in line or "bsr_spmm_t" in line or "ell_spmm_t" in line):
             log("  ptxas: " + line.strip())
 
     # --- phase 3: kernel against plain version ---
@@ -1097,30 +1179,49 @@ def main():
     B1024, E1024 = cli.matvec_gather_operands(2048, torch.float32, "cuda")
     log(f"gather operands: {time.perf_counter() - t0:.1f} s host setup; "
         f"elasticity n={A512.shape[0]} nnz={A512.nnz}, graph n={A_graph.shape[0]} "
-        f"nnz={A_graph.nnz} k={A_graph.k}")
+        f"nnz={A_graph.nnz} k={A_graph.k}, mean slots a warp of the ELL kernel runs "
+        f"{A_graph.warp_slots.float().mean().item():.4f}")
     gather = phase_gather(torch, kg, [
         ("bsr elasticity N=512 m=8", A512, 8),
         ("bsr elasticity N=512 m=24", A512, 24),
         ("bsr elasticity N=96 m=128", A96, 128),
         ("ell graph n=2^20 m=8", A_graph, 8),
         ("ell graph n=2^20 m=24", A_graph, 24),
+        ("ell elasticity N=512 scalar m=8", E512, 8),
         ("ell elasticity N=512 scalar m=24", E512, 24),
         ("ell graph n=100003 m=8", A_odd, 8),
         ("bsr elasticity N=1024 scaled m=8 (matvec)", B1024, 8),
         ("ell elasticity N=1024 scalar scaled m=8 (matvec)", E1024, 8),
     ])
-    del E512, A_odd, B1024, E1024
+    # the index stream each ELL container holds for the kernel: int32
+    # columns for the graph (its rows reach ~95k columns away), int16
+    # offsets for the mesh-ordered elasticity operands
+    taken = {r["case"]: r.get("index_bytes") for r in gather if r["kernel"] == "ell_spmm_t_cuda"}
+    for case, want in (("ell graph n=2^20 m=8", 4), ("ell elasticity N=512 scalar m=24", 2),
+                       ("ell elasticity N=1024 scalar scaled m=8 (matvec)", 2)):
+        if taken[case] != want:
+            raise RuntimeError(f"{case}: the ELL kernel read {taken[case]}-byte indices, "
+                               f"expected {want}")
+    del A_odd
     torch.cuda.empty_cache()
     phase_reread(torch, kd, kg, problems, A512)
     gen = torch.Generator(device="cuda").manual_seed(4)
     library = phase_library(torch, [
-        ("bsr elasticity N=512 m=8", A512,
-         torch.randn((8, A512.shape[0]), generator=gen, device="cuda"), kg.bsr_spmm_t_cuda),
-        ("ell graph n=2^20 m=8", A_graph,
-         torch.randn((8, A_graph.shape[0]), generator=gen, device="cuda"), kg.ell_spmm_t_cuda),
-        ("bsr elasticity N=96 m=128", A96,
-         torch.randn((128, A96.shape[0]), generator=gen, device="cuda"), kg.bsr_spmm_t_cuda),
+        (name, A, torch.randn((m, A.shape[1]), generator=gen, device="cuda"), kernel)
+        for name, A, m, kernel in (
+            ("bsr elasticity N=512 m=8", A512, 8, kg.bsr_spmm_t_cuda),
+            ("ell graph n=2^20 m=8", A_graph, 8, kg.ell_spmm_t_cuda),
+            ("bsr elasticity N=96 m=128", A96, 128, kg.bsr_spmm_t_cuda),
+            ("ell graph n=2^20 m=24", A_graph, 24, kg.ell_spmm_t_cuda),
+            ("ell elasticity N=512 scalar m=8", E512, 8, kg.ell_spmm_t_cuda),
+            ("bsr elasticity N=512 m=24", A512, 24, kg.bsr_spmm_t_cuda),
+            ("bsr elasticity N=1024 scaled m=8 (matvec)", B1024, 8, kg.bsr_spmm_t_cuda),
+            ("ell elasticity N=512 scalar m=24", E512, 24, kg.ell_spmm_t_cuda),
+            ("ell elasticity N=1024 scalar scaled m=8 (matvec)", E1024, 8, kg.ell_spmm_t_cuda),
+        )
     ])
+    del E512, B1024, E1024
+    torch.cuda.empty_cache()
 
     # --- phases 7-9: the general-sparsity path ---
     geneo = phase_geneo(torch, kernels, A512, B512)
@@ -1146,17 +1247,16 @@ def main():
     del x8, d5
     torch.cuda.empty_cache()
 
-    # --- phase 13: the library call beside the DIA kernel ---
-    A2 = problems.laplacian_dirichlet_2d(2048, dtype=torch.float32, device="cuda")
-    A3 = problems.laplacian_dirichlet_3d(N3, dtype=torch.float32, device="cuda")
-    library.update(phase_library(torch, [
-        ("2d N=2048 m=8 f32", A2,
-         torch.randn((8, 2048**2), generator=gen, device="cuda"), kd.dia_spmm_t_cuda),
-        ("3d N=216 m=24 f32", A3,
-         torch.randn((24, N3**3), generator=gen, device="cuda"), kd.dia_spmm_t_cuda),
-    ]))
-    del A2, A3
-    torch.cuda.empty_cache()
+    # --- phase 13: the library call beside the DIA kernel, at phase 3's shapes ---
+    for name, dim, N, m, dtype, _ in phase_kernel_cases(torch):
+        build = problems.laplacian_dirichlet_2d if dim == 2 else problems.laplacian_dirichlet_3d
+        A32 = build(N, dtype=torch.float32, device="cuda")
+        A = DIAMatrix(data=A32.data.to(dtype), offsets=A32.offsets, shape=A32.shape)
+        del A32
+        X = torch.randn((m, A.shape[0]), generator=gen, device="cuda").to(dtype)
+        library.update(phase_library(torch, [(name, A, X, kd.dia_spmm_t_cuda)]))
+        del A, X
+        torch.cuda.empty_cache()
 
     # --- phases 15-16: the gather-kernel study path ---
     from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
@@ -1166,7 +1266,8 @@ def main():
                      "ablate_nogather": ga.ablate_nogather, "ablate_nodyn": ga.ablate_nodyn,
                      "ablate_nofma": ga.ablate_nofma, **gp.KERNELS}
     phase_study_check(torch, ga, gp)
-    study_launches, ablate_ops, ablate_rows, forms = phase_study(torch, study_kernels, ga, gp)
+    study_launches, k2_by_operand, ablate_ops, ablate_rows, forms = phase_study(
+        torch, study_kernels, ga, gp)
     e512 = next(A for name, A in ablate_ops if name == "elasticity_512")
     ablate_library = phase_library(torch, [
         ("ell elasticity N=512 scalar scaled m=8", e512,
@@ -1187,12 +1288,17 @@ def main():
                 "library_ms": library_ms, "shape": rec["case"],
                 "copy_bound_ms": nbytes / copy_gbps / 1e6,
                 "share_of_copy_bound": nbytes / copy_gbps / 1e6 / rec["ms"],
-                "cli_launches": cli_launches.get(name), **more}
+                "cli_launches": cli_launches.get(name), **more,
+                **({"device_share_of_copy_bound": nbytes / copy_gbps / 1e6 / more["device_ms"]}
+                   if "device_ms" in more else {})}
 
     def gather_entry(name, source, replaces, launches, rec, per_index, **more):
-        # coefficients once, one 4-byte index per ``per_index`` of them (a
-        # scalar in ELL, a 2x2 block in BSR), X and Y once
-        nbytes = (rec["nnz"] + rec["nnz"] // per_index + 2 * rec["n"] * rec["m"]) * 4
+        # coefficients once, one index per ``per_index`` of them (a scalar
+        # in ELL, of the width K2 read; a 2x2 block in BSR, int32), X and Y
+        # once
+        index_bytes = rec.get("index_bytes", 4)
+        nbytes = ((rec["nnz"] + 2 * rec["n"] * rec["m"]) * 4
+                  + rec["nnz"] // per_index * index_bytes)
         return entry(name, source, replaces, launches, rec, nbytes,
                      2.0 * rec["nnz"] * rec["m"], library[rec["case"]], **more)
 
@@ -1207,7 +1313,26 @@ def main():
               device_ms=k1["device_ms"], width=k1["width"]),
         gather_entry("ell_spmm_t", csrc + "ell_spmm.cu",
                      "dune_eigensolver_tpu/kernels/gather_spmm.py:792",
-                     graph["launches"]["ell_spmm_t"], gathered["ell graph n=2^20 m=8"], 1),
+                     graph["launches"]["ell_spmm_t"], gathered["ell graph n=2^20 m=8"], 1,
+                     device_ms=gathered["ell graph n=2^20 m=8"]["device_ms"]),
+        # the CLI's matvec operand; elasticity_2d(512) scalar at m=8, whose
+        # launches are those of ablate_table on that operand (scaled: the
+        # same pattern), and at m=24, which no path launches
+        gather_entry("ell_spmm_t", csrc + "ell_spmm.cu",
+                     "dune_eigensolver_tpu/kernels/gather_spmm.py:792",
+                     cli_launches["ell_spmm_t"],
+                     gathered["ell elasticity N=1024 scalar scaled m=8 (matvec)"], 1,
+                     device_ms=gathered["ell elasticity N=1024 scalar scaled m=8 (matvec)"][
+                         "device_ms"]),
+        gather_entry("ell_spmm_t", csrc + "ell_spmm.cu",
+                     "dune_eigensolver_tpu/kernels/gather_spmm.py:792",
+                     k2_by_operand["elasticity_512"], gathered["ell elasticity N=512 scalar m=8"],
+                     1, device_ms=gathered["ell elasticity N=512 scalar m=8"]["device_ms"]),
+        gather_entry("ell_spmm_t", csrc + "ell_spmm.cu",
+                     "dune_eigensolver_tpu/kernels/gather_spmm.py:792",
+                     0, gathered["ell elasticity N=512 scalar m=24"], 1,
+                     device_ms=gathered["ell elasticity N=512 scalar m=24"]["device_ms"],
+                     note="no path launches K2 at this shape"),
         gather_entry("bsr_spmm_t", csrc + "bsr_spmm.cu",
                      "dune_eigensolver_tpu/kernels/gather_spmm.py:845",
                      geneo["launches"]["bsr_spmm_t"], gathered["bsr elasticity N=512 m=8"], 4,
@@ -1237,15 +1362,15 @@ def main():
         v, k = row["variant"], row["k"]
         us = row["us"]
         if v == "full":
-            # the table's `full` row times the shipped kernel; the ablation
-            # source's own full body is timed by the sweep, here at the
-            # shipped kernel's setting (KC from k, 256 threads)
+            # the table's `full` row times K2 itself; the ablation source's
+            # own full body, K2's first version, is timed by the
+            # sweep, here at that version's setting (KC from k, 256 threads)
             kc = 8 if k <= 8 else 16 if k <= 16 else 24 if k <= 24 else 32
             us = next(r["us"] for r in ablate_rows if r["operand"] == "elasticity_512"
                       and r.get("kc") == kc and r.get("threads") == 256)
         rec = dict(max_abs_err=row["max_abs_err"], ms=us / 1e3, plain_ms=row["plain_us"] / 1e3,
                    case=f"ell elasticity N=512 scalar scaled k={k} m={row['m']} f32 "
-                   f"({v}; {row['share']:.3f} of the shipped kernel's time)")
+                   f"({v}; {row['share']:.3f} of K2's time)")
         flops = row["n"] * row["m"] if v == "nofma" else 2.0 * row["nnz"] * row["m"]
         table.append(entry(f"ablate_{v}", csrc + "ell_ablate.cu", "experiments/gather_ablate.py:35",
                            study_launches[f"ablate_{v}"], rec, row["nbytes"], flops,

@@ -1,17 +1,18 @@
-// Ablation of the ELL SpMM of csrc/ell_spmm.cu, for Hopper (sm_90a): where
-// do that kernel's microseconds go?
+// Ablation of the first version of the ELL SpMM of csrc/ell_spmm.cu,
+// for Hopper (sm_90a): where did that kernel's microseconds go?
 //
 // Replaces experiments/gather_ablate.py::_variant_kernel (launched by
 // run_variant), the experiment that times the TPU gather kernel against
 // degraded copies of its body. The TPU body's mechanisms (a dynamic scratch
 // load, take_along_axis on one 128-lane vreg) do not exist on this card, so
-// what is ablated here is the port's own kernel: one thread per row i holds
+// what is ablated here is the port's own kernel as first written, whose
+// design is this experiment's definition: one thread per row i holds
 // KC (coefficient, column) pairs in registers and, for each of the m rows
 // of X, gathers X[r, col] through L1/L2 and accumulates. One mechanism is
 // removed at a time; each variant is still a defined function, so the card
 // can hold it to a plain version:
 //
-//   full      Y[r,i] = sum_j data[i,j] * X[r, cols[i,j]]      the shipped body
+//   full      Y[r,i] = sum_j data[i,j] * X[r, cols[i,j]]      K2's first body
 //   nogather  Y[r,i] = sum_j data[i,j] * X[r, i']             i' = min(i, ncols-1)
 //             the irregular address is gone: every term still issues its own
 //             load of X (a volatile asm load, so the k loads per row of X
@@ -28,13 +29,15 @@
 // The full body is a template over the register chunk KC and the threads of
 // a block, so that the sweep that stood where the TPU's tile sweep stood
 // (KC in {8, 16, 24, 32} x threads in {128, 256, 512}) has explicit
-// arguments; csrc/ell_spmm.cu itself is not touched. With the shipped
-// kernel's choice (KC from k, 256 threads) the full body here is that
-// kernel's, statement for statement, and gives the same bits.
+// arguments. With K2's first choice (KC from k, 256 threads) the full body
+// here is K2's first version, statement for statement: every slot to k,
+// one row of X at a time. The redesigned K2 (csrc/ell_spmm.cu) gives the
+// same bits on finite X, so the full body is its bit check.
 //
-// What bounds them: device-memory bytes, as csrc/ell_spmm.cu. The variants
-// say which of the gather's irregular addresses, the index stream, or the
-// inner loop's instructions keeps the shipped kernel from that bound.
+// What bounds them: the first version was held by its X gathers (one L1
+// request per multiply-add, few in flight), not by bytes. The variants say
+// which of the gather's irregular addresses, the index stream, or the
+// inner loop's instructions kept it from its byte bound.
 //
 // Interface: plain C for ctypes; the launch goes on the caller's stream and
 // the function returns cudaGetLastError().
@@ -43,8 +46,8 @@
 
 enum { EA_FULL = 0, EA_NOGATHER = 1, EA_NODYN = 2, EA_NOFMA = 3 };
 
-// threads the card should hold: 4 blocks of 256 on each of 132 SMs, the
-// shipped kernel's ELL_TARGET_BLOCKS * ELL_THREADS
+// threads the card should hold: 4 blocks of 256 on each of 132 SMs, as
+// K2's first version aimed for
 #define EA_TARGET_THREADS (528 * 256)
 
 // loads the compiler must issue, one per call, whatever becomes of the value
@@ -139,7 +142,7 @@ void launch(const Args& a) {
       a.data_t, a.cols_t, a.x, a.y, a.n, a.k, a.ncols, a.m, rows_per_block);
 }
 
-// the degraded variants exist at the shipped kernel's 256 threads only
+// the degraded variants exist at K2's first 256 threads only
 template <int KC, int THREADS>
 bool launch_variant(int variant, const Args& a) {
   if (variant == EA_FULL) {
@@ -174,8 +177,8 @@ bool launch_kc(int kc, int variant, const Args& a) {
 
 extern "C" {
 
-// kc = 0 takes the shipped kernel's chunk for this k. Returns a cudaError_t
-// as int.
+// kc = 0 takes K2's first version's chunk for this k. Returns a
+// cudaError_t as int.
 int ell_ablate_launch(int variant, int kc, int threads, const void* data_t,
                       const void* cols_t, long long n, int k, long long ncols,
                       const void* x, void* y, int m, void* stream) {

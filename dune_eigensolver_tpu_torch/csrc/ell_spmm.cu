@@ -13,18 +13,55 @@
 // so the ELL container feeds the kernel as it is. Padding slots hold an
 // in-bounds column and a zero coefficient, so no load is masked.
 //
-// What bounds it: device-memory traffic. Each stored entry is a 4-byte
-// coefficient and a 4-byte index that serve 2 flops per row of X, and each
-// of those flops gathers an X value from an irregular column. What the
-// design does about that: the coefficients arrive as (k, n) streams
-// (ELLMatrix.kernel_streams), so one thread per row i loads its k
-// (coefficient, column) pairs coalesced across the warp, once, into
-// registers, and reuses them for every row of X; the Y writes are
-// coalesced across the warp (neighbouring threads, neighbouring columns of
-// Y); the X gathers of neighbouring rows land near each other for a banded
-// (RCM-ordered) operator and are left to L1/L2. When n is small the m rows
-// are split over blockIdx.y so that the card still gets enough blocks.
-// Shared-memory staging of X, wider loads and TMA are left for later work.
+// What bounds it: not bytes. Each stored entry is a 4-byte coefficient and
+// a 4-byte index serving 2 flops per row of X, and each of those flops
+// gathers an X value from an irregular column: one 4-byte L1 request per
+// multiply-add. The first version held at most one row of X and a
+// chunk of 8-32 gathers in flight, loaded its chunk under a per-slot
+// predicate with 92 registers at k = 18, and took 45% of its copy bound
+// on the 2^20 graph, 30% on elasticity_2d(512) as scalar ELL (E4: without
+// the irregular addresses it took a third of the time). And it paid for
+// padding: the RCM-ordered 2^20 graph has 7,340,032 slots for 3,250,580
+// entries (44% real; k = 7 is set by seven rows), and every padded slot
+// streamed a coefficient and an index and gathered X like a real one.
+//
+// What the design does about that:
+// - The slot loop of a warp stops at that warp's last stored entry: one
+//   count per 32 consecutive rows (ELLMatrix.warp_slots, made once per
+//   container), uniform across the warp, so no thread diverges. On the
+//   graph the counts average 4.00 against k = 7. Slots after a warp's
+//   count are padding (zero coefficient, the row's own column), whose
+//   products are zero on finite X: skipping them changes no bit. (Alone
+//   this is worth 10-18% on the graph: the first version was held less by
+//   the padding's bytes than by how few gathers it had in flight.)
+// - No predicated slot: up to ELL_KC (coefficient, column) pairs sit in
+//   registers, with the exact count a template constant (recursive tail).
+//   A warp of at most ELL_KC slots loads its pairs once and keeps them
+//   over all rows of X; a longer one (elasticity's 18) sweeps chunks of
+//   ELL_KC and an exact remainder for each group of rows of X, reloading
+//   the pairs (the block's lie in L1) and keeping the sums in registers,
+//   so that Y is written once, not read back and written per chunk.
+// - ELL_ROWS rows of X are unrolled, so a thread has ELL_ROWS x chunk
+//   independent gathers in flight, and the registers are capped so that
+//   ELL_MIN_BLOCKS blocks share an SM: latency is hidden by more warps as
+//   much as by more loads a warp (at these caps ptxas keeps a few words in
+//   local memory, which L1 holds; every higher cap and fewer rows measured
+//   slower, PERF.md section 6).
+// - Where every column lies within int16 of its row (a mesh-ordered
+//   operator: elasticity_2d's span is about +-1,024), the index stream is
+//   int16 offsets col - i (formats.py::ell_column_offsets), half the bytes
+//   of int32 columns. The container holds one index stream, whichever its
+//   columns allow (ELLMatrix.kernel_streams): a choice, not a fallback.
+// The coefficients arrive as (k, n) streams (ELLMatrix.kernel_streams), so
+// one thread per row i loads its pairs coalesced across the warp, once,
+// and reuses them for every row of X; Y's stores are coalesced. The
+// gathers of neighbouring rows land near each other for a banded (RCM- or
+// mesh-ordered) operator and are left to L1/L2. When n is small the m rows
+// are split over blockIdx.y so that the card still gets enough threads.
+// Slots in stored order, one chain of fused multiply-adds per output from
+// +0: the first version's bits on finite X.
+// Registers (ptxas, sm_90a): see PERF.md section 6; the build log prints
+// them.
 //
 // Interface: plain C, loaded with ctypes. The launch goes on the caller's
 // stream and the function returns cudaGetLastError() so the wrapper can
@@ -32,51 +69,169 @@
 
 #include <cuda_runtime.h>
 
-#define ELL_THREADS 256
-#define ELL_TARGET_BLOCKS 528  // 4 blocks of 256 threads on each of 132 SMs
+#define ELL_THREADS 128
+#define ELL_MIN_BLOCKS 6      // blocks an SM holds, int32 columns: 80 registers
+#define ELL_MIN_BLOCKS_I16 5  // the same, int16 offsets: 96 registers
+#define ELL_ROWS 8    // rows of X a thread has in flight
+#define ELL_KC 9      // (coefficient, column) pairs in registers at a time
+#define ELL_WARP 32   // rows that share a slot count (formats.py WARP_ROWS)
+#define ELL_TARGET_THREADS (528 * 256)  // half of what 132 SMs can hold
 
-// KC (column, coefficient) pairs of a row sit in registers at a time; a
-// row wider than KC is swept in chunks, each adding into Y.
-template <int KC>
-__global__ void __launch_bounds__(ELL_THREADS)
-ell_spmm_t_kernel(const float* __restrict__ data_t, const int* __restrict__ cols_t,
-                  const float* __restrict__ x, float* __restrict__ y, int n, int k,
-                  int ncols, int m, int rows_per_block) {
+// slots j0 .. j0 + KC - 1 of row i into registers; IDX is int (columns) or
+// short (offsets col - i)
+template <int KC, typename IDX>
+__device__ __forceinline__ void ell_load(const float* __restrict__ data_t,
+                                         const IDX* __restrict__ cols_t, size_t n, size_t i,
+                                         int j0, float (&v)[KC], int (&c)[KC]) {
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    v[j] = __ldg(data_t + (size_t)(j0 + j) * n + i);
+    const int s = __ldg(cols_t + (size_t)(j0 + j) * n + i);
+    c[j] = sizeof(IDX) == 2 ? (int)i + s : s;
+  }
+}
+
+// RR rows of X from row r on: KC pairs times their X values, onto acc
+template <int KC, int RR>
+__device__ __forceinline__ void ell_fma(const float* __restrict__ x, size_t ncols, int r,
+                                        const float (&v)[KC], const int (&c)[KC],
+                                        float (&acc)[RR]) {
+  float xv[RR][KC];
+#pragma unroll
+  for (int q = 0; q < RR; ++q) {
+    const float* xr = x + (size_t)(r + q) * ncols;
+#pragma unroll
+    for (int j = 0; j < KC; ++j) xv[q][j] = __ldg(xr + c[j]);
+  }
+#pragma unroll
+  for (int q = 0; q < RR; ++q) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j) acc[q] = fmaf(v[j], xv[q][j], acc[q]);
+  }
+}
+
+template <int RR>
+__device__ __forceinline__ void ell_store(float* __restrict__ y, size_t n, int r, size_t i,
+                                          const float (&acc)[RR]) {
+#pragma unroll
+  for (int q = 0; q < RR; ++q) y[(size_t)(r + q) * n + i] = acc[q];
+}
+
+// A warp whose rows hold at most ELL_KC slots: exactly KC pairs, loaded
+// once, kept in registers over the rows r0 .. r1 - 1 of X.
+template <int KC, typename IDX>
+__device__ __forceinline__ void ell_short(const float* __restrict__ data_t,
+                                          const IDX* __restrict__ cols_t,
+                                          const float* __restrict__ x, float* __restrict__ y,
+                                          size_t n, size_t ncols, size_t i, int r0, int r1) {
+  float v[KC];
+  int c[KC];
+  ell_load<KC, IDX>(data_t, cols_t, n, i, 0, v, c);
+  int r = r0;
+  for (; r + ELL_ROWS <= r1; r += ELL_ROWS) {
+    float acc[ELL_ROWS] = {};
+    ell_fma<KC, ELL_ROWS>(x, ncols, r, v, c, acc);
+    ell_store<ELL_ROWS>(y, n, r, i, acc);
+  }
+  for (; r < r1; ++r) {
+    float acc[1] = {};
+    ell_fma<KC, 1>(x, ncols, r, v, c, acc);
+    ell_store<1>(y, n, r, i, acc);
+  }
+}
+
+// exactly ``kw`` slots, 1 <= kw <= K
+template <int K, typename IDX>
+__device__ __forceinline__ void ell_short_tail(int kw, const float* __restrict__ data_t,
+                                               const IDX* __restrict__ cols_t,
+                                               const float* __restrict__ x,
+                                               float* __restrict__ y, size_t n, size_t ncols,
+                                               size_t i, int r0, int r1) {
+  if constexpr (K > 0) {
+    if (kw == K) {
+      ell_short<K, IDX>(data_t, cols_t, x, y, n, ncols, i, r0, r1);
+    } else {
+      ell_short_tail<K - 1, IDX>(kw, data_t, cols_t, x, y, n, ncols, i, r0, r1);
+    }
+  }
+}
+
+// the last ``rem`` slots from j0 on, 0 <= rem <= K, onto acc
+template <int K, int RR, typename IDX>
+__device__ __forceinline__ void ell_long_tail(int rem, const float* __restrict__ data_t,
+                                              const IDX* __restrict__ cols_t,
+                                              const float* __restrict__ x, size_t n,
+                                              size_t ncols, size_t i, int j0, int r,
+                                              float (&acc)[RR]) {
+  if constexpr (K > 0) {
+    if (rem == K) {
+      float v[K];
+      int c[K];
+      ell_load<K, IDX>(data_t, cols_t, n, i, j0, v, c);
+      ell_fma<K, RR>(x, ncols, r, v, c, acc);
+    } else {
+      ell_long_tail<K - 1, RR, IDX>(rem, data_t, cols_t, x, n, ncols, i, j0, r, acc);
+    }
+  }
+}
+
+// A warp whose rows hold more than ELL_KC slots, RR rows of X from row r
+// on: chunks of ELL_KC pairs and an exact remainder, each loaded again for
+// every group of rows (the block's pairs stay in L1), the sums kept in
+// registers, so Y is written once.
+template <int RR, typename IDX>
+__device__ __forceinline__ void ell_long(int kw, const float* __restrict__ data_t,
+                                         const IDX* __restrict__ cols_t,
+                                         const float* __restrict__ x, float* __restrict__ y,
+                                         size_t n, size_t ncols, size_t i, int r) {
+  float acc[RR] = {};
+  int j0 = 0;
+  for (; j0 + ELL_KC <= kw; j0 += ELL_KC) {
+    float v[ELL_KC];
+    int c[ELL_KC];
+    ell_load<ELL_KC, IDX>(data_t, cols_t, n, i, j0, v, c);
+    ell_fma<ELL_KC, RR>(x, ncols, r, v, c, acc);
+  }
+  ell_long_tail<ELL_KC - 1, RR, IDX>(kw - j0, data_t, cols_t, x, n, ncols, i, j0, r, acc);
+  ell_store<RR>(y, n, r, i, acc);
+}
+
+// One thread per row i; its warp's rows run warp_slots[i / ELL_WARP] slots.
+template <typename IDX>
+__global__ void __launch_bounds__(ELL_THREADS,
+                                  sizeof(IDX) == 2 ? ELL_MIN_BLOCKS_I16 : ELL_MIN_BLOCKS)
+ell_spmm_t_kernel(const float* __restrict__ data_t, const IDX* __restrict__ cols_t,
+                  const int* __restrict__ warp_slots, const float* __restrict__ x,
+                  float* __restrict__ y, int n, int ncols, int m, int rows_per_block) {
   const int i = blockIdx.x * ELL_THREADS + threadIdx.x;
   if (i >= n) return;
   const int r0 = blockIdx.y * rows_per_block;
   const int r1 = min(m, r0 + rows_per_block);
-  for (int j0 = 0; j0 < k; j0 += KC) {
-    float val[KC];
-    int col[KC];
-#pragma unroll
-    for (int j = 0; j < KC; ++j) {
-      val[j] = 0.f;
-      col[j] = 0;
-      if (j0 + j < k) {
-        val[j] = __ldg(data_t + (size_t)(j0 + j) * n + i);
-        col[j] = __ldg(cols_t + (size_t)(j0 + j) * n + i);
-      }
-    }
-    for (int r = r0; r < r1; ++r) {
-      const float* xr = x + (size_t)r * ncols;
-      float* yr = y + (size_t)r * n + i;
-      float acc = j0 ? *yr : 0.f;
-#pragma unroll
-      for (int j = 0; j < KC; ++j) {
-        if (j0 + j < k) acc += val[j] * __ldg(xr + col[j]);
-      }
-      *yr = acc;
-    }
+  const int kw = __ldg(warp_slots + i / ELL_WARP);
+  if (kw == 0) {  // the warp's rows store nothing but padding: Y = 0
+    for (int r = r0; r < r1; ++r) y[(size_t)r * n + i] = 0.f;
+  } else if (kw <= ELL_KC) {
+    ell_short_tail<ELL_KC, IDX>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i,
+                                r0, r1);
+  } else {
+    int r = r0;
+    for (; r + ELL_ROWS <= r1; r += ELL_ROWS)
+      ell_long<ELL_ROWS, IDX>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i, r);
+    for (; r < r1; ++r)
+      ell_long<1, IDX>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i, r);
   }
 }
 
 extern "C" {
 
+// cols_t: (k, n) int32 columns (index_bytes 4) or int16 offsets col - i
+// (index_bytes 2); warp_slots: ceil(n / 32) int32 counts, each at most k.
 // Returns a cudaError_t as int.
-int ell_spmm_t_launch(const void* data_t, const void* cols_t, long long n, int k,
-                      long long ncols, const void* x, void* y, int m, void* stream) {
-  if (n < 0 || n > 0x7fffffffLL || ncols < 1 || ncols > 0x7fffffffLL || k < 0 || m < 1)
+int ell_spmm_t_launch(const void* data_t, const void* cols_t, int index_bytes,
+                      const void* warp_slots, long long n, int k, long long ncols,
+                      const void* x, void* y, int m, void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || ncols < 1 || ncols > 0x7fffffffLL || k < 0 || m < 1 ||
+      (index_bytes != 2 && index_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n == 0) return (int)cudaGetLastError();
@@ -85,23 +240,21 @@ int ell_spmm_t_launch(const void* data_t, const void* cols_t, long long n, int k
     return (int)cudaGetLastError();
   }
   const unsigned gx = (unsigned)((n + ELL_THREADS - 1) / ELL_THREADS);
-  int split = (int)((ELL_TARGET_BLOCKS + gx - 1) / gx);
+  const unsigned target = ELL_TARGET_THREADS / ELL_THREADS;
+  int split = (int)((target + gx - 1) / gx);
   split = split < 1 ? 1 : (split > m ? m : split);
   const int rows_per_block = (m + split - 1) / split;
   const dim3 grid(gx, (unsigned)((m + rows_per_block - 1) / rows_per_block));
   const float* d = (const float*)data_t;
-  const int* c = (const int*)cols_t;
-  const float* xp = (const float*)x;
-  float* yp = (float*)y;
-  const int nn = (int)n, nc = (int)ncols;
-  if (k <= 8) {
-    ell_spmm_t_kernel<8><<<grid, ELL_THREADS, 0, s>>>(d, c, xp, yp, nn, k, nc, m, rows_per_block);
-  } else if (k <= 16) {
-    ell_spmm_t_kernel<16><<<grid, ELL_THREADS, 0, s>>>(d, c, xp, yp, nn, k, nc, m, rows_per_block);
-  } else if (k <= 24) {
-    ell_spmm_t_kernel<24><<<grid, ELL_THREADS, 0, s>>>(d, c, xp, yp, nn, k, nc, m, rows_per_block);
+  const int* slots = (const int*)warp_slots;
+  if (index_bytes == 2) {
+    ell_spmm_t_kernel<short><<<grid, ELL_THREADS, 0, s>>>(
+        d, (const short*)cols_t, slots, (const float*)x, (float*)y, (int)n, (int)ncols, m,
+        rows_per_block);
   } else {
-    ell_spmm_t_kernel<32><<<grid, ELL_THREADS, 0, s>>>(d, c, xp, yp, nn, k, nc, m, rows_per_block);
+    ell_spmm_t_kernel<int><<<grid, ELL_THREADS, 0, s>>>(
+        d, (const int*)cols_t, slots, (const float*)x, (float*)y, (int)n, (int)ncols, m,
+        rows_per_block);
   }
   return (int)cudaGetLastError();
 }

@@ -2,21 +2,24 @@
 
 Counterpart of ``experiments/gather_ablate.py``, which times the TPU gather
 kernel against degraded copies of its body. The TPU body's mechanisms do
-not exist on this card, so what is ablated is the port's own kernel
-(``csrc/ell_spmm.cu``), one mechanism at a time (``csrc/ell_ablate.cu``).
-Unlike the reference's variants, each one here is a defined function with a
-plain version (``variant_reference``), so the card can check it:
+not exist on this card, so what is ablated is the port's own kernel as
+first written (K2's first version), one mechanism at a time
+(``csrc/ell_ablate.cu``). Unlike the reference's variants, each one here is
+a defined function with a plain version (``variant_reference``), so the card
+can check it:
 
-  full      Y[r,i] = sum_j data[i,j] X[r, cols[i,j]]   the shipped
-            ``ell_spmm_t_cuda``, called, not copied
+  full      Y[r,i] = sum_j data[i,j] X[r, cols[i,j]]   timed as the
+            current ``ell_spmm_t_cuda``, called, not copied
   nogather  Y[r,i] = sum_j data[i,j] X[r, i']           no irregular address
   nodyn     Y[r,i] = sum_j data[i,j] X[r, (i'+j) mod ncols]   no index stream
   nofma     Y[r,i] = X[r, i'] + data[i,0]               no inner loop
 
 with i' = min(i, ncols - 1). Where the TPU experiment swept the row tile,
-this one sweeps what the kernel has instead: the register chunk KC and the
-threads of a block, on the ablation source's own copy of the full body
-(``ablate_full``), which gives the shipped kernel's bits.
+this one sweeps what the first version had instead: the register chunk KC
+and the threads of a block, on the ablation source's copy of that body
+(``ablate_full``), which gives K2's bits (the redesigned K2's too, on
+finite X). The degraded variants' shares are taken against the current
+K2's time.
 
     python -m dune_eigensolver_tpu_torch.experiments.gather_ablate [Nel]
         [--device cpu] [--m M] [--graph-n N]
@@ -94,15 +97,15 @@ def _launch(variant: str, A: ELLMatrix, Xt: torch.Tensor, kc: int, threads: int)
         raise ValueError(f"{what}: k = {A.k} exceeds the {n_cols} columns")
     if kc not in (0, *KCS) or threads not in THREADS:
         raise ValueError(f"{what}: kc {kc} not in {KCS} or threads {threads} not in {THREADS}")
-    data_t, cols_t = A.kernel_streams
+    data_t, cols_t = A.kernel_streams[0], A.column_stream  # K2's first version reads int32
     return kg._launch("ell_ablate_launch", Xt, (Xt.shape[0], n), VARIANTS.index(variant), kc,
                       threads, data_t.data_ptr(), cols_t.data_ptr(), n, A.k, n_cols)
 
 
 def ablate_full(A: ELLMatrix, Xt: torch.Tensor, kc: int = 0, threads: int = 256) -> torch.Tensor:
-    """Yt = (A @ Xt.T).T by the ablation source's copy of the shipped body
-    with ``kc`` (coefficient, column) pairs in registers (0: the shipped
-    choice for this k) and ``threads`` threads a block."""
+    """Yt = (A @ Xt.T).T by the ablation source's copy of K2's first body
+    with ``kc`` (coefficient, column) pairs in registers (0: the first
+    version's choice for this k) and ``threads`` threads a block."""
     Y = _launch("full", A, Xt, kc, threads)
     ablate_full.launches += 1
     return Y
@@ -141,16 +144,16 @@ VARIANT_KERNELS = {"full": kg.ell_spmm_t_cuda, "nogather": ablate_nogather,
 
 def check_variants(A: ELLMatrix, Xt: torch.Tensor) -> dict:
     """Every variant's kernel against its plain version on the card;
-    returns ``{variant: max|err|}`` and raises on a mismatch. ``full``: the
-    ablation source's body at every (KC, threads) must give the shipped
-    kernel's bits; sums in another order than the plain version's stay
-    within 1e-5 of the largest row's sum of |data| |X|; ``nofma`` is one
-    add per entry, exact."""
+    returns ``{variant: max|err|}`` and raises on a mismatch. ``full``: K2's
+    first body at every (KC, threads) must give the bits of the current K2
+    (on finite X: the slots K2 skips are padding); sums in another order
+    than the plain version's stay within 1e-5 of the largest row's sum of
+    |data| |X|; ``nofma`` is one add per entry, exact."""
     absA = dataclasses.replace(A, data=A.data.abs())
-    shipped = kg.ell_spmm_t_cuda(A, Xt)
+    current = kg.ell_spmm_t_cuda(A, Xt)
     for kc in (0, *KCS):
         for threads in THREADS:
-            if not torch.equal(ablate_full(A, Xt, kc, threads), shipped):
+            if not torch.equal(ablate_full(A, Xt, kc, threads), current):
                 raise RuntimeError(f"ablate_full kc={kc} threads={threads}: differs from "
                                    "ell_spmm_t_cuda")
     errs = {}

@@ -19,7 +19,8 @@ device. The TPU side's windowed/segment planner (``WindowedELL``,
 ``WindowedBSR``, the COO tail, ``WindowedLayout``) is not ported: a CUDA
 thread gathers X straight from device memory through the caches, so the
 containers feed the kernels as they are (in the ``(k, n)`` stream layout
-of ``ELLMatrix.kernel_streams``/``BSRMatrix.kernel_streams``).
+of ``ELLMatrix.kernel_streams``/``BSRMatrix.kernel_streams``; the ELL
+kernel also reads ``ELLMatrix.warp_slots``).
 """
 
 from __future__ import annotations
@@ -96,12 +97,18 @@ def _launch(name: str, Xt: torch.Tensor, y_shape, *args) -> torch.Tensor:
 def ell_spmm_t_cuda(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
     """Yt = (A @ Xt.T).T by the CUDA ELL kernel, on the current stream.
     f32 only, one CUDA device, contiguous Xt; raises on anything else and
-    on a launch CUDA refuses."""
+    on a launch CUDA refuses. Each warp of 32 rows runs its slots up to
+    ``A.warp_slots`` (the trailing padding is skipped): on finite X the
+    plain version's function; a non-finite X value in the column of a
+    padding slot past its warp's count does not reach Y (ROADMAP queue 3).
+    The kernel reads the index stream of ``A.kernel_streams``: int16
+    offsets ``cols - row`` where they fit, else int32 columns."""
     n, n_cols = A.shape
     _check_cuda_operands("ell_spmm_t_cuda", A.data, A.cols, Xt, n_cols)
-    data_t, cols_t = A.kernel_streams
+    data_t, index_t = A.kernel_streams
     Y = _launch("ell_spmm_t_launch", Xt, (Xt.shape[0], n), data_t.data_ptr(),
-                cols_t.data_ptr(), n, A.k, n_cols)
+                index_t.data_ptr(), index_t.element_size(), A.warp_slots.data_ptr(), n, A.k,
+                n_cols)
     ell_spmm_t_cuda.launches += 1
     return Y
 

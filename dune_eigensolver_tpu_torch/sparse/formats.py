@@ -97,6 +97,43 @@ class DIAMatrix:
         ).tocsr()
 
 
+WARP_ROWS = 32  # consecutive rows that share one slot count (csrc/ell_spmm.cu ELL_WARP)
+
+
+def ell_warp_slots(data: torch.Tensor, cols: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """One int32 count per ``WARP_ROWS`` consecutive rows of an ELL operand
+    (the last group may be short): 1 + the last slot in which any of those
+    rows holds a slot that is not padding, 0 for rows of padding alone.
+    Padding is what the contract writes: ``data == 0`` and
+    ``cols == min(row, n_cols - 1)``. Slots after a group's count are all
+    padding, so a sum over the first ``count`` slots is the row's sum."""
+    n, k = data.shape
+    groups = -(-n // WARP_ROWS)
+    if k == 0:
+        return torch.zeros(groups, dtype=torch.int32, device=data.device)
+    own = torch.arange(n, device=cols.device).clamp(max=n_cols - 1)
+    stored = (data != 0) | (cols != own[:, None])
+    slot = torch.arange(1, k + 1, dtype=torch.int32, device=data.device)
+    last = torch.where(stored, slot, 0).amax(dim=1)  # per row, 0 if none
+    last = torch.nn.functional.pad(last, (0, groups * WARP_ROWS - n))
+    return last.reshape(groups, WARP_ROWS).amax(dim=1).to(torch.int32)
+
+
+def ell_column_offsets(cols: torch.Tensor):
+    """``cols[i, j] - i`` as a contiguous ``(k, n)`` int16 stream when every
+    such offset fits in int16, else None: a mesh- or RCM-ordered operator
+    whose columns lie near their rows then feeds the CUDA kernel half the
+    index bytes. Which of the two the kernel reads is decided here, from
+    the container alone (``ELLMatrix.kernel_streams``)."""
+    n, k = cols.shape
+    if n == 0 or k == 0:
+        return None
+    off = cols.to(torch.int64) - torch.arange(n, device=cols.device)[:, None]
+    if off.min().item() < -(2**15) or off.max().item() >= 2**15:
+        return None
+    return off.T.to(torch.int16).contiguous()
+
+
 def _first_on_diagonal(on_diag: torch.Tensor) -> torch.Tensor:
     """The FIRST on-diagonal slot of each row: padding slots reuse the row's
     own index, so a shift must land on one slot only (real entries sort
@@ -132,10 +169,28 @@ class ELLMatrix:
 
     @functools.cached_property
     def kernel_streams(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(data, cols)`` as contiguous ``(k, n)`` copies, made once per
-        container: the CUDA kernel runs one thread per row, and in this
-        layout a warp's coefficient and index loads are contiguous."""
-        return self.data.T.contiguous(), self.cols.T.contiguous()
+        """The coefficients and one index stream as contiguous ``(k, n)``
+        copies, made once per container: the CUDA kernel runs one thread per
+        row, and in this layout a warp's coefficient and index loads are
+        contiguous. The index stream is ``ell_column_offsets`` (int16
+        ``cols - row``) where every offset fits, else the int32 columns."""
+        offsets = ell_column_offsets(self.cols)
+        return self.data.T.contiguous(), (self.cols.T.contiguous() if offsets is None else offsets)
+
+    @functools.cached_property
+    def column_stream(self) -> torch.Tensor:
+        """``cols`` as a contiguous ``(k, n)`` int32 copy, made once on first
+        use: what K2's first version (``experiments/gather_ablate.py``)
+        reads. It is ``kernel_streams``' own index stream where that holds
+        int32 columns; no solve path makes it otherwise."""
+        index_t = self.kernel_streams[1]
+        return index_t if index_t.dtype == torch.int32 else self.cols.T.contiguous()
+
+    @functools.cached_property
+    def warp_slots(self) -> torch.Tensor:
+        """``ell_warp_slots`` of this container, made once: the CUDA kernel
+        runs each warp's slot loop to its count, not to ``k``."""
+        return ell_warp_slots(self.data, self.cols, self.shape[1])
 
     def _on_diag(self) -> torch.Tensor:
         n = self.shape[0]

@@ -14,6 +14,8 @@ import torch
 from dune_eigensolver_tpu_torch.kernels import dia_spmm as kd
 from dune_eigensolver_tpu_torch.sparse import DIAMatrix, problems, spmm_t
 
+import test_torch_ell_cases
+
 pytestmark = pytest.mark.cuda
 
 # (n, offsets, columns a thread of the kernel owns). 2D 5-point and 3D
@@ -201,6 +203,115 @@ def test_gather_kernels_match_reference(cuda, kind, m):
     absA = dataclasses.replace(A, **{field: getattr(A, field).abs()})
     tol = 1e-5 * plain(absA, X.abs()).max().item()
     assert (Y - plain(A, X)).abs().max().item() <= tol
+
+
+def _warp_operand(kind, device):
+    return test_torch_ell_cases.warp_operand(kind, device, torch.float32)
+
+
+WARP_KINDS = test_torch_ell_cases.WARP_KINDS
+
+
+@pytest.mark.parametrize("kind", WARP_KINDS)
+@pytest.mark.parametrize("m", [1, 3, 9, 24, 128])
+def test_ell_kernel_stops_each_warp_at_its_count(cuda, kind, m):
+    """K2 runs each warp's slots to its ``warp_slots`` count: against the
+    plain version (all k slots) within 1e-5 of the row's |A|.|X|, as
+    ``test_gather_kernels_match_reference``; m = 1, 3, 9 leave the unrolled
+    row loop a remainder, m = 128 splits the rows over the grid."""
+    import dataclasses
+
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+
+    A = _warp_operand(kind, cuda)
+    assert A.warp_slots.max().item() <= A.k
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, A.shape[1]))).to(cuda, torch.float32)
+    before = kg.ell_spmm_t_cuda.launches
+    Y = spmm_t(A, X)
+    torch.cuda.synchronize()
+    assert kg.ell_spmm_t_cuda.launches == before + 1 and Y.shape == (m, A.shape[0])
+    absA = dataclasses.replace(A, data=A.data.abs())
+    tol = 1e-5 * kg.ell_spmm_t_reference(absA, X.abs()).max().item()
+    assert (Y - kg.ell_spmm_t_reference(A, X)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kind", WARP_KINDS + ["ell-graph", "ell-wide", "ell-rect"])
+@pytest.mark.parametrize("m", [1, 9, 24])
+def test_ell_kernel_gives_its_first_versions_bits(cuda, kind, m):
+    """On finite X the redesigned K2 gives the bits of its first version,
+    which the ablation source keeps (``ablate_full`` at KC from k,
+    256 threads): one fused multiply-add chain per output in slot order;
+    the padding slots it skips add zeros to a sum that starts at +0."""
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+
+    A = _warp_operand(kind, cuda) if kind in WARP_KINDS else _gather_operand(kind, cuda)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, A.shape[1]))).to(cuda, torch.float32)
+    assert torch.equal(kg.ell_spmm_t_cuda(A, X), ga.ablate_full(A, X, 0, 256))
+
+
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("m", [1, 8])
+def test_ell_kernel_int16_and_int32_indices_give_the_same_bits(cuda, far, m):
+    """A banded operand at n = 40,000 feeds the kernel int16 offsets; one
+    entry 39,999 columns from its row makes the container keep int32
+    columns. Both give the first version's bits."""
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+
+    n = 40_000
+    S = sp.diags([np.full(n - abs(o), 1.0 + 0.1 * o) for o in (-700, -1, 0, 1, 700)],
+                 [-700, -1, 0, 1, 700], format="lil")
+    if far:
+        S[0, n - 1] = 0.25
+    A = ell_from_scipy(sp.csr_matrix(S), dtype=torch.float32, device=cuda)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, n)).astype(np.float32)).to(cuda)
+    Y = kg.ell_spmm_t_cuda(A, X)
+    assert A.kernel_streams[1].element_size() == (4 if far else 2)
+    assert torch.equal(Y, ga.ablate_full(A, X, 0, 256))
+
+
+def test_ell_kernel_skips_padding_past_the_warp_count(cuda):
+    """The deliberate difference (ROADMAP queue 3): row 40 has no diagonal
+    entry, and no row stores column 40, so only row 40's padding slots
+    (zero coefficient, own column) read X[:, 40]. Its warp stops after
+    slot 3, before that padding, while k = 9 is set by row 0 in the other
+    warp. An infinite X[:, 40] makes the plain version and K2's first
+    version NaN in row 40 (0 * inf); K2 stays finite there and gives the
+    sum of row 40's stored entries, and every other output is the first
+    version's bits."""
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+
+    n = 64
+    lengths = [9] + [2] * 31 + [3] * 32
+    S = test_torch_ell_cases.rows_csr(lengths).tolil()
+    S[40, 40], S[40, 43] = 0.0, 0.7  # row 40: columns 41, 42, 43
+    S[39, 40] = 0.0  # the rows before it reach column 40; drop that
+    S[38, 40] = 0.0
+    S = sp.csr_matrix(S)
+    S.eliminate_zeros()
+    assert S[:, 40].nnz == 0 and S[40].nnz == 3
+    A = ell_from_scipy(S, dtype=torch.float32, device=cuda)
+    assert A.k == 9 and A.warp_slots.tolist() == [9, 3]
+    X = torch.from_numpy(np.random.default_rng(0).standard_normal((3, n)).astype(np.float32)).to(cuda)
+    X[:, 40] = float("inf")
+    Y = kg.ell_spmm_t_cuda(A, X)
+    first = ga.ablate_full(A, X, 0, 256)
+    plain = kg.ell_spmm_t_reference(A, X)
+    assert torch.isnan(plain[:, 40]).all() and torch.isnan(first[:, 40]).all()
+    assert torch.isfinite(Y).all()
+    others = torch.arange(n, device=cuda) != 40
+    assert torch.equal(Y[:, others], first[:, others])
+    X0 = X.clone()
+    X0[:, 40] = 0.0
+    torch.testing.assert_close(Y[:, 40], kg.ell_spmm_t_reference(A, X0)[:, 40], rtol=1e-6, atol=1e-6)
 
 
 def test_gather_wrappers_refuse_bad_operands(cuda):
@@ -401,8 +512,8 @@ def test_cli_and_experiments_on_card(cuda, capsys):
 @pytest.mark.parametrize("n,k", [(1001, 7), (2049, 18), (777, 33), (300, 3)])
 @pytest.mark.parametrize("m", [1, 8, 24])
 def test_ablate_variants_match_plain(cuda, n, k, m):
-    """``check_variants``: the ablation source's full body gives the shipped
-    kernel's bits at every (KC, threads); ``nogather`` and ``nodyn`` stay
+    """``check_variants``: the ablation source's full body (K2's first
+    version) gives K2's bits at every (KC, threads); ``nogather`` and ``nodyn`` stay
     within 1e-5 of the largest row's sum of |data| |X| of their plain
     versions; ``nofma`` is exact. n is no multiple of a block, k spans one
     to two register chunks."""

@@ -45,6 +45,9 @@ from dune_eigensolver_tpu_torch.sparse import (
     spmm_t,
     unpermute_vectors,
 )
+from dune_eigensolver_tpu_torch.sparse.formats import ell_column_offsets, ell_warp_slots
+
+import test_torch_ell_cases
 
 torch.set_num_threads(2)
 
@@ -325,14 +328,149 @@ def test_make_engine_routes_bsr_blocks_the_kernel_lacks_to_ell():
 def test_kernel_streams_are_transposed_copies_made_once():
     """The CUDA kernels read the coefficients as (k, n) / (k, nbr, b, b)
     streams: the same values, transposed, contiguous, built once per
-    container and reused."""
+    container and reused. An ELL container holds one index stream: int16
+    offsets where they fit (here), else int32 columns; the int32 copy K2's
+    first version reads is made only when asked for."""
     E = _bridge(_jax_operand("ell900", np.float32))
-    data_t, cols_t = E.kernel_streams
-    assert data_t.is_contiguous() and cols_t.is_contiguous()
-    assert torch.equal(data_t, E.data.T) and torch.equal(cols_t, E.cols.T)
-    assert cols_t.dtype == torch.int32 and E.kernel_streams[0] is data_t
+    data_t, index_t = E.kernel_streams
+    assert data_t.is_contiguous() and index_t.is_contiguous()
+    assert torch.equal(data_t, E.data.T) and E.kernel_streams[0] is data_t
+    assert index_t.dtype == torch.int16 and E.kernel_streams[1] is index_t
+    assert torch.equal(index_t.to(torch.int32) + torch.arange(900, dtype=torch.int32), E.cols.T)
+    assert "column_stream" not in vars(E)
+    cols_t = E.column_stream
+    assert cols_t.dtype == torch.int32 and cols_t.is_contiguous() and torch.equal(cols_t, E.cols.T)
+    assert E.column_stream is cols_t
+    far = ell_from_scipy(sp.random(40_000, 10, density=1e-4, random_state=0, format="csr"),
+                         device="cpu")  # row 39,999 pads with column 9: no int16 offsets
+    assert far.kernel_streams[1].dtype == torch.int32 and far.column_stream is far.kernel_streams[1]
     Bm = _bridge(_jax_operand("kron4_bsr", np.float32))
     bdata_t, bcols_t = Bm.kernel_streams
     assert bdata_t.shape == (Bm.bcols.shape[1], Bm.nbr, 4, 4) and bdata_t.is_contiguous()
     assert torch.equal(bdata_t, Bm.bdata.transpose(0, 1)) and torch.equal(bcols_t, Bm.bcols.T)
     assert Bm.kernel_streams[1] is bcols_t
+
+
+def test_warp_slots_are_made_once():
+    """The ELL kernel's per-warp slot counts are made once per container,
+    beside its streams, and a derived container makes its own."""
+    E = _bridge(_jax_operand("ell900", np.float32))
+    slots = E.warp_slots
+    assert slots.dtype == torch.int32 and slots.shape == (-(-900 // 32),)
+    assert E.warp_slots is slots
+    np.testing.assert_array_equal(
+        slots.numpy(), _numpy_warp_slots(E.data.numpy(), E.cols.numpy(), E.shape[1]))
+    shifted = E.with_shifted_diagonal(1.0)
+    assert shifted.warp_slots is not slots and shifted.warp_slots is shifted.warp_slots
+
+
+@pytest.mark.parametrize("name", ["ell900", "ell1001", "elast12_ell"])
+def test_column_offsets_are_columns_minus_row_in_int16(name):
+    """Where every column lies within int16 of its row, the ELL kernel
+    reads ``cols - row`` as a contiguous (k, n) int16 stream."""
+    E = _bridge(_jax_operand(name, np.float32))
+    off = ell_column_offsets(E.cols)
+    n = E.shape[0]
+    assert off.dtype == torch.int16 and off.shape == (E.k, n) and off.is_contiguous()
+    np.testing.assert_array_equal(off.numpy().T.astype(np.int64) + np.arange(n)[:, None],
+                                  E.cols.numpy())
+
+
+@pytest.mark.parametrize("entry,fits", [((0, 32767), True), ((0, 32768), False),
+                                        ((32768, 0), True), ((32769, 0), False)])
+def test_column_offsets_only_where_int16_holds_them(entry, fits):
+    """Offsets from -2^15 to 2^15 - 1 fit; one step beyond either end and
+    the kernel reads the int32 columns. A rectangular operand's clamped
+    padding column counts like any other."""
+    S = sp.eye(40_000, format="lil")
+    S[entry] = 2.0
+    E = ell_from_scipy(sp.csr_matrix(S), device="cpu")
+    off = ell_column_offsets(E.cols)
+    assert (off is not None) == fits
+    if fits:
+        assert int(off.min()) == min(0, -entry[0]) and int(off.max()) == max(0, entry[1])
+    R = ell_from_scipy(sp.random(40_000, 10, density=1e-4, random_state=0, format="csr"),
+                       device="cpu")
+    assert ell_column_offsets(R.cols) is None  # row 39,999 pads with column 9
+    assert ell_column_offsets(torch.zeros((5, 0), dtype=torch.int32)) is None
+
+
+# ---------------------------------------------------------------------------
+# The ELL kernel's slot counts: one per 32 consecutive rows
+# ---------------------------------------------------------------------------
+
+
+def _numpy_warp_slots(data, cols, n_cols):
+    """1 + the last slot of any of 32 consecutive rows that is not padding
+    (``data == 0 and cols == min(row, n_cols - 1)``), row by row in numpy."""
+    n = data.shape[0]
+    own = np.minimum(np.arange(n), n_cols - 1)
+    stored = (data != 0) | (cols != own[:, None])
+    last = np.array([np.flatnonzero(r)[-1] + 1 if r.any() else 0 for r in stored], dtype=np.int64)
+    return np.array([last[w:w + 32].max() for w in range(0, n, 32)], dtype=np.int32)
+
+
+def _warp_case(name):
+    """The port's ELL operand of ``name``: the shared cases, and the JAX
+    package's container of the stored-zeros case through the numpy bridge."""
+    if name == "jax-interior":
+        return _bridge(jformats.ell_from_scipy(test_torch_ell_cases.interior_zeros()))
+    return test_torch_ell_cases.warp_operand(name, "cpu")
+
+
+WARP_CASES = test_torch_ell_cases.WARP_KINDS + ["jax-interior"]
+
+
+@pytest.mark.parametrize("name", WARP_CASES)
+def test_warp_slots_match_numpy_count(name):
+    A = _warp_case(name)
+    got = ell_warp_slots(A.data, A.cols, A.shape[1])
+    want = _numpy_warp_slots(A.data.numpy(), A.cols.numpy(), A.shape[1])
+    assert got.dtype == torch.int32 and got.shape == (-(-A.shape[0] // 32),)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.max().item() <= A.k
+    if name == "graph20000":
+        assert got.float().mean().item() < A.k  # the padding the kernel skips
+    if name == "lengths-1-to-k":
+        assert got.tolist() == [9, 9]
+    if name == "longest-at-last-lane":
+        assert got.tolist() == [2, 7, 2]
+    if name == "n-1001":
+        assert got.shape == (32,)
+    if name in ("interior", "jax-interior"):  # a stored zero on the diagonal before a later entry
+        d, c = A.data.numpy(), A.cols.numpy()
+        own = np.arange(A.shape[0])[:, None]
+        assert ((d == 0) & (c == own))[:, :-1].any() and got.tolist() == [6] * 6 + [6]
+    if name == "k1":
+        assert A.k == 1 and got.tolist() == [1, 0, 1, 1]
+
+
+def test_warp_slots_grow_where_a_shift_fills_a_padding_slot():
+    """``with_shifted_diagonal`` writes a row's missing diagonal into its
+    first padding slot, which then counts as stored: the count of that
+    row's warp grows by one, the others stay."""
+    A = ell_from_scipy(test_torch_ell_cases.no_diagonal_at_5(), k=6, device="cpu")
+    assert A.warp_slots.tolist() == [3, 2]  # row 5: 3 entries, no diagonal
+    assert A.with_shifted_diagonal(0.5).warp_slots.tolist() == [4, 2]
+    assert _warp_case("shifted").warp_slots.tolist() == [4, 2]
+
+
+@pytest.mark.parametrize("name", WARP_CASES)
+def test_sum_to_warp_count_gives_the_full_sum_bits(name):
+    """The kernel's argument, on the CPU: one f32 chain of multiply-adds
+    per output in slot order, stopped at the warp's count, gives the bits
+    of the chain over all k slots on finite X (the skipped products are
+    zeros added to a sum that starts at +0)."""
+    E = _warp_case(name)
+    A, cols = E.data.to(torch.float32), E.cols.long()
+    X = torch.from_numpy(np.random.default_rng(7).standard_normal((3, E.shape[1])).astype(np.float32))
+    stop = E.warp_slots.repeat_interleave(32)[: E.shape[0]]
+    full = torch.zeros((3, E.shape[0]), dtype=torch.float32)
+    short = torch.zeros_like(full)
+    for j in range(E.k):
+        term = A[:, j][None, :] * X[:, cols[:, j]]
+        full = full + term
+        short = torch.where((j < stop)[None, :], short + term, short)
+    assert torch.equal(full, short)
+    torch.testing.assert_close(full, kg.ell_spmm_t_reference(
+        dataclasses.replace(E, data=A), X), rtol=1e-5, atol=1e-5)
