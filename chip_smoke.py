@@ -141,7 +141,28 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               ev.method=lobpcg ev.nested=1 ev.dim=3 ev.N=64``, each
               returning 0 and printing its result line.
 
-Phases 15-17 run before phase 14, the kernel table, which comes last.
+18. direct  — the direct shift-invert engines, the reference's default
+              inverse, through the entry points with no ``inverse=``
+              (``DIRECT`` lines; ``phase_direct`` states each gate):
+              (a) bench.py's reference-parity solve, ``generalized_inverse``
+              on the 2D Neumann pencil at N=256, nev=8 (banded device LU,
+              C = nb = 256, 268 MB of factors) against ARPACK; (b)
+              ``standard_inverse`` on laplacian_dirichlet_2d(1024), the
+              largest 2D band one card holds (C = nb = 1024, 17.2 GB of
+              factors), against the closed form; (c) the RCM-banded route
+              on the flagship pencil elasticity_2d(96) at nev=124 and 4
+              (residual through K3) beside phase 8's CG route, host syncs
+              of both, and its scalar expansion to ELL at nev=4 (K2); (d)
+              ``lu_inverse_factory`` on laplacian_dirichlet_2d(256), m=8,
+              against the banded pair and scipy's spsolve; (e) the CLI's
+              ``smallest`` and ``eigenvalues`` with the INI's defaults. Each
+              line carries the engine taken and its blocks, iterations,
+              error, seconds (setup and solve), launches by kernel, peak
+              memory, and per apply: ms, device operations and device
+              time beside the byte bound. No product of the phase may take
+              a plain version.
+
+Phases 15-18 run before phase 14, the kernel table, which comes last.
 
 Each solve phase zeroes every kernel's launch counter just before its
 timed run and reads the counters just after; a phase whose kernel was not
@@ -151,7 +172,9 @@ change-based stopping tolerance (the reference's own flag).
 Output: progress lines, then one JSON line with the kernel table (each
 kernel's launches from the timed run of its own path: DIA phase 4, BSR
 phase 7, ELL phase 9, the probe and variant kernels phase 12, the ablation
-and gather-probe kernels phase 16; ``bound_ms``
+and gather-probe kernels phase 16; the K1, K2 and K3 rows that the
+direct engines drive add ``direct_launches``, those of phase 18's runs;
+``bound_ms``
 is the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s, the card's
 published rates, over the least bytes the function needs: coefficients,
 one index per scalar (ELL: 2 bytes where K2 reads int16 offsets, else 4)
@@ -573,7 +596,7 @@ def phase_flagship(torch, kernels, A, B):
         log(f"FLAGSHIP nev={nev} " + json.dumps(rec))
         if not err <= gate:
             raise RuntimeError(f"flagship nev={nev}: relerr {err:.3e} > {gate:.0e}")
-        out.append(rec)
+        out.append(dict(rec, oracle=ref))  # phase 18 holds its solves to the same oracle
     return out
 
 
@@ -1046,24 +1069,387 @@ def phase_standard(torch, kernels, problems):
           "ev.inverse=mg", "ev.b_identity=1", "ev.min_coarse=16"], "RESULT eigenvalues_test"),
     )
     for argv, head in protocols:
-        tee = Tee(sys.stdout)
-        set_counts(kernels)
+        cli_protocol(kernels, cli, [ini, *argv], head)
+
+
+def cli_protocol(kernels, cli, argv, head):
+    """``cli.main(argv)`` in process, every launch counter zeroed just
+    before and read just after: it must return 0, print one finite result
+    line starting with ``head`` and launch the DIA kernel."""
+    tee = Tee(sys.stdout)
+    set_counts(kernels)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in tee.getvalue().splitlines() if ln.startswith(head)]
+    if rc != 0 or len(lines) != 1:
+        raise RuntimeError(f"cli.main({argv}) returned {rc} with result lines {lines}")
+    numbers = [float(f) for f in lines[0].split(":")[-1].split() if f[0].isdigit()
+               and "=" not in f]
+    if not all(np.isfinite(numbers)):
+        raise RuntimeError(f"cli.main({argv}): non-finite result {lines[0]}")
+    launches = read_counts(kernels)["dia_spmm_t"]
+    if launches <= 0:
+        raise RuntimeError(f"cli.main({argv}) launched the DIA kernel no time")
+    log("PROTOCOL " + json.dumps(dict(argv=argv[1:], seconds=seconds, dia_spmm_launches=launches,
+                                      line=lines[0])))
+    return launches
+
+
+class EngineLog:
+    """Records the direct engine ``default_inverse_factory`` takes. Inside
+    the ``with`` block the two factories it calls (attributes of the
+    ``factorize`` package, which it reads at each call) are wrapped: each
+    call is timed to the end of its device work and notes the peak device
+    memory since the block began (entering it resets the peak); the pair
+    it returns is kept."""
+
+    NAMES = ("banded_inverse_factory", "rcm_banded_inverse_factory")
+
+    def __init__(self, torch):
+        from dune_eigensolver_tpu_torch import factorize
+
+        self.torch, self.factorize, self.calls = torch, factorize, []
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self.torch.cuda.reset_peak_memory_stats()
+        self.saved = {name: getattr(self.factorize, name) for name in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(self.factorize, name, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.factorize, name, fn)
+
+    def _wrap(self, fn):
+        torch = self.torch
+
+        def wrapped(A, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pair = fn(A, **kw)
+            torch.cuda.synchronize()
+            self.calls.append(dict(pair=pair, seconds=time.perf_counter() - t0,
+                                   peak_bytes=torch.cuda.max_memory_allocated()))
+            return pair
+
+        return wrapped
+
+    def only(self, what, engine):
+        """The one call recorded, which must have taken ``engine``."""
+        taken = [c["pair"][1].engine for c in self.calls]
+        if taken != [engine]:
+            raise RuntimeError(f"{what}: the default inverse took {taken}, not [{engine!r}]")
+        return self.calls[0]
+
+
+class PlainProductsRefused:
+    """Inside the ``with`` block ``spmm_t`` has no plain version to take:
+    a product on the card launches its kernel or raises, and any product
+    that reached a plain version would raise."""
+
+    def __enter__(self):
+        self.mod = importlib.import_module("dune_eigensolver_tpu_torch.sparse.spmm")
+        self.saved = dict(self.mod._ROUTES)
+
+        def refuse(A, Xt):
+            raise RuntimeError(f"a {type(A).__name__} product took the plain version")
+
+        for cls, (kernel, _) in self.saved.items():
+            self.mod._ROUTES[cls] = (kernel, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._ROUTES.update(self.saved)
+
+
+def count_syncs(torch, run):
+    """Host syncs of one run of ``run`` (its result read to the host
+    included), as torch's sync debug mode reports them: one warning for
+    each operation that waits for the card."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run().eigenvalues.cpu()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def apply_profile(torch, pair, Xt, nbytes, reps=5):
+    """One inverse pair's apply to Xt: ms per apply on the host clock over
+    ``reps`` back-to-back applies ending in a device sync; the device
+    operations and device time of one apply under torch.profiler; and the
+    byte bound of ``nbytes`` (what one apply must read) at 3.35 TB/s."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    aux, fn = pair
+    fn(aux, Xt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(aux, Xt)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(aux, Xt)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return dict(ms_per_apply=ms, device_ops_per_apply=sum(e.count for e in ops),
+                device_ms_per_apply=sum(e.self_device_time_total for e in ops) / 1e3,
+                bytes_per_apply=nbytes, bound_ms_per_apply=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def banded_apply_bytes(F, A_res, m, refine=1):
+    """Least bytes of one apply of a banded pair with ``refine`` steps: the
+    four factor arrays once per solve, and for each residual the product's
+    operand arrays (coefficients and indices as stored), X and Y once."""
+    operand = sum(t.numel() * t.element_size() for t in (
+        getattr(A_res, f, None) for f in ("data", "cols", "bdata", "bcols")) if t is not None)
+    return (1 + refine) * F.nbytes + refine * (operand + 2 * A_res.shape[0] * m * 4)
+
+
+def drop_setups():
+    """Empty the solvers' setup memo (``solvers/engine.py``). Its values
+    hold the operands it is keyed on (the internal operand of a solve with
+    no shift is the operand itself), so its weakref eviction does not fire
+    while an entry lives, and a direct engine's factors stay on the card
+    after their operand is deleted; the reference's memo is built the same
+    way (ROADMAP queue 3). Called between the runs of phase 18 so that each
+    one's peak memory is its own."""
+    importlib.import_module("dune_eigensolver_tpu_torch.solvers.engine")._SETUP_MEMO.clear()
+
+
+def phase_direct(torch, kernels, problems, flagship, A96, B96):
+    """Phase 18: the direct shift-invert engines, which are the reference's
+    default inverse, through the entry points with no ``inverse=``.
+
+    (a) bench.py's reference-parity solve, ``generalized_inverse`` on the
+    2D Neumann pencil at N = 256 (nev 8, tol 2e-3, shift 1e-3): banded
+    device LU, C = nb = 256, 268 MB of factors; relerr against ARPACK
+    within 5e-2, and within 1e-2 for the same solve with
+    ``rayleigh_ritz=True``. Without it, m = nev = 8 columns keep their own
+    Rayleigh quotients, mixtures inside the cluster lambda_5..8 (0.0190,
+    0.0203 twice, 0.0205) that the change-based stop at 2e-3 can leave above
+    1e-2 relative, depending on the start block: a plateau of the
+    reference's own algorithm, as at the flagship's nev=124 (gate 5e-2).
+    (b) The largest
+    2D band one card holds, ``standard_inverse`` on the Dirichlet Laplacian
+    at N = 1024 (n = 2^20, C = nb = 1024, 17.2 GB of factors): the smallest 8
+    within 10 x tol = 1e-5 of the closed form, as phase 17's
+    ``standard_inverse``. (c) The RCM route: the flagship pencil
+    ``elasticity_2d(96)`` at nev 124 and 4 against phase 8's oracle and
+    gates (5e-2, 1e-2), beside phase 8's CG route, with the host syncs of
+    both; then its scalar expansion (ELL, K2) at nev 4. (d) Host LU on the
+    2D Dirichlet Laplacian at N = 256, m = 8, against the banded pair and
+    scipy's spsolve. (e) The CLI's ``smallest`` and ``eigenvalues`` with the
+    INI's defaults. No product of the phase may take a plain version."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    from dune_eigensolver_tpu_torch import cli
+    from dune_eigensolver_tpu_torch.factorize import (
+        cg_inverse_factory,
+        default_inverse_factory,
+        lu_inverse_factory,
+    )
+    from dune_eigensolver_tpu_torch.oracle import smallest_generalized
+    from dune_eigensolver_tpu_torch.oracle.analytic import eigenvalues_laplace_dirichlet_2d
+    from dune_eigensolver_tpu_torch.solvers import generalized_inverse, standard_inverse
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out = {}
+
+    def engine_record(call, A_res, m):
+        F = call["pair"][0][0]
+        Xt = torch.randn((m, F.n), generator=gen, device="cuda")
+        return dict(engine=call["pair"][1].engine, stats=list(F.stats), factor_bytes=F.nbytes,
+                    setup_seconds=call["seconds"], setup_peak_bytes=call["peak_bytes"],
+                    **apply_profile(torch, call["pair"], Xt, banded_apply_bytes(F, A_res, m)))
+
+    drop_setups()
+    torch.cuda.empty_cache()
+    with PlainProductsRefused():
+        # (a) the reference-parity solve: bench.py's call, and the same with
+        # rayleigh_ritz=True, whose Ritz values the change-based stop does
+        # not leave mixed inside the cluster lambda_5..8
+        A = problems.laplacian_neumann_2d(256, dtype=torch.float32, device="cuda")
+        B = problems.laplacian_b_2d(256, 3, dtype=torch.float32, device="cuda")
+
+        def run_a(rr=False):
+            return generalized_inverse(A, B, nev=8, tol=2e-3, maxiter=200, shift=1e-3,
+                                       rayleigh_ritz=rr)
+
+        with EngineLog(torch) as engines:
+            res, rec = timed_twice(torch, run_a, kernels)
+            res_rr = run_a(True)
+        call = engines.only("parity", "banded")
+        F = call["pair"][0][0]
+        if F.stats != (256, 256, 256, "lu") or F.nbytes != 4 * 256 * 256**2 * 4:
+            raise RuntimeError(f"parity: factors {F.stats}, {F.nbytes} bytes")
+        ev = check_solve(torch, "parity", res, 256**2, 8)
+        ev_rr = check_solve(torch, "parity rr", res_rr, 256**2, 8)
+        ref, _ = smallest_generalized(A, B, nev=8, sigma=-1e-3)
+        err, err_rr = relerr(ev, ref), relerr(ev_rr, ref)
+        rec.update(n=256**2, nev=8, relerr=err, gate=5e-2, plateau=plateau(err, 2e-3),
+                   reference_iterations=15, host_syncs=count_syncs(torch, run_a),
+                   rayleigh_ritz=dict(iterations=int(res_rr.iterations), relerr=err_rr,
+                                      gate=1e-2),
+                   eigenvalues=ev.tolist(), **engine_record(call, call["pair"][0][1], 8))
+        log("DIRECT parity " + json.dumps(rec))
+        if rec["launches"]["dia_spmm_t"] <= 0:
+            raise RuntimeError("parity: the solve launched the DIA kernel no time")
+        if not (err <= 5e-2 and err_rr <= 1e-2):
+            raise RuntimeError(f"parity: relerr {err:.3e} (gate 5e-2) or, with "
+                               f"rayleigh_ritz, {err_rr:.3e} (gate 1e-2)")
+        out["parity"] = rec
+        del A, B, run_a, res, res_rr, call, F, engines
+        drop_setups()
+        torch.cuda.empty_cache()
+
+        # (b) the largest 2D band on one card
+        N = 1024
+        A = problems.laplacian_dirichlet_2d(N, dtype=torch.float32, device="cuda")
+
+        def run_b():
+            return standard_inverse(A, nev=8, tol=1e-6, maxiter=200)
+
+        with EngineLog(torch) as engines:
+            res, rec = timed_twice(torch, run_b, kernels)
+        call = engines.only("band 1024", "banded")
+        F = call["pair"][0][0]
+        if F.stats != (N, N, N, "lu") or F.nbytes != 4 * N * N**2 * 4:
+            raise RuntimeError(f"band 1024: factors {F.stats}, {F.nbytes} bytes")
+        ev = check_solve(torch, "band 1024", res, N * N, 8)
+        err = float(np.abs(ev - eigenvalues_laplace_dirichlet_2d(N)[:8]).max())
+        rec.update(n=N * N, nev=8, tol=1e-6, max_err=err, gate=1e-5, eigenvalues=ev.tolist(),
+                   **engine_record(call, A, 8))
+        log("DIRECT band 1024 " + json.dumps(rec))
+        if rec["launches"]["dia_spmm_t"] <= 0:
+            raise RuntimeError("band 1024: the solve launched the DIA kernel no time")
+        if not err <= 1e-5:
+            raise RuntimeError(f"band 1024: max_err {err:.3e} > 1e-5")
+        out["band_1024"] = rec
+        del A, run_b, res, call, F, engines
+        drop_setups()  # frees the 17.2 GB of factors
+        torch.cuda.empty_cache()
+
+        # (c) the RCM route on the flagship pencil, beside phase 8's CG route;
+        # one factorization serves both nev (the setup is memoized on the
+        # operands)
+        cg = cg_inverse_factory(rtol=1e-5, maxiter=1000)
+        with EngineLog(torch) as engines:
+            for (nev, gate), cg_rec in zip(((124, 5e-2), (4, 1e-2)), flagship):
+                def run_c(nev=nev, inverse=None):
+                    return generalized_inverse(A96, B96, nev=nev, tol=2e-3, maxiter=300,
+                                               shift=1e-3, inverse=inverse)
+
+                res, rec = timed_twice(torch, run_c, kernels)
+                call = engines.only(f"rcm nev={nev}", "rcm_banded")
+                ev = check_solve(torch, f"rcm nev={nev}", res, A96.shape[0], nev)
+                err = relerr(ev, cg_rec["oracle"])
+                rec.update(n=A96.shape[0], nev=nev, relerr=err, gate=gate,
+                           plateau=plateau(err, 2e-3), host_syncs=count_syncs(torch, run_c),
+                           residual_container=type(call["pair"][0][1]).__name__,
+                           cg_route=dict(seconds=cg_rec["seconds"],
+                                         iterations=cg_rec["iterations"],
+                                         relerr=cg_rec["relerr"],
+                                         host_syncs=count_syncs(torch,
+                                                                lambda: run_c(inverse=cg))),
+                           **engine_record(call, call["pair"][0][1], -(-nev // 8) * 8))
+                log(f"DIRECT rcm nev={nev} " + json.dumps(rec))
+                if rec["launches"]["bsr_spmm_t"] <= 0 or rec["launches"]["dia_spmm_t"] != 0:
+                    raise RuntimeError(f"rcm nev={nev}: launches {rec['launches']}")
+                if not err <= gate:
+                    raise RuntimeError(f"rcm nev={nev}: relerr {err:.3e} > {gate:.0e}")
+                out[f"rcm_{nev}"] = rec
+                del res, call
+        del engines
+        # the same pencil scalar-expanded to ELL: the residual runs K2
+        Ae = ell_from_scipy(A96.to_scipy(), dtype=torch.float32, device="cuda")
+        Be = ell_from_scipy(B96.to_scipy(), dtype=torch.float32, device="cuda")
+
+        def run_e():
+            return generalized_inverse(Ae, Be, nev=4, tol=2e-3, maxiter=300, shift=1e-3)
+
+        with EngineLog(torch) as engines:
+            res, rec = timed_twice(torch, run_e, kernels)
+        call = engines.only("rcm ell", "rcm_banded")
+        ev = check_solve(torch, "rcm ell", res, Ae.shape[0], 4)
+        err = relerr(ev, flagship[1]["oracle"])
+        rec.update(n=Ae.shape[0], nev=4, relerr=err, gate=1e-2,
+                   residual_container=type(call["pair"][0][1]).__name__,
+                   **engine_record(call, call["pair"][0][1], 8))
+        log("DIRECT rcm ell nev=4 " + json.dumps(rec))
+        if rec["launches"]["ell_spmm_t"] <= 0 or rec["launches"]["dia_spmm_t"] != 0:
+            raise RuntimeError(f"rcm ell: launches {rec['launches']}")
+        if not err <= 1e-2:
+            raise RuntimeError(f"rcm ell: relerr {err:.3e} > 1e-2")
+        out["rcm_ell_4"] = rec
+        del Ae, Be, run_e, res, call, engines
+        drop_setups()
+        torch.cuda.empty_cache()
+
+        # (d) host LU, against the banded pair and scipy
+        A = problems.laplacian_dirichlet_2d(256, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
-            rc = cli.main([ini, *argv])
-        seconds = time.perf_counter() - t0
-        lines = [ln for ln in tee.getvalue().splitlines() if ln.startswith(head)]
-        if rc != 0 or len(lines) != 1:
-            raise RuntimeError(f"cli.main({argv}) returned {rc} with result lines {lines}")
-        numbers = [float(f) for f in lines[0].split(":")[-1].split() if f[0].isdigit()
-                   and "=" not in f]
-        if not all(np.isfinite(numbers)):
-            raise RuntimeError(f"cli.main({argv}): non-finite result {lines[0]}")
-        launches = read_counts(kernels)["dia_spmm_t"]
-        if launches <= 0:
-            raise RuntimeError(f"cli.main({argv}) launched the DIA kernel no time")
-        log("PROTOCOL " + json.dumps(dict(argv=argv, seconds=seconds, dia_spmm_launches=launches,
-                                          line=lines[0])))
+        lu_pair = lu_inverse_factory(A)
+        t_setup = time.perf_counter() - t0
+        banded_pair = default_inverse_factory(A)
+        Xt = torch.randn((8, A.shape[0]), generator=gen, device="cuda")
+        Y_lu = lu_pair[1](lu_pair[0], Xt).double().cpu().numpy().T
+        Y_b = banded_pair[1](banded_pair[0], Xt).double().cpu().numpy().T
+        S = A.to_scipy().astype(np.float64).tocsc()
+        X = Xt.double().cpu().numpy().T
+        Y_ref = spl.spsolve(S, X)
+
+        def backward(Y):
+            return float(np.abs(S @ Y - X).max() / (abs(S) @ np.abs(Y)).max())
+
+        def forward(Y, ref):
+            return float(np.abs(Y - ref).max() / np.abs(ref).max())
+
+        F = lu_pair[0]
+        lu_bytes = sum(t.numel() * t.element_size() for T in (F.L, F.U)
+                       for t in (T.rows, T.cols, T.vals))
+        rec = dict(n=A.shape[0], m=8, engine=lu_pair[1].engine, setup_seconds=t_setup,
+                   nnz_L=F.stats[0], nnz_U=F.stats[1], levels_L=F.stats[2], levels_U=F.stats[3],
+                   chunks_L=F.L.nchunk, chunks_U=F.U.nchunk,
+                   backward_err=backward(Y_lu), banded_backward_err=backward(Y_b),
+                   forward_err=forward(Y_lu, Y_ref), banded_forward_err=forward(Y_b, Y_ref),
+                   lu_vs_banded=forward(Y_lu, Y_b),
+                   **apply_profile(torch, lu_pair, Xt, lu_bytes))
+        rec["banded_ms_per_apply"] = apply_profile(
+            torch, banded_pair, Xt, banded_apply_bytes(banded_pair[0][0], A, 8))["ms_per_apply"]
+        log("DIRECT host lu " + json.dumps(rec))
+        # f32 solves of an operator of condition 2.7e4: a few ulps backward,
+        # up to ~cond x that forward
+        if not (rec["backward_err"] <= 1e-5 and rec["banded_backward_err"] <= 1e-5
+                and rec["forward_err"] <= 1e-2 and rec["banded_forward_err"] <= 1e-2
+                and rec["lu_vs_banded"] <= 1e-2):
+            raise RuntimeError(f"host lu: errors {rec}")
+        out["host_lu"] = rec
+        del A, lu_pair, banded_pair, F
+        torch.cuda.empty_cache()
+
+        # (e) the CLI with the INI's defaults
+        ini = os.path.join(ROOT, "dune-eigensolver.ini")
+        out["cli"] = {
+            argv[-1]: cli_protocol(kernels, cli, [ini, *argv], head) for argv, head in (
+                (["--test", "smallest"], "N_M_TOL_RASERROR_ARPERROR_TIMERATIO:"),
+                (["--test", "eigenvalues"], "RESULT eigenvalues_test"),
+            )}
+    return out
 
 
 def main():
@@ -1279,6 +1665,11 @@ def main():
     # --- phase 17: the standard entry points and the CLI's protocols ---
     phase_standard(torch, kernels, problems)
 
+    # --- phase 18: the direct engines, the reference's default inverse ---
+    direct = phase_direct(torch, kernels, problems, flagship, A96, B96)
+    del A96, B96
+    torch.cuda.empty_cache()
+
     # --- phase 14: the kernel table ---
     def entry(name, source, replaces, launches, rec, nbytes, flops, library_ms, **more):
         b_ms, b_by = bound(nbytes, flops)
@@ -1310,11 +1701,14 @@ def main():
     table = [
         entry("dia_spmm_t", csrc + "dia_spmm.cu", "dune_eigensolver_tpu/kernels/dia_spmm.py:288",
               launches, k1, k1_bytes, 2.0 * k1_nnz * k1["m"], library[k1["case"]],
-              device_ms=k1["device_ms"], width=k1["width"]),
+              device_ms=k1["device_ms"], width=k1["width"],
+              direct_launches={k: direct[k]["launches"]["dia_spmm_t"]
+                               for k in ("parity", "band_1024")}),
         gather_entry("ell_spmm_t", csrc + "ell_spmm.cu",
                      "dune_eigensolver_tpu/kernels/gather_spmm.py:792",
                      graph["launches"]["ell_spmm_t"], gathered["ell graph n=2^20 m=8"], 1,
-                     device_ms=gathered["ell graph n=2^20 m=8"]["device_ms"]),
+                     device_ms=gathered["ell graph n=2^20 m=8"]["device_ms"],
+                     direct_launches={"rcm_ell_4": direct["rcm_ell_4"]["launches"]["ell_spmm_t"]}),
         # the CLI's matvec operand; elasticity_2d(512) scalar at m=8, whose
         # launches are those of ablate_table on that operand (scaled: the
         # same pattern), and at m=24, which no path launches
@@ -1341,7 +1735,9 @@ def main():
         gather_entry("bsr_spmm_t", csrc + "bsr_spmm.cu",
                      "dune_eigensolver_tpu/kernels/gather_spmm.py:845",
                      flagship[0]["launches"]["bsr_spmm_t"], gathered["bsr elasticity N=96 m=128"],
-                     4, device_ms=gathered["bsr elasticity N=96 m=128"]["device_ms"]),
+                     4, device_ms=gathered["bsr elasticity N=96 m=128"]["device_ms"],
+                     direct_launches={k: direct[k]["launches"]["bsr_spmm_t"]
+                                      for k in ("rcm_124", "rcm_4")}),
     ]
     n2, m2 = 2048**2, 8
     v_bytes = (5 * n2 + 2 * n2 * m2) * 4  # bytes_spmm_dia

@@ -30,11 +30,12 @@ protocols:
 
 ``ev.inverse`` picks the inner solve: ``cg``, ``cg16``, ``chebcg``, ``mg``,
 ``mgcg``, ``cheb``, or ``auto``/``banded``/``lu`` for the solver's default
-(``factorize.default_inverse_factory``), which raises for operands whose
-default is a direct engine that is not ported yet (2D stencils, ELL, BSR).
-That, ``--test scaling``, ``ev.method=dist|dist_general|adaptive`` and
-``ev.refine=on`` print what they wait for and return 2. ``float64`` runs
-natively on the card, so ``ev.refine=auto`` never refines.
+(``factorize.default_inverse_factory``: the block-banded direct engine for
+2D stencils and 3D ones up to N = 45, V-cycle-CG beyond, RCM-banded for
+the elasticity pencil), as in the reference. ``--test scaling``,
+``ev.method=dist|dist_general|adaptive`` and ``ev.refine=on`` print what
+they wait for and return 2. ``float64`` runs natively on the card, so
+``ev.refine=auto`` never refines.
 
 Everything runs on the current CUDA device unless ``ev.device=cpu``.
 

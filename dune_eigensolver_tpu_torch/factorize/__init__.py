@@ -1,13 +1,22 @@
 """Inverse engines: factories that map a (shifted) operand to a multi-RHS
 solve, and the routing that picks one by the operand.
 
-Counterpart of the JAX package's ``factorize/__init__.py``. Ported: the
-iterative engines (Jacobi-CG, Chebyshev, Chebyshev-CG, the multigrid
-V-cycle and V-cycle-CG). The direct engines (``banded.py``,
-``reordered.py``, ``host_lu.py``; ROADMAP queue 1 item 10) are not ported
-yet, and ``default_inverse_factory`` raises where the reference takes one.
+Counterpart of the JAX package's ``factorize/__init__.py``: the direct
+engines (block-banded ``banded.py``, RCM-banded ``reordered.py``, host
+SuperLU with a level-scheduled device solve ``host_lu.py``) and the
+iterative ones (Jacobi-CG, Chebyshev, Chebyshev-CG, the multigrid V-cycle
+and V-cycle-CG).
 """
 
+from dune_eigensolver_tpu_torch.factorize.banded import (
+    BANDED_BW_MAX,
+    BandedFactorization,
+    banded_factorization_from_numpy,
+    banded_inverse_factory,
+    banded_solve,
+    factorize_banded,
+    factorize_banded_device,
+)
 from dune_eigensolver_tpu_torch.factorize.cg import (
     cg_inverse_factory,
     cg_solve,
@@ -18,52 +27,53 @@ from dune_eigensolver_tpu_torch.factorize.chebyshev import (
     chebyshev_apply,
     chebyshev_inverse_factory,
 )
+from dune_eigensolver_tpu_torch.factorize.host_lu import (
+    FactorizedMatrix,
+    factorize,
+    lu_inverse_factory,
+)
 from dune_eigensolver_tpu_torch.factorize.multigrid import (
     detect_grid_dims,
     mg_cg_inverse_factory,
     mg_inverse_factory,
 )
+from dune_eigensolver_tpu_torch.factorize.reordered import (
+    rcm_banded_inverse_factory,
+    rcm_bandwidth,
+)
 from dune_eigensolver_tpu_torch.sparse.formats import DIAMatrix
 
-#: widest band the reference's banded engine takes (its ``_DEVICE_BW_MAX``)
-BANDED_BW_MAX = 2048
 
-
-def default_inverse_factory(A_int):
+def default_inverse_factory(A_int, **kw):
     """Pick the shift-invert engine for the operand, as the reference does:
 
-    * DIA with a band of at most ``BANDED_BW_MAX`` (2D stencils: bw = N)
-      -> the block-banded direct engine. Not ported yet: raises
-      ``NotImplementedError``;
+    * DIA with a band of at most ``BANDED_BW_MAX`` (2D stencils: bw = N; 3D
+      stencils up to N = 45) -> the block-banded direct engine
+      (``banded_inverse_factory``, ``fn.engine == "banded"``);
     * DIA with a wider band (3D stencils: bw = N^2): a structured stencil
       pattern gets V-cycle-preconditioned CG (``mg_cg_inverse_factory(rtol=
       1e-5, maxiter=100)``, an n-independent iteration count), anything
       else Chebyshev-preconditioned CG (``cheb_cg_inverse_factory(rtol=
       1e-5, maxiter=300)``);
-    * other formats (ELL, BSR) -> reverse Cuthill-McKee + the banded
-      engine. Not ported yet: raises ``NotImplementedError``.
+    * other formats (ELL, BSR) -> reverse Cuthill-McKee + the banded engine
+      (``rcm_banded_inverse_factory``, ``fn.engine == "rcm_banded"``); if
+      RCM cannot confine the band to ``BANDED_BW_MAX`` (``ValueError``),
+      Chebyshev-CG (1e-5, 300).
 
-    The two refusals do not quietly take an iterative engine instead: that
-    would be another default than the reference's. Pass ``inverse=`` /
-    ``precond=`` explicitly there (e.g. ``cg_inverse_factory(rtol=1e-5)``).
+    ``kw`` goes to the direct engines. The engine taken shows in the
+    returned pair: the direct engines' ``fn.engine`` and their factors'
+    ``stats`` = (bw, C, nb, kind), the iterative ones' solve function.
     """
     if isinstance(A_int, DIAMatrix):
-        bw = max(abs(o) for o in A_int.offsets)
-        if bw <= BANDED_BW_MAX:
-            raise NotImplementedError(
-                f"default_inverse_factory: a DIA operand of bandwidth {bw} <= "
-                f"{BANDED_BW_MAX} takes the block-banded direct engine "
-                "(factorize/banded.py), which is not ported yet (ROADMAP queue 1 "
-                "item 10); pass a factory, e.g. cg_inverse_factory(rtol=1e-5)"
-            )
+        if max(abs(o) for o in A_int.offsets) <= BANDED_BW_MAX:
+            return banded_inverse_factory(A_int, **kw)
         if detect_grid_dims(A_int.offsets, A_int.shape[0]) is not None:
             return mg_cg_inverse_factory(rtol=1e-5, maxiter=100)(A_int)
         return cheb_cg_inverse_factory(rtol=1e-5, maxiter=300)(A_int)
-    raise NotImplementedError(
-        f"default_inverse_factory: a {type(A_int).__name__} operand takes the "
-        "RCM-banded direct engine (factorize/reordered.py), which is not ported yet "
-        "(ROADMAP queue 1 item 10); pass a factory, e.g. cg_inverse_factory(rtol=1e-5)"
-    )
+    try:
+        return rcm_banded_inverse_factory(A_int, **kw)
+    except ValueError:
+        return cheb_cg_inverse_factory(rtol=1e-5, maxiter=300)(A_int)
 
 
 def solve_linear_system(A, b):
@@ -83,6 +93,18 @@ def solve_linear_system(A, b):
 
 __all__ = [
     "solve_linear_system",
+    "BANDED_BW_MAX",
+    "BandedFactorization",
+    "banded_factorization_from_numpy",
+    "banded_inverse_factory",
+    "banded_solve",
+    "factorize_banded",
+    "factorize_banded_device",
+    "FactorizedMatrix",
+    "factorize",
+    "lu_inverse_factory",
+    "rcm_banded_inverse_factory",
+    "rcm_bandwidth",
     "cg_inverse_factory",
     "cg_solve",
     "cg_solve_t",

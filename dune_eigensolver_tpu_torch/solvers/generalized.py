@@ -115,10 +115,9 @@ def generalized_inverse(
     ``fn(aux, X)``; column-layout solves are bridged to the internal
     transposed layout. Pass ``cg_inverse_factory(...)`` for the matrix-free
     path. Default: ``factorize.default_inverse_factory``, which picks the
-    engine by the operand (V-cycle-CG for 3D stencils, Chebyshev-CG for
-    other wide DIA) and raises ``NotImplementedError`` where the reference
-    takes a direct engine that is not ported yet (narrow-band DIA, ELL,
-    BSR).
+    engine by the operand as the reference does (the block-banded direct
+    engine for DIA bands up to 2048, V-cycle-CG for wider 3D stencils,
+    Chebyshev-CG for other wide DIA, RCM-banded for ELL/BSR).
 
     ``q0``: (n, m) start block, m = nev rounded up to ``block``; default a
     ``torch.Generator`` draw from ``seed`` on A's device, in ``dtype``

@@ -163,8 +163,8 @@ def lobpcg_generalized(
     ``precond``: factory mapping A' to an approximate inverse apply (a
     callable or an ``(aux, fn)`` pair), or ``False`` for none. Default:
     ``factorize.default_inverse_factory``, the engine the shift-invert
-    solvers use (it raises ``NotImplementedError`` for operands whose
-    default is a direct engine that is not ported yet).
+    solvers use (a direct solve for 2D stencils, narrow 3D ones, ELL and
+    BSR: an exact inverse as the preconditioner, as in the reference).
     ``q0``: (n, m) start block; default a ``torch.Generator`` draw from
     ``seed`` on A's device, in ``dtype`` (default A's).
     ``eval_shift``: the shift the eigenvalues are un-shifted by (default

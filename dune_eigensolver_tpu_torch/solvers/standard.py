@@ -204,8 +204,8 @@ def standard_inverse(
     ``normalize_inverse``); column-layout solves are bridged to the
     internal transposed layout, those marked ``layout_t`` run on it as they
     are. Defaults to ``factorize.default_inverse_factory``, which picks the
-    engine by the operand (and raises ``NotImplementedError`` where the
-    reference takes a direct engine that is not ported yet).
+    engine by the operand (the block-banded direct engine for bands up to
+    2048, V-cycle-CG or Chebyshev-CG for wider DIA, RCM-banded for ELL/BSR).
     """
     dtype = dtype or A.dtype
     m = padded_width(nev, block)

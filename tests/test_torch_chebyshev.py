@@ -17,6 +17,8 @@ import torch
 
 from dune_eigensolver_tpu.factorize import chebyshev as jcheb
 from dune_eigensolver_tpu.factorize import mg_cg_inverse_factory as jmg_cg_factory
+from dune_eigensolver_tpu.solvers import standard_inverse as jinverse
+from dune_eigensolver_tpu.sparse import formats as jformats
 from dune_eigensolver_tpu.sparse import problems as jproblems
 from dune_eigensolver_tpu.sparse.spmm import spmm_t as jspmm_t
 
@@ -26,13 +28,24 @@ from dune_eigensolver_tpu_torch.solvers import generalized_inverse as tgeneraliz
 from dune_eigensolver_tpu_torch.solvers import standard_inverse as tinverse
 from dune_eigensolver_tpu_torch.sparse import (
     DIAMatrix,
+    bsr_from_numpy,
     dia_from_numpy,
-    ell_from_scipy,
+    ell_from_numpy,
     problems,
     spmm_t,
 )
 
 torch.set_num_threads(2)
+
+
+def _bridge(J):
+    """A JAX container as the port's, on the CPU."""
+    if isinstance(J, jformats.DIAMatrix):
+        return dia_from_numpy(np.asarray(J.data), J.offsets, J.shape, device="cpu")
+    if isinstance(J, jformats.BSRMatrix):
+        return bsr_from_numpy(np.asarray(J.bdata), np.asarray(J.bcols), J.shape, J.block, J.nnz,
+                              device="cpu")
+    return ell_from_numpy(np.asarray(J.data), np.asarray(J.cols), J.shape, J.nnz, device="cpu")
 
 
 def _operand(dim, N, dtype, shift=0.05):
@@ -196,20 +209,37 @@ def test_default_inverse_factory_routing():
 @pytest.mark.parametrize("kind", ["dia-2d", "dia-3d-narrow", "ell", "bsr"])
 def test_default_inverse_factory_refuses_the_banded_branches(kind):
     """Where the reference takes the block-banded or the RCM-banded direct
-    engine, the port raises ``NotImplementedError`` naming ROADMAP item 10;
-    it does not quietly take an iterative engine."""
+    engine, the port takes it too (the name is from when the port refused
+    these branches): the pair names the engine and its blocks, and
+    ``standard_inverse`` with no ``inverse=`` gives the JAX default's
+    iterations and eigenvalues (1e-9) from the same start block, f64."""
     if kind == "dia-2d":
-        A = problems.laplacian_dirichlet_2d(40, dtype=torch.float32, device="cpu")
+        Aj = jproblems.laplacian_dirichlet_2d(40, dtype=np.float64)
+        engine, stats = "banded", (40, 256, 7, "lu")
     elif kind == "dia-3d-narrow":
-        A = problems.laplacian_dirichlet_3d(12, dtype=torch.float32, device="cpu")
+        Aj = jproblems.laplacian_dirichlet_3d(12, dtype=np.float64)
+        engine, stats = "banded", (144, 256, 7, "lu")
     elif kind == "ell":
-        A = ell_from_scipy(sp.eye(30, format="csr"), dtype=torch.float32, device="cpu")
+        S = jproblems.laplacian_dirichlet_2d(20, dtype=np.float64).to_scipy()
+        p = np.random.default_rng(0).permutation(400)
+        Aj = jformats.ell_from_scipy(sp.csr_matrix(S[p][:, p]), dtype=np.float64)
+        engine, stats = "rcm_banded", (20, 256, 2, "lu")
     else:
-        A = problems.elasticity_2d(4, dtype=torch.float32, device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        factorize.default_inverse_factory(A)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tinverse(A, nev=2, tol=1e-3, maxiter=5)
+        Aj = jproblems.elasticity_2d(4, dtype=np.float64)[0]
+        engine, stats = "rcm_banded", None
+    At = _bridge(Aj)
+    aux, fn = factorize.default_inverse_factory(At)
+    assert fn.engine == engine and fn.layout_t
+    if stats is not None:
+        assert aux[0].stats == stats
+    n = At.shape[0]
+    q0 = np.random.default_rng(n).standard_normal((n, 8))
+    kw = dict(nev=2, tol=1e-9, maxiter=200, shift=-1e-3)
+    rt = tinverse(At, q0=torch.from_numpy(q0), **kw)
+    rj = jinverse(Aj, q0=jnp.asarray(q0), **kw)
+    assert int(rt.iterations) == int(rj.iterations)
+    assert np.abs(rt.eigenvalues.numpy() - np.asarray(rj.eigenvalues)).max() <= 1e-9 * max(
+        1.0, np.abs(np.asarray(rj.eigenvalues)).max())
 
 
 def test_default_inverse_serves_the_entry_points():

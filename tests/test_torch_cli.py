@@ -181,7 +181,7 @@ def test_mgs_protocol_cpu(capsys):
 #: what of each protocol still waits for an unported module, and for which
 UNPORTED = {
     "largest": (["ev.refine=on"], "solvers/refine.py"),
-    "smallest": (["ev.N=12"], "item 10"),  # ev.inverse=auto on a 2D stencil: banded
+    "smallest": (["ev.refine=on"], "solvers/refine.py"),
     "eigenvalues": (["ev.method=adaptive"], "solvers/adaptive.py"),
     "scaling": ([], "item 14"),
     "nonsense": ([], "unknown test"),
@@ -200,6 +200,24 @@ def test_unported_protocol_returns_2(name, capsys):
     assert waits_for in out
     if name in ("scaling", "nonsense"):
         assert "matvec" in out and "mgs" in out and "largest" in out
+
+
+@pytest.mark.parametrize("name,head", [
+    ("smallest", "N_M_TOL_RASERROR_ARPERROR_TIMERATIO: 200 8 2.0e-03 "),
+    ("eigenvalues", "RESULT eigenvalues_test raes N=200 m=8 "),
+])
+def test_ini_defaults_run(name, head, capsys):
+    """The reference program's own defaults (the INI: the 2D GenEO pencil
+    at N = 200, f32, ``ev.inverse=auto``, the block-banded engine) run and
+    print the protocol's line; ``smallest``'s error against the ARPACK truth
+    stays within 5e-2 of the largest of the 8 values, as
+    ``test_smallest_protocol_cpu`` holds it."""
+    torch.set_num_threads(2)
+    assert cli.main([INI, "--test", name, "ev.device=cpu"]) == 0
+    (line,) = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith(head)]
+    if name == "smallest":
+        # the largest of the 8 truth values is 0.02714 (ARPACK at 1e-14)
+        assert float(line.split()[4]) <= 5e-2 * 0.02714
 
 
 @pytest.mark.parametrize("method", ["dist", "dist_general"])
@@ -253,7 +271,9 @@ def test_largest_protocol_cpu(capsys):
     ["ev.N=12", "ev.inverse=cg", "ev.dtype=float64"],
     ["ev.N=8", "ev.dim=3", "ev.inverse=mgcg"],
     ["ev.N=6", "ev.problem=elasticity", "ev.inverse=cg", "ev.dtype=float64"],
-], ids=["geneo-cg", "3d-mgcg", "elasticity-cg"])
+    ["ev.N=12", "ev.dtype=float64"],
+    ["ev.N=6", "ev.problem=elasticity", "ev.dtype=float64"],
+], ids=["geneo-cg", "3d-mgcg", "elasticity-cg", "geneo-banded", "elasticity-rcm"])
 def test_smallest_protocol_cpu(overrides, capsys):
     """Both packages against the ARPACK truth on the same pencil: converged,
     and the reference's line. The error is the largest over the whole block
@@ -287,7 +307,8 @@ def test_smallest_protocol_cpu(overrides, capsys):
     ["ev.method=lobpcg", "ev.nested=1", "ev.dim=3", "ev.N=16", "ev.inverse=mg",
      "ev.b_identity=1", "ev.min_coarse=6", "ev.ortho_block=8"],
     ["ev.method=arpack", "ev.N=12"],
-], ids=["raes", "tpu", "lobpcg-cg16", "lobpcg-none", "lobpcg-nested", "arpack"])
+    ["ev.method=raes", "ev.N=12"],
+], ids=["raes", "tpu", "lobpcg-cg16", "lobpcg-none", "lobpcg-nested", "arpack", "raes-banded"])
 def test_eigenvalues_protocol_cpu(overrides, capsys):
     """``ev.method`` dispatch in both packages on the same pencil: the
     reference's RESULT line; ARPACK's eigenvalues equal (1e-10); the

@@ -7,6 +7,8 @@ no JAX, so on a machine without JAX it runs without the suite's conftest
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -648,12 +650,12 @@ def test_probe_kernels_clamp_and_refuse(cuda):
 def test_standard_entry_points_on_card(cuda):
     """``standard_largest`` on the 2D Laplacian (N = 96) and
     ``standard_inverse`` with the default inverse on the 3D one (N = 48,
-    band 2304 > 2048: V-cycle-CG) on the card, through the DIA kernel,
-    against the closed form: the largest 4 within 4 * sqrt(tol) (a
+    band 2304 > 2048: V-cycle-CG) and on the 2D one (the block-banded
+    engine) on the card, through the DIA kernel, against the closed form: the largest 4 within 4 * sqrt(tol) (a
     change-based stop on a dense upper end fires near k = sqrt(4 / tol)
     iterations, where a Rayleigh quotient sits 4 / k = sqrt(4 * tol) below
     the top: the gate is twice that and depends on tol alone), the smallest
-    4 within 1e-4 (tol 1e-6)."""
+    4 within 1e-4 (3D) and 1e-5 (2D, 10 x tol) at tol 1e-6."""
     from dune_eigensolver_tpu_torch.oracle import (
         eigenvalues_laplace_dirichlet_2d,
         eigenvalues_laplace_dirichlet_3d,
@@ -674,8 +676,12 @@ def test_standard_entry_points_on_card(cuda):
     assert kd.dia_spmm_t_cuda.launches > before and bool(res.converged)
     ev = res.eigenvalues.cpu().numpy()
     assert np.abs(ev - eigenvalues_laplace_dirichlet_3d(48, count=4)).max() <= 1e-4
-    with pytest.raises(NotImplementedError, match="item 10"):
-        standard_inverse(A2, nev=4, tol=1e-6, maxiter=10)
+    # no inverse= on the 2D stencil: the block-banded engine (K1 refines)
+    before = kd.dia_spmm_t_cuda.launches
+    res = standard_inverse(A2, nev=4, tol=1e-6, maxiter=100)
+    assert kd.dia_spmm_t_cuda.launches > before and bool(res.converged)
+    ev = res.eigenvalues.cpu().numpy()
+    assert np.abs(ev - eigenvalues_laplace_dirichlet_2d(96)[:4]).max() <= 1e-5
 
 
 def test_study_path_and_protocols_on_card(cuda, capsys):
@@ -697,3 +703,128 @@ def test_study_path_and_protocols_on_card(cuda, capsys):
     assert "N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO: 32 8 " in out
     assert "N_M_TOL_RASERROR_ARPERROR_TIMERATIO: 12 8 " in out
     assert "RESULT eigenvalues_test lobpcg N=24 m=8 " in out
+
+
+def _backward_err(A, Y, R):
+    """max|A Y - R| / max(|A| |Y|) in float64 on the host, Y and R (m, n):
+    a few f32 ulps for a stable solve, whatever the operator's condition."""
+    S = A.to_scipy().astype(np.float64)
+    Yd, Rd = Y.double().cpu().numpy().T, R.double().cpu().numpy().T
+    return float(np.abs(S @ Yd - Rd).max() / (abs(S) @ np.abs(Yd)).max())
+
+
+def _spd_laplacian(N, shift, device):
+    return problems.laplacian_dirichlet_2d(N, dtype=torch.float32, device=device) \
+        .with_shifted_diagonal(shift)
+
+
+@pytest.mark.parametrize("method,shift,tol", [
+    ("lu", 0.1, 1e-4), ("cholesky", 0.1, 1e-4), ("lu", -0.5, 2e-3)])
+def test_banded_solve_on_card_matches_cpu(cuda, method, shift, tol):
+    """The device factorization and the sweep on the card (cuSOLVER/cuBLAS,
+    strict f32) against the same on the CPU (LAPACK): N = 100, C = 256
+    (40 blocks), 8 right-hand sides, within ``tol`` of each other relative
+    to max|X|: f32 rounding times the condition, ~80 for shift 0.1 (SPD),
+    ~1.5e4 for shift -0.5 (indefinite: the LU pivots inside the blocks)."""
+    from dune_eigensolver_tpu_torch.factorize import banded_solve, factorize_banded_device
+
+    out = []
+    for dev in ("cpu", cuda):
+        A = _spd_laplacian(100, shift, dev)
+        F = factorize_banded_device(A, method=method, validate=True)
+        assert F.stats == (100, 256, 40, method) and F.fwd.dinv.device.type == torch.device(dev).type
+        B = torch.from_numpy(np.random.default_rng(0).standard_normal((10_000, 8))).float()
+        out.append(banded_solve(F, B.to(dev)).cpu())
+    scale = out[0].abs().max()
+    assert ((out[1] - out[0]).abs().max() / scale).item() <= tol
+
+
+def test_device_cholesky_validate_raises_on_card(cuda):
+    """``validate=True`` reads cuSOLVER's codes back once and raises on a
+    non-SPD operator; the LU of the same operator passes."""
+    from dune_eigensolver_tpu_torch.factorize import factorize_banded_device
+
+    A = _spd_laplacian(60, -0.5, cuda)
+    with pytest.raises(ZeroDivisionError, match="not SPD"):
+        factorize_banded_device(A, method="cholesky", validate=True)
+    factorize_banded_device(A, validate=True)
+
+
+def test_banded_pair_refines_through_k1(cuda):
+    """The default pair on a 2D stencil: one K1 launch per apply (the
+    refinement residual), the plain DIA product never, and a backward error
+    (``_backward_err``) of at most 1e-5."""
+    from dune_eigensolver_tpu_torch.factorize import default_inverse_factory
+    spmm_mod = importlib.import_module("dune_eigensolver_tpu_torch.sparse.spmm")
+
+    A = _spd_laplacian(128, 0.05, cuda)
+    aux, fn = default_inverse_factory(A)
+    assert fn.engine == "banded" and aux[0].stats == (128, 256, 64, "lu")
+    R = torch.randn((8, A.shape[0]), device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    route = spmm_mod._ROUTES[DIAMatrix]
+    spmm_mod._ROUTES[DIAMatrix] = (route[0], None)  # the plain version would raise
+    try:
+        before = kd.dia_spmm_t_cuda.launches
+        Y = fn(aux, R)
+        torch.cuda.synchronize()
+        assert kd.dia_spmm_t_cuda.launches == before + 1
+    finally:
+        spmm_mod._ROUTES[DIAMatrix] = route
+    assert _backward_err(A, Y, R) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["ell", "bsr"])
+def test_rcm_residual_runs_the_gather_kernels(cuda, kind):
+    """The RCM-banded pair on the card: the refinement residual multiplies
+    by the permuted operand in its own container, so each apply launches K2
+    (ELL: a scrambled 2D Laplacian) or K3 (BSR: ``elasticity_2d(32)``) once
+    and no plain product (its routes are taken away for the apply); the
+    solve's backward error is at most 1e-5."""
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.factorize import default_inverse_factory
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.sparse import ELLMatrix, BSRMatrix, ell_from_scipy
+    spmm_mod = importlib.import_module("dune_eigensolver_tpu_torch.sparse.spmm")
+
+    if kind == "ell":
+        S = problems.laplacian_dirichlet_2d(60, dtype=torch.float64, device="cpu").to_scipy()
+        p = np.random.default_rng(0).permutation(3600)
+        A = ell_from_scipy(sp.csr_matrix(S[p][:, p]) + 0.05 * sp.identity(3600),
+                           dtype=torch.float32, device=cuda)
+        kernel = kg.ell_spmm_t_cuda
+    else:
+        A = problems.elasticity_2d(32, dtype=torch.float32, device=cuda)[0].with_shifted_diagonal(1e-3)
+        kernel = kg.bsr_spmm_t_cuda
+    aux, fn = default_inverse_factory(A)
+    assert fn.engine == "rcm_banded" and type(aux[1]) is type(A)
+    R = torch.randn((8, A.shape[0]), device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    saved = dict(spmm_mod._ROUTES)
+    for cls in (DIAMatrix, ELLMatrix, BSRMatrix):
+        spmm_mod._ROUTES[cls] = (saved[cls][0], None)
+    try:
+        before = kernel.launches
+        Y = fn(aux, R)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+    finally:
+        spmm_mod._ROUTES.update(saved)
+    assert _backward_err(A, Y, R) <= 1e-5
+
+
+def test_host_lu_on_card_matches_cpu(cuda):
+    """``lu_inverse_factory``: SuperLU on the host, the chunked solve on
+    the card, against the same solve on the CPU (1e-5 of max|Y|, f32; the
+    same factors, the gathers in another order) and a backward error of at
+    most 1e-5."""
+    from dune_eigensolver_tpu_torch.factorize import lu_inverse_factory
+
+    out = []
+    R = torch.from_numpy(np.random.default_rng(3).standard_normal((8, 4096))).float()
+    for dev in ("cpu", cuda):
+        A = _spd_laplacian(64, 0.0, dev)
+        aux, fn = lu_inverse_factory(A)
+        assert fn.engine == "host_lu" and aux.dinv.device.type == torch.device(dev).type
+        out.append(fn(aux, R.to(dev)))
+    assert ((out[1].cpu() - out[0]).abs().max() / out[0].abs().max()).item() <= 1e-5
+    assert _backward_err(A, out[1], R) <= 1e-5

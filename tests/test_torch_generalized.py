@@ -206,13 +206,32 @@ def test_seeded_start_is_reproducible():
     assert r1.eigenvectors.shape == (A.shape[0], 3)
 
 
-def test_default_inverses_are_refused():
+def test_default_inverses_are_refused(monkeypatch):
     """``inverse=None``/``precond=None`` select ``default_inverse_factory``,
-    whose choice for a BSR operand is the RCM-banded direct engine, which is
-    not ported yet: both entry points say so (naming the ROADMAP item)
-    instead of running something else."""
-    A, B = problems.elasticity_2d(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="RCM-banded.*item 10"):
-        tgeneralized(A, B, nev=2, tol=1e-6, maxiter=10)
-    with pytest.raises(NotImplementedError, match="RCM-banded.*item 10"):
-        tlobpcg(A, B, nev=2, tol=1e-6, maxiter=10)
+    whose choice for a BSR operand is the RCM-banded direct engine (the
+    name is from when the port refused it): on ``elasticity_2d(4)`` both
+    entry points go through ``rcm_banded_inverse_factory`` once and agree
+    with the JAX package's defaults from the same start block, f64 (the
+    same iterations; eigenvalues to 1e-8 relative)."""
+    from dune_eigensolver_tpu_torch import factorize
+
+    taken = []
+    rcm = factorize.rcm_banded_inverse_factory
+
+    def spy(A, **kw):
+        pair = rcm(A, **kw)
+        taken.append((type(A).__name__, pair[1].engine, type(pair[0][1]).__name__))
+        return pair
+
+    monkeypatch.setattr(factorize, "rcm_banded_inverse_factory", spy)
+    Aj, Bj = jproblems.elasticity_2d(4, dtype=np.float64)
+    A, B = _bridge(Aj), _bridge(Bj)
+    q0 = np.random.default_rng(4).standard_normal((A.shape[0], 8))
+    kw = dict(nev=2, tol=1e-8, maxiter=60, shift=1e-3)
+    for tsolve, jsolve in ((tgeneralized, jgeneralized), (tlobpcg, jlobpcg)):
+        rt = tsolve(A, B, q0=torch.from_numpy(q0), **kw)
+        rj = jsolve(Aj, Bj, q0=jnp.asarray(q0), **kw)
+        assert int(rt.iterations) == int(rj.iterations)
+        ej = np.asarray(rj.eigenvalues)
+        assert np.abs(rt.eigenvalues.numpy() - ej).max() <= 1e-8 * np.abs(ej).max()
+    assert taken == [("BSRMatrix", "rcm_banded", "BSRMatrix")] * 2

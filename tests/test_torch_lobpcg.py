@@ -105,11 +105,23 @@ def test_lobpcg_port_seeded_start_and_explicit_b():
 
 def test_lobpcg_port_refuses_default_preconditioner():
     """``precond=None`` is ``default_inverse_factory``; for this narrow-band
-    operand the reference's default is the block-banded direct engine, which
-    is not ported: the port says so and does not take another engine."""
-    _, _, At, Bt, _ = _pencil(np.float64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tlobpcg(At, Bt, nev=4, tol=1e-6, maxiter=10)
+    operand (3D, N = 12: band 144) the reference's default is the
+    block-banded direct engine, and the port takes it too (the name is
+    from when the port refused it). From the same q0, f64: the JAX
+    default's eigenvalues (rtol 1e-8) and the exact ones (rtol 1e-7).
+    With an exact inverse as the preconditioner the residual directions
+    shrink to roundoff within a few steps and the Rayleigh-Ritz basis grows
+    nearly dependent, which amplifies the two packages' last-digit
+    differences (LAPACK's LU against XLA's): the iteration counts may
+    differ by a few (16 and 15 here), not the eigenvalues."""
+    Aj, Bj, At, Bt, q0 = _pencil(np.float64)
+    kw = dict(nev=NEV, tol=1e-6, maxiter=150, b_identity=True, ortho_block=8)
+    rt = tlobpcg(At, Bt, q0=torch.from_numpy(q0), **kw)
+    rj = jlobpcg(Aj, Bj, q0=jnp.asarray(q0), **kw)
+    assert abs(int(rt.iterations) - int(rj.iterations)) <= 3 and bool(rt.converged)
+    et = rt.eigenvalues.numpy()
+    np.testing.assert_allclose(et, np.asarray(rj.eigenvalues), rtol=1e-8)
+    np.testing.assert_allclose(et, np.linalg.eigvalsh(At.to_scipy().toarray())[:NEV], rtol=1e-7)
 
 
 def test_shifted_operand_and_normalize_inverse_match_jax():
