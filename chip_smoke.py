@@ -14,7 +14,9 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               N=108 and N=54 at m=24 in both; ``standard_inverse``'s N=128
               m=8; 3D N=37, whose n is odd), each with its tolerance and the
               columns a thread of the kernel must own there (4, 4, 2 at
-              N=54, 1 at N=37); the kernel's median time launched in a
+              N=54, 1 at N=37); then float64 (the f64 instantiation, one
+              column a thread) at 3D N=216 m=24, 2D N=2048 m=8 and 2D N=200
+              m=8, held at 1e-12 of max|A| max|X| ndiag; the kernel's median time launched in a
               loop from the host (``ms``) and its device time by CUDA-graph
               replay (``device_ms``: the shortest kernels do not keep the
               host's loop busy), the plain version's median time, and GB/s
@@ -53,7 +55,10 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               (``first_version_device_ms``, ``in_turns_device_ms``);
               it reads int32 columns on the graph and int16 offsets on
               the elasticity operands (the index stream of
-              ``ELLMatrix.kernel_streams``), asserted.
+              ``ELLMatrix.kernel_streams``), asserted. Then float64: K2 on
+              the graph and on elasticity_2d(512) scalar, K3 on
+              elasticity_2d(512), m=8, held at 1e-12 of the row's |A|.|X|
+              (the first version, the bit check, is f32 only).
               Then one
               ``REREAD`` line per operand of ``phase_reread``: what the far
               re-reads of X cost the DIA and the BSR kernel.
@@ -162,7 +167,23 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               time beside the byte bound. No product of the phase may take
               a plain version.
 
-Phases 15-18 run before phase 14, the kernel table, which comes last.
+19. extras  — the single-card solver extras and float64 through the entry
+              points (``EXTRAS`` lines; each part states its gates): (a)
+              ``refine_eigenpairs`` on phase 4's timed 216^3 block (refined
+              max_err <= 1e-6, one f64 K1 launch), on the parity pencil and
+              on an ELL graph solve (f64 K2); (b) adaptive GenEO on the
+              parity pencil (n_below equal to ARPACK's count, one
+              factorization) and the CLI's ``ev.method=adaptive``; (c) the
+              checkpointed parity solve, interrupted and resumed, and the
+              checkpointed GenEO LOBPCG (phase 7's pencil and oracle); (d)
+              paranoid mode: silent on clean solves, an alarm per kernel on
+              an injected inf, ``b_identity_check``, and nothing added once
+              off (device operations and host syncs); (e) the CLI in
+              float64 (f64 K1 and K3) and with ``ev.refine=on`` and
+              ``ev.profile_dir``; (f) ``ortho_block='full'`` at N=24
+              (gated) and 216^3 (recorded).
+
+Phases 15-19 run before phase 14, the kernel table, which comes last.
 
 Each solve phase zeroes every kernel's launch counter just before its
 timed run and reads the counters just after; a phase whose kernel was not
@@ -174,8 +195,10 @@ kernel's launches from the timed run of its own path: DIA phase 4, BSR
 phase 7, ELL phase 9, the probe and variant kernels phase 12, the ablation
 and gather-probe kernels phase 16; the K1, K2 and K3 rows that the
 direct engines drive add ``direct_launches``, those of phase 18's runs;
+three f64 rows (K1 at 3D N=216 m=24, K2 on the graph, K3 on
+elasticity_2d(512), m=8) carry the f64 launches of phase 19;
 ``bound_ms``
-is the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s, the card's
+is the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s (34 in f64), the card's
 published rates, over the least bytes the function needs: coefficients,
 one index per scalar (ELL: 2 bytes where K2 reads int16 offsets, else 4)
 or per block (BSR, 4 bytes), X and Y once; row 0 of the
@@ -268,7 +291,25 @@ def phase_kernel_cases(torch):
         ("3d N=128 m=8 f32", 3, 128, 8, torch.float32, 4),
         ("3d N=37 m=24 f32", 3, 37, 24, torch.float32, 1),
         ("3d N=37 m=24 bf16", 3, 37, 24, torch.bfloat16, 1),
+        # f64: one column a thread (no vector body for 8-byte items); the
+        # refinement's shape, the f64 CLI's 2D shapes
+        ("3d N=216 m=24 f64", 3, 216, 24, torch.float64, 1),
+        ("2d N=2048 m=8 f64", 2, 2048, 8, torch.float64, 1),
+        ("2d N=200 m=8 f64", 2, 200, 8, torch.float64, 1),
     ]
+
+
+def kernel_tol(dtype, scale, bound64):
+    """A kernel's tolerance against its plain version: f32, the same sum
+    FMA-contracted, 1e-5 of the output's scale; bf16, both round one f32
+    sum, one bf16 ulp (2^-7 of the binade) apart; f64, the same f64 products
+    summed in another order, 1e-12 of ``bound64`` (max|A| max|X| times the
+    terms a row sums, or the row's |A|.|X|)."""
+    import torch
+
+    if dtype == torch.float64:
+        return 1e-12 * bound64
+    return (1e-5 if dtype == torch.float32 else 1e-2) * scale
 
 
 def phase_kernel(torch, kd, problems):
@@ -290,11 +331,10 @@ def phase_kernel(torch, kd, problems):
                                f"a thread, expected {width}")
         if not torch.isfinite(Y).all():
             raise RuntimeError(f"{name}: kernel output not finite")
-        err = (Y.float() - R.float()).abs().max().item()
+        err = (Y.double() - R.double()).abs().max().item()
         scale = R.float().abs().max().item()
-        # f32: same sum, FMA-contracted; bf16: both round one f32 sum, at
-        # most one bf16 ulp (2^-7 of the binade) apart
-        tol = (1e-5 if dtype == torch.float32 else 1e-2) * scale
+        tol = kernel_tol(dtype, scale, A.data.abs().max().item() * X.abs().max().item()
+                         * len(A.offsets))
         if not err <= tol:
             raise RuntimeError(f"{name}: max_abs_err {err:.3e} > tol {tol:.3e}")
         del Y, R
@@ -304,7 +344,8 @@ def phase_kernel(torch, kd, problems):
         device_ms = replay_ms(lambda: kd.dia_spmm_t_cuda(A, X))
         plain_ms = median_ms(lambda: kd.dia_spmm_t_reference(A, X), reps=5, inner=2)
         nbytes = (len(A.offsets) * n + 2 * n * m) * X.element_size()
-        rec = dict(case=name, n=n, m=m, width=width, max_abs_err=err, tol=tol, ms=ms,
+        rec = dict(case=name, dtype=str(dtype).split(".")[1], n=n, m=m, width=width,
+                   max_abs_err=err, tol=tol, ms=ms,
                    device_ms=device_ms, plain_ms=plain_ms, gbps=nbytes / ms / 1e6,
                    device_gbps=nbytes / device_ms / 1e6, plain_gbps=nbytes / plain_ms / 1e6)
         log("KERNEL " + json.dumps(rec))
@@ -375,7 +416,8 @@ def phase_reread(torch, kd, kg, problems, A512):
         log("REREAD " + json.dumps(dict(row, of_mesh=row["ms"] / rows[-1]["ms"])))
 
 
-def north_star(torch, N, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory):
+def north_star(torch, N, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory,
+               ortho_block=24):
     """The bench's north-star call (bench.py) through the port."""
     A3 = problems.laplacian_dirichlet_3d(N, dtype=torch.float32, device="cuda")
     n = A3.shape[0]
@@ -384,7 +426,7 @@ def north_star(torch, N, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory)
     return lambda: lobpcg_nested(  # noqa: E731
         A3, B3, nev=24, tol=2e-3, maxiter=300, shift=0.0,
         min_coarse=48, coarse_tol=2e-4, precond=prec,
-        ortho_iterations=1, ortho_block=24, b_identity=True,
+        ortho_iterations=1, ortho_block=ortho_block, b_identity=True,
     )
 
 
@@ -426,9 +468,27 @@ def kernel_device_s(events, name):
     return sum(e.self_device_time_total for e in events if name in e.key) / 1e6
 
 
+#: phase 19's running totals of f64 launches by kernel (None outside it):
+#: ``set_counts`` folds the tallies into them before it clears them
+F64_TOTAL = None
+
+
 def set_counts(kernels, value=0):
+    if F64_TOTAL is not None:
+        for name, count in f64_counts(kernels).items():
+            F64_TOTAL[name] += count
     for fn in kernels.values():
         fn.launches = value
+        if hasattr(fn, "by_dtype"):
+            fn.by_dtype.clear()
+
+
+def f64_counts(kernels):
+    """The f64 launches of each SpMM kernel since ``set_counts``."""
+    import torch
+
+    return {name: fn.by_dtype[torch.float64] for name, fn in kernels.items()
+            if hasattr(fn, "by_dtype")}
 
 
 def read_counts(kernels):
@@ -478,8 +538,17 @@ def check_solve(torch, name, res, n, nev):
     return ev
 
 
+def to_f64(A):
+    """The operand with its coefficients in float64 (indices shared)."""
+    import torch
+
+    field = "bdata" if hasattr(A, "bdata") else "data"
+    return dataclasses.replace(A, **{field: getattr(A, field).to(torch.float64)})
+
+
 def phase_gather(torch, kg, cases):
-    """Phase 6: the ELL and BSR kernels against their plain versions."""
+    """Phase 6: the ELL and BSR kernels against their plain versions (f32,
+    and f64 where the operand is f64)."""
     from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
     from dune_eigensolver_tpu_torch.sparse import BSRMatrix
 
@@ -491,7 +560,8 @@ def phase_gather(torch, kg, cases):
         else:
             kernel, plain, field = kg.ell_spmm_t_cuda, kg.ell_spmm_t_reference, "data"
         n = A.shape[0]
-        X = torch.randn((m, n), generator=gen, device="cuda")
+        f32 = A.dtype == torch.float32  # K2's first version, the bit check, is f32 only
+        X = torch.randn((m, n), generator=gen, device="cuda", dtype=A.dtype)
         before = kernel.launches
         Y = kernel(A, X)
         R = plain(A, X)
@@ -499,14 +569,19 @@ def phase_gather(torch, kg, cases):
         if kernel.launches != before + 1 or not torch.isfinite(Y).all():
             raise RuntimeError(f"{name}: kernel did not launch or gave non-finite values")
         err = (Y - R).abs().max().item()
-        # both sum the same f32 products of a row in other orders: at most a
-        # few k*2^-24 of the row's |A|.|X|, held at 1e-5 of its largest
+        # both sum the same products of a row in other orders: at most a few
+        # k*u of the row's |A|.|X|, held at 1e-5 of its largest in f32 and
+        # 1e-12 in f64
         absA = dataclasses.replace(A, **{field: getattr(A, field).abs()})
-        tol = 1e-5 * plain(absA, X.abs()).max().item()
+        rowsum = plain(absA, X.abs()).max().item()
+        tol = kernel_tol(A.dtype, rowsum, rowsum)
         if not err <= tol:
             raise RuntimeError(f"{name}: max_abs_err {err:.3e} > tol {tol:.3e}")
         more = {}
-        if kernel is kg.ell_spmm_t_cuda:
+        if kernel is kg.ell_spmm_t_cuda and not f32:
+            more = dict(mean_warp_slots=A.warp_slots.float().mean().item(), k=A.k,
+                        index_bytes=A.kernel_streams[1].element_size())
+        elif kernel is kg.ell_spmm_t_cuda:
             # K2's first version, kept by the ablation source: the same bits
             # on finite X (the slots a warp skips are padding, zero products)
             if not torch.equal(Y, ga.ablate_full(A, X, 0, 256)):
@@ -516,7 +591,7 @@ def phase_gather(torch, kg, cases):
         del Y, R, absA
         ms = median_ms(lambda: kernel(A, X))  # launched in a loop from the host
         device_ms = replay_ms(lambda: kernel(A, X))  # device time by graph replay
-        if kernel is kg.ell_spmm_t_cuda:
+        if kernel is kg.ell_spmm_t_cuda and f32:
             # K2 against its first version, device times in turns: first,
             # current, current, first
             turns = [replay_ms(lambda: ga.ablate_full(A, X, 0, 256)), replay_ms(lambda: kernel(A, X)),
@@ -525,12 +600,19 @@ def phase_gather(torch, kg, cases):
                         in_turns_device_ms=[turns[1], turns[2]])
         plain_ms = median_ms(lambda: plain(A, X), reps=5, inner=2)
         flops = 2.0 * A.nnz * m
+        itemsize = X.element_size()
+        # the byte model of the kernel table: coefficients once, one index
+        # per scalar (ELL, of the width read) or per block (BSR, int32), X
+        # and Y once
+        index = A.nnz * more.get("index_bytes", 4) if field == "data" else A.nnz // 4 * 4
+        nbytes = (A.nnz + 2 * n * m) * itemsize + index
         # launches of this case: the check, the warm-up, 7x5 timed and the graph's capture
-        rec = dict(case=name, kernel=kernel.__name__, n=n, nnz=A.nnz, m=m, **more,
-                   launches=kernel.launches - before,
+        rec = dict(case=name, kernel=kernel.__name__, dtype=str(A.dtype).split(".")[1], n=n,
+                   nnz=A.nnz, m=m, **more, launches=kernel.launches - before,
                    max_abs_err=err, tol=tol, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                    gflops=flops / ms / 1e6, device_gflops=flops / device_ms / 1e6,
-                   plain_gflops=flops / plain_ms / 1e6)
+                   plain_gflops=flops / plain_ms / 1e6, gbps=nbytes / ms / 1e6,
+                   device_gbps=nbytes / device_ms / 1e6)
         log("GATHER " + json.dumps(rec))
         records.append(rec)
         del X
@@ -566,7 +648,7 @@ def phase_geneo(torch, kernels, A, B):
     if not err <= 1e-2:
         raise RuntimeError(f"geneo: relerr {err:.3e} > 1e-2")
     profile_solve(torch, "geneo", run, rec["seconds"], rows=12)
-    return rec
+    return dict(rec, oracle=ref)  # phase 19 holds its checkpointed solve to the same oracle
 
 
 def phase_flagship(torch, kernels, A, B):
@@ -669,11 +751,12 @@ def phase_graph(torch, kernels, Au, small):
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
+F64_FLOPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores, published
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     """(bound_ms, bound_by): the least time the card could take."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -873,11 +956,15 @@ def phase_library(torch, cases):
             log("LIBRARY " + json.dumps(rec))
             out[name] = None
             continue
-        err = (Z.T.float() - Y.float()).abs().max().item()
+        err = (Z.T.double() - Y.double()).abs().max().item()
         scale = Y.float().abs().max().item()
+        crow, _, vals = arrays
+        per_row = int((crow[1:] - crow[:-1]).max()) * (A.block[1] if bsr else 1)
         # the same products summed in another order: 1e-5 of the largest |Y|
-        # in f32; in bf16 both round a sum once, one bf16 ulp (as phase 3)
-        if not err <= (1e-5 if Y.dtype == torch.float32 else 1e-2) * scale:
+        # in f32, 1e-12 of max|A| max|X| (terms a row sums) in f64; in bf16
+        # both round a sum once, one bf16 ulp (as phase 3)
+        if not err <= kernel_tol(Y.dtype, scale,
+                                 vals.abs().max().item() * X.abs().max().item() * per_row):
             raise RuntimeError(f"library {name}: differs from the kernel by {err:.3e}")
         ms = median_ms(lambda: torch.sparse.mm(S, X))
         kernel_ms = median_ms(lambda: kernel(A, Xt))
@@ -1072,29 +1159,37 @@ def phase_standard(torch, kernels, problems):
         cli_protocol(kernels, cli, [ini, *argv], head)
 
 
-def cli_protocol(kernels, cli, argv, head):
+def cli_protocol(kernels, cli, argv, head, kernel="dia_spmm_t", f64=False, also=()):
     """``cli.main(argv)`` in process, every launch counter zeroed just
     before and read just after: it must return 0, print one finite result
-    line starting with ``head`` and launch the DIA kernel."""
+    line starting with ``head`` (and one starting with each of ``also``)
+    and launch ``kernel`` (its f64 instantiation with ``f64``). Returns the
+    ``PROTOCOL`` record."""
     tee = Tee(sys.stdout)
     set_counts(kernels)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         rc = cli.main(argv)
     seconds = time.perf_counter() - t0
-    lines = [ln for ln in tee.getvalue().splitlines() if ln.startswith(head)]
-    if rc != 0 or len(lines) != 1:
-        raise RuntimeError(f"cli.main({argv}) returned {rc} with result lines {lines}")
-    numbers = [float(f) for f in lines[0].split(":")[-1].split() if f[0].isdigit()
-               and "=" not in f]
-    if not all(np.isfinite(numbers)):
-        raise RuntimeError(f"cli.main({argv}): non-finite result {lines[0]}")
-    launches = read_counts(kernels)["dia_spmm_t"]
-    if launches <= 0:
-        raise RuntimeError(f"cli.main({argv}) launched the DIA kernel no time")
-    log("PROTOCOL " + json.dumps(dict(argv=argv[1:], seconds=seconds, dia_spmm_launches=launches,
-                                      line=lines[0])))
-    return launches
+    out = tee.getvalue().splitlines()
+    found = {h: [ln for ln in out if ln.startswith(h)] for h in (head, *also)}
+    if rc != 0 or any(len(lines) != 1 for lines in found.values()):
+        raise RuntimeError(f"cli.main({argv}) returned {rc} with result lines {found}")
+    for (line,) in found.values():
+        numbers = [float(f) for f in line.split(":")[-1].split() if f[0].isdigit()
+                   and "=" not in f]
+        if not all(np.isfinite(numbers)):
+            raise RuntimeError(f"cli.main({argv}): non-finite result {line}")
+    launches, launches_f64 = read_counts(kernels), f64_counts(kernels)
+    taken = (launches_f64 if f64 else launches)[kernel]
+    if taken <= 0:
+        raise RuntimeError(f"cli.main({argv}) launched the {'f64 ' if f64 else ''}{kernel} "
+                           "kernel no time")
+    rec = dict(argv=argv[1:], seconds=seconds, dia_spmm_launches=launches["dia_spmm_t"],
+               launches=launches, f64_launches=launches_f64, line=found[head][0],
+               **{h.rstrip(":"): found[h][0] for h in also})
+    log("PROTOCOL " + json.dumps(rec))
+    return rec
 
 
 class EngineLog:
@@ -1452,6 +1547,459 @@ def phase_direct(torch, kernels, problems, flagship, A96, B96):
     return out
 
 
+def op_counts(torch, run):
+    """One call of ``run`` under torch.profiler: (device operations by name,
+    aten operations by name). The aten records come from the dispatcher and
+    are exact; the device records come from CUPTI, which drops a few of a
+    solve's records from run to run (``EXTRAS paranoid`` lists the device
+    operations that differ beside equal aten counts, the kernels' own
+    launches among them), so only the aten counts are compared exactly."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = collections.Counter({e.key: e.count for e in events
+                                  if e.device_type == DeviceType.CUDA})
+    aten = collections.Counter({e.key: e.count for e in events
+                                if e.device_type == DeviceType.CPU and e.key.startswith("aten::")})
+    return device, aten
+
+
+def extras_refine(torch, kernels, problems, north, parity):
+    """Phase 19 (a): ``refine_eigenpairs`` on the timed 216^3 result of phase
+    4 (the closed form: refined max_err of the smallest 20 within 1e-6, the
+    reference's REFINED target; exactly one f64 K1 launch), on the parity
+    pencil's block of 8 (ARPACK, f64: the refined error no worse than the
+    unrefined one), and on an ELL graph solve (K2 f64: LOBPCG's values are
+    Ritz values already, so refinement changes only their f32 rounding,
+    held within 1e-6 of the unrefined error)."""
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
+    from dune_eigensolver_tpu_torch.oracle import smallest_standard
+    from dune_eigensolver_tpu_torch.oracle.analytic import eigenvalues_laplace_dirichlet_3d
+    from dune_eigensolver_tpu_torch.solvers import (
+        generalized_inverse,
+        lobpcg_generalized,
+        refine_eigenpairs,
+    )
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy, rcm_pencil
+
+    out = {}
+    N = north["N"]
+    A3 = problems.laplacian_dirichlet_3d(N, dtype=torch.float32, device="cuda")
+    V = north["V"].to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(kernels)
+    t0 = time.perf_counter()
+    w, _ = refine_eigenpairs(A3, None, V)
+    seconds = time.perf_counter() - t0
+    rec = dict(n=N**3, m=V.shape[1], seconds=seconds, peak_bytes=torch.cuda.max_memory_allocated(),
+               launches=read_counts(kernels), f64_launches=f64_counts(kernels),
+               max_err=float(np.abs(np.sort(w)[:20]
+                                    - eigenvalues_laplace_dirichlet_3d(N, count=20)).max()),
+               unrefined_max_err=north["max_err"], gate=1e-6)
+    log("EXTRAS refine 216 " + json.dumps(rec))
+    if rec["f64_launches"]["dia_spmm_t"] != 1:
+        raise RuntimeError(f"refine 216: {rec['f64_launches']} f64 launches, expected one K1")
+    if not rec["max_err"] <= 1e-6:
+        raise RuntimeError(f"refine 216: refined max_err {rec['max_err']:.3e} > 1e-6")
+    out["refine_216"] = rec
+    del A3, V, north["V"]
+    torch.cuda.empty_cache()
+
+    A, B, ref = parity["A"], parity["B"], parity["oracle"][:8]
+    set_counts(kernels)
+    res = generalized_inverse(A, B, nev=8, tol=2e-3, maxiter=200, shift=1e-3)
+    ev = check_solve(torch, "refine parity", res, A.shape[0], 8)
+    t0 = time.perf_counter()
+    w, _ = refine_eigenpairs(A, B, res.eigenvectors)
+    rec = dict(n=A.shape[0], m=8, seconds=time.perf_counter() - t0, iterations=int(res.iterations),
+               relerr=relerr(ev, ref), refined_relerr=relerr(w, ref),
+               plateau=plateau(relerr(ev, ref), 2e-3), f64_launches=f64_counts(kernels))
+    log("EXTRAS refine parity " + json.dumps(rec))
+    if not rec["refined_relerr"] <= rec["relerr"]:
+        raise RuntimeError(f"refine parity: refined {rec['refined_relerr']:.3e} worse than "
+                           f"unrefined {rec['relerr']:.3e}")
+    out["refine_parity"] = rec
+
+    S = problems.unstructured_laplacian(20_000, extra_edges=1_000, seed=5, fmt="scipy")
+    Ag = rcm_pencil(S, dtype=torch.float32, device="cuda")[0]
+    Bg = ell_from_scipy(sp.eye(Ag.shape[0]), dtype=torch.float32, device="cuda")
+    set_counts(kernels)
+    res = lobpcg_generalized(Ag, Bg, nev=4, tol=2e-3, maxiter=300, shift=1e-3,
+                             precond=cg_inverse_factory(rtol=1e-2, maxiter=25))
+    ev = check_solve(torch, "refine graph", res, Ag.shape[0], 4)
+    w, _ = refine_eigenpairs(Ag, None, res.eigenvectors)
+    ref_g, _ = smallest_standard(S, nev=4, sigma=-1e-3)
+    rec = dict(n=Ag.shape[0], m=4, relerr=relerr(ev, ref_g), refined_relerr=relerr(w, ref_g),
+               f64_launches=f64_counts(kernels))
+    log("EXTRAS refine graph " + json.dumps(rec))
+    if rec["f64_launches"]["ell_spmm_t"] != 1:
+        raise RuntimeError(f"refine graph: {rec['f64_launches']} f64 launches, expected one K2")
+    if not rec["refined_relerr"] <= rec["relerr"] + 1e-6:
+        raise RuntimeError(f"refine graph: refined {rec['refined_relerr']:.3e} against "
+                           f"unrefined {rec['relerr']:.3e}")
+    out["refine_graph"] = rec
+    return out
+
+
+def extras_adaptive(torch, kernels, cli, parity):
+    """Phase 19 (b): ``generalized_inverse_adaptive`` on the parity pencil
+    (Rayleigh-Ritz, nev 8, growth 1.3), the threshold at the midpoint of the
+    widest gap among lambda_17..24 (ARPACK): n_below must equal the
+    oracle's count, lambda_max reach the threshold, and the factorization be
+    built once; then the CLI's ``ev.method=adaptive`` at the same threshold
+    (its n_below is recorded; the CLI's quotients are per column, as in the
+    reference)."""
+    import re
+
+    from dune_eigensolver_tpu_torch.solvers import generalized_inverse_adaptive
+
+    A, B, lam = parity["A"], parity["B"], np.sort(parity["oracle"])
+    k = int(np.argmax(np.diff(lam[16:24])))
+    threshold = float(0.5 * (lam[16 + k] + lam[17 + k]))
+    expected = int((lam < threshold).sum())
+
+    def run():
+        return generalized_inverse_adaptive(A, B, threshold, nev=8, tol=2e-3, maxiter=400,
+                                            shift=1e-3, growth=1.3, rayleigh_ritz=True,
+                                            verbose=1)
+
+    tee = Tee(sys.stdout)
+    torch.cuda.synchronize()
+    set_counts(kernels)
+    with EngineLog(torch) as engines, contextlib.redirect_stdout(tee):
+        t0 = time.perf_counter()
+        res, n_below = run()
+        res.eigenvalues.cpu()
+        seconds = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    rounds = [int(x) for x in re.findall(r"adaptive: nev=(\d+)", tee.getvalue())]
+    lam_max = float(res.eigenvalues.max())
+    rec = dict(n=A.shape[0], threshold=threshold, oracle_below=expected, n_below=n_below,
+               lambda_max=lam_max, rounds=len(rounds), nev_per_round=rounds, seconds=seconds,
+               factorizations=len(engines.calls), launches=launches,
+               host_syncs=count_syncs(torch, lambda: run()[0]))
+    log("EXTRAS adaptive " + json.dumps(rec))
+    if n_below != expected or not lam_max >= threshold or len(engines.calls) != 1:
+        raise RuntimeError(f"adaptive: n_below {n_below} (oracle {expected}), lambda_max "
+                           f"{lam_max:.4e} (threshold {threshold:.4e}), "
+                           f"{len(engines.calls)} factorizations")
+    ini = os.path.join(ROOT, "dune-eigensolver.ini")
+    cli_rec = cli_protocol(kernels, cli, [ini, "--test", "eigenvalues", "ev.method=adaptive",
+                                          f"ev.threshold={threshold!r}", "ev.N=256"],
+                           "RESULT eigenvalues_test")
+    rec["cli_n_below"] = int(cli_rec["line"].split("n_below=")[1])
+    return rec
+
+
+def extras_checkpoint(torch, kernels, problems, parity, geneo):
+    """Phase 19 (c): the parity solve checkpointed every 10 iterations,
+    interrupted by maxiter=10 (a file numpy reads: Q (n, 8), iterations 10,
+    the eigenvalues) and resumed to convergence within phase 18's parity
+    gate (5e-2, PLATEAU); GenEO LOBPCG on phase 7's pencil in segments of 10
+    within phase 7's 1e-2 of its ARPACK eigenvalues, its file holding the
+    full padded block (iterations and segments are recorded: each resume
+    rebuilds LOBPCG's search direction)."""
+    import tempfile
+
+    from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
+    from dune_eigensolver_tpu_torch.solvers import (
+        generalized_inverse_checkpointed,
+        lobpcg_generalized_checkpointed,
+    )
+
+    A, B, ref = parity["A"], parity["B"], parity["oracle"][:8]
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "parity.npz")
+        kw = dict(nev=8, tol=2e-3, checkpoint_path=path, checkpoint_every=10, shift=1e-3)
+        set_counts(kernels)
+        t0 = time.perf_counter()
+        generalized_inverse_checkpointed(A, B, maxiter=10, **kw)
+        with np.load(path) as z:
+            stored = dict(Q=list(z["Q"].shape), iterations=int(z["iterations"]),
+                          eigenvalues=list(z["eigenvalues"].shape))
+        res = generalized_inverse_checkpointed(A, B, maxiter=200, **kw)
+        seconds = time.perf_counter() - t0
+        ev = check_solve(torch, "checkpoint parity", res, A.shape[0], 8)
+        err = relerr(ev, ref)
+        rec = dict(n=A.shape[0], file=stored, iterations=int(res.iterations), seconds=seconds,
+                   relerr=err, gate=5e-2, plateau=plateau(err, 2e-3),
+                   launches=read_counts(kernels))
+        log("EXTRAS checkpoint parity " + json.dumps(rec))
+        if stored != dict(Q=[A.shape[0], 8], iterations=10, eigenvalues=[8]):
+            raise RuntimeError(f"checkpoint parity: the file holds {stored}")
+        if not err <= 5e-2:
+            raise RuntimeError(f"checkpoint parity: relerr {err:.3e} > 5e-2")
+        out["parity"] = rec
+
+        A5, B5 = geneo["A"], geneo["B"]
+        path = os.path.join(d, "geneo.npz")
+        set_counts(kernels)
+        t0 = time.perf_counter()
+        res = lobpcg_generalized_checkpointed(
+            A5, B5, nev=8, tol=2e-3, maxiter=300, checkpoint_path=path, checkpoint_every=10,
+            shift=1e-3, precond=cg_inverse_factory(rtol=1e-2, maxiter=25))
+        seconds = time.perf_counter() - t0
+        ev = check_solve(torch, "checkpoint geneo", res, A5.shape[0], 8)
+        with np.load(path) as z:
+            q_shape, stored_it = list(z["Q"].shape), int(z["iterations"])
+        err = relerr(ev, geneo["oracle"])
+        it = int(res.iterations)
+        rec = dict(n=A5.shape[0], iterations=it, segments=-(-it // 10), file_Q=q_shape,
+                   file_iterations=stored_it, phase7_iterations=geneo["iterations"],
+                   seconds=seconds, relerr=err, gate=1e-2, launches=read_counts(kernels))
+        log("EXTRAS checkpoint geneo " + json.dumps(rec))
+        if q_shape != [A5.shape[0], 8] or stored_it != it or rec["launches"]["bsr_spmm_t"] <= 0:
+            raise RuntimeError(f"checkpoint geneo: file Q {q_shape} at {stored_it}, {rec}")
+        if not err <= 1e-2:
+            raise RuntimeError(f"checkpoint geneo: relerr {err:.3e} > 1e-2")
+        out["geneo"] = rec
+    return out
+
+
+def extras_paranoid(torch, kernels, problems, small, parity, geneo):
+    """Phase 19 (d): paranoid mode. The N=24 north-star solve and the GenEO
+    solve report nothing; one K1, K2 and K3 dispatch each on an X with an
+    ``inf`` inside the sampled centre alarms for its own kernel;
+    ``b_identity_check`` is silent on ``identity_on_pattern`` and alarms
+    on the mass B. Turned off again, the N=24 solve makes the same aten
+    operations, name by name, and as many host syncs as before paranoid mode
+    was first turned on; the same solve with paranoid mode on shows that the
+    count sees the check (it adds operations at every kernel dispatch). Its
+    device operations are recorded beside them, not compared: CUPTI drops a
+    few records from run to run (``op_counts``). Both sides are taken after
+    a warm run, since the solves in between may push the N=24 setup out of
+    the solvers' memo (``solvers/engine.py`` keeps 32 entries) and its
+    rebuild is setup, not the cost of a dispatch."""
+    from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
+    from dune_eigensolver_tpu_torch.solvers import lobpcg_generalized
+    from dune_eigensolver_tpu_torch.sparse import spmm_t
+    from dune_eigensolver_tpu_torch.utils import paranoid
+
+    small().eigenvalues.cpu()  # warm: the setup memo holds the MG hierarchy
+    before = [op_counts(torch, small) for _ in range(2)]
+    syncs_before = [count_syncs(torch, small) for _ in range(2)]
+    prec = cg_inverse_factory(rtol=1e-2, maxiter=25)
+    operands = {"dia_spmm_t_cuda": parity["A"], "ell_spmm_t_cuda": geneo["E"],
+                "bsr_spmm_t_cuda": geneo["A"]}
+    tee = Tee(sys.stdout)
+    paranoid.set_paranoid(True)
+    try:
+        with contextlib.redirect_stdout(tee):
+            on = op_counts(torch, small)
+            lobpcg_generalized(geneo["A"], geneo["B"], nev=8, tol=2e-3, maxiter=300, shift=1e-3,
+                               precond=prec).eigenvalues.cpu()
+        clean = [ln for ln in tee.getvalue().splitlines() if ln.startswith("PARANOID")]
+        alarms = {}
+        for tag, M in operands.items():
+            n = M.shape[1]
+            X = torch.ones((8, n), device="cuda")
+            X[3, n // 2] = float("inf")
+            with contextlib.redirect_stdout(io.StringIO()):
+                spmm_t(M, X)
+                alarms[tag] = paranoid.report()
+        A_id = problems.identity_on_pattern(parity["A"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            paranoid.b_identity_check(A_id)
+            b_identity = paranoid.report()
+            paranoid.b_identity_check(parity["B"])
+            b_mass = paranoid.report()
+    finally:
+        paranoid.set_paranoid(False)
+    small().eigenvalues.cpu()  # warm again: rebuild a setup the solves above evicted
+    after = [op_counts(torch, small) for _ in range(2)]
+    syncs_after = [count_syncs(torch, small) for _ in range(2)]
+    aten_off = [a for _, a in before + after]
+    aten_differ = {k: [c[k] for c in aten_off] for k in set().union(*aten_off)
+                   if len({c[k] for c in aten_off}) > 1}
+    aten_added_on = {k: on[1][k] - before[-1][1][k] for k in on[1]
+                     if on[1][k] != before[-1][1][k]}
+    device_off = [d for d, _ in before + after]
+    rec = dict(clean_alarms=clean, alarms=alarms, b_identity_alarms=b_identity,
+               b_mass_alarms=b_mass,
+               aten_ops_before=[sum(a.values()) for _, a in before],
+               aten_ops_after=[sum(a.values()) for _, a in after],
+               aten_ops_on=sum(on[1].values()), aten_added_on=aten_added_on,
+               aten_ops_that_differ=aten_differ,
+               device_ops_before=[sum(d.values()) for d, _ in before],
+               device_ops_after=[sum(d.values()) for d, _ in after],
+               device_ops_on=sum(on[0].values()),
+               device_ops_that_differ={k: [c[k] for c in device_off]
+                                       for k in set().union(*device_off)
+                                       if len({c[k] for c in device_off}) > 1},
+               host_syncs_before=syncs_before, host_syncs_after=syncs_after)
+    log("EXTRAS paranoid " + json.dumps(rec))
+    if clean:
+        raise RuntimeError(f"paranoid: clean solves alarmed {clean}")
+    for tag, lines in alarms.items():
+        if len(lines) != 1 or f"kernel '{tag}'" not in lines[0]:
+            raise RuntimeError(f"paranoid: an inf through {tag} alarmed {lines}")
+    if b_identity or len(b_mass) != 1 or "b_identity=True" not in b_mass[0]:
+        raise RuntimeError(f"paranoid: b_identity_check {b_identity} / {b_mass}")
+    if sum(on[1].values()) <= sum(before[-1][1].values()):
+        raise RuntimeError(f"paranoid on: the aten count did not see the check "
+                           f"({sum(on[1].values())} against {rec['aten_ops_before']})")
+    if aten_differ or syncs_after != [syncs_before[-1]] * 2:
+        raise RuntimeError(f"paranoid off: aten operations that differ {aten_differ}, "
+                           f"host syncs {syncs_after} against {syncs_before}")
+    return rec
+
+
+def extras_cli(torch, kernels, cli):
+    """Phase 19 (e): the CLI in float64 and with the new options. Each run
+    prints its protocol line (REFINED where asked) and launches the kernel
+    named: ``largest ev.dtype=float64`` at the INI's N = 200 the f64 K1,
+    ``eigenvalues`` on the elasticity pencil at N = 96 in f64 the f64 K3,
+    ``largest``/``smallest ev.refine=on`` the f64 K1 of the refinement,
+    ``largest ev.N=256 ev.profile_dir`` K1, whose symbol the trace file
+    must name."""
+    import tempfile
+
+    ini = os.path.join(ROOT, "dune-eigensolver.ini")
+    largest = "N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO:"
+    smallest = "N_M_TOL_RASERROR_ARPERROR_TIMERATIO:"
+    out = {}
+    for key, argv, head, kernel, also in (
+        ("largest_f64", ["--test", "largest", "ev.dtype=float64"], largest, "dia_spmm_t", ()),
+        ("elasticity_f64", ["--test", "eigenvalues", "ev.problem=elasticity", "ev.N=96",
+                            "ev.dtype=float64"], "RESULT eigenvalues_test", "bsr_spmm_t", ()),
+        ("largest_refine", ["--test", "largest", "ev.refine=on"], largest, "dia_spmm_t",
+         ("REFINED_N_M_ERROR:",)),
+        ("smallest_refine", ["--test", "smallest", "ev.refine=on"], smallest, "dia_spmm_t",
+         ("REFINED_N_M_ERROR:",)),
+    ):
+        out[key] = cli_protocol(kernels, cli, [ini, *argv], head, kernel=kernel, f64=True,
+                                also=also)
+    with tempfile.TemporaryDirectory() as d:
+        rec = cli_protocol(kernels, cli, [ini, "--test", "largest", "ev.N=256",
+                                          f"ev.profile_dir={d}"], largest)
+        files = os.listdir(d)
+        with open(os.path.join(d, files[0])) as fh:
+            names_k1 = "dia_spmm_t" in fh.read()
+        rec.update(trace_files=len(files), trace_bytes=os.path.getsize(os.path.join(d, files[0])),
+                   trace_names_k1=names_k1)
+    log("EXTRAS profile_dir " + json.dumps(rec))
+    if len(files) != 1 or not names_k1:
+        raise RuntimeError(f"profile_dir: {files}, K1 named: {names_k1}")
+    out["profile_dir"] = rec
+    return out
+
+
+def extras_ortho_full(torch, kernels, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory):
+    """Phase 19 (f): ``ortho_block='full'`` in the north-star recipe: at N=24
+    finite and within the N=24 gate (3e-4), whether or not its change-based
+    stop fires within maxiter (with 'full' the reference itself needs 163
+    iterations at N=24 on the CPU, against 9 with ortho_block=24); one
+    216^3 solve recorded, not gated (the
+    reference keeps 'full' outside its validated envelope): finite or not,
+    max_err, iterations, seconds, and the time inside the
+    orthonormalization, by CUDA events around each call (a profiler would
+    have to hold every operation of a solve that may run to maxiter), as a
+    share of the solve's seconds."""
+    from dune_eigensolver_tpu_torch.oracle.analytic import eigenvalues_laplace_dirichlet_3d
+
+    lob = importlib.import_module("dune_eigensolver_tpu_torch.solvers.lobpcg")
+    small = north_star(torch, 24, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory,
+                       ortho_block="full")
+    res = small()
+    ev24 = res.eigenvalues.cpu().numpy()
+    err24 = float(np.abs(np.sort(ev24)[:20] - eigenvalues_laplace_dirichlet_3d(24, count=20)).max())
+    n24 = dict(n24_max_err=err24, n24_iterations=int(res.iterations),
+               n24_converged=bool(res.converged), n24_criterion=float(res.criterion))
+    if not (np.isfinite(ev24).all() and err24 <= 3e-4):
+        raise RuntimeError(f"ortho full N=24: {n24} (gate 3e-4)")
+    run = north_star(torch, 216, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory,
+                     ortho_block="full")
+    orig, ranges = lob.b_orthonormalize_blocked_t, []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kwargs)
+        end.record()
+        ranges.append((start, end))
+        return out
+
+    lob.b_orthonormalize_blocked_t = timed
+    try:
+        torch.cuda.synchronize()
+        set_counts(kernels)
+        t0 = time.perf_counter()
+        res = run()
+        ev = res.eigenvalues.cpu().numpy()
+        seconds = time.perf_counter() - t0
+    finally:
+        lob.b_orthonormalize_blocked_t = orig
+    torch.cuda.synchronize()
+    ortho_ms = sum(a.elapsed_time(b) for a, b in ranges)
+    finite = bool(np.isfinite(ev).all() and torch.isfinite(res.eigenvectors).all())
+    err = (float(np.abs(np.sort(ev)[:20] - eigenvalues_laplace_dirichlet_3d(216, count=20)).max())
+           if finite else None)
+    rec = dict(**n24, n=216**3, finite=finite,
+               max_err=err, iterations=int(res.iterations), converged=bool(res.converged),
+               seconds=seconds, orthos=len(ranges), ortho_ms=ortho_ms,
+               ortho_share_of_seconds=ortho_ms / 1e3 / seconds, launches=read_counts(kernels))
+    log("EXTRAS ortho full " + json.dumps(rec))
+    return rec
+
+
+def phase_extras(torch, kernels, cli, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory,
+                 north, geneo_rec):
+    """Phase 19: the single-card solver extras and float64 through the entry
+    points (``EXTRAS`` lines; each part states its gates). Returns the
+    records and the f64 launches of K1, K2 and K3 over the phase."""
+    from dune_eigensolver_tpu_torch.oracle import smallest_generalized
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+
+    global F64_TOTAL
+    t_phase = time.perf_counter()
+    set_counts(kernels)
+    F64_TOTAL = f64_total = {name: 0 for name in ("dia_spmm_t", "ell_spmm_t", "bsr_spmm_t")}
+    drop_setups()
+    torch.cuda.empty_cache()
+    # the parity pencil of phase 18 (a) and its 24 smallest eigenvalues
+    A = problems.laplacian_neumann_2d(256, dtype=torch.float32, device="cuda")
+    B = problems.laplacian_b_2d(256, 3, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    oracle, _ = smallest_generalized(A, B, nev=24, sigma=-1e-3)
+    parity = dict(A=A, B=B, oracle=np.sort(oracle))
+    log(f"extras: parity oracle nev=24 {time.perf_counter() - t0:.1f} s")
+    out = dict(refine=extras_refine(torch, kernels, problems, north, parity))
+    out["adaptive"] = extras_adaptive(torch, kernels, cli, parity)
+    A5, B5 = problems.elasticity_2d(512, dtype=torch.float32, device="cuda")
+    geneo = dict(geneo_rec, A=A5, B=B5,
+                 E=ell_from_scipy(A5.to_scipy(), dtype=torch.float32, device="cuda"))
+    out["checkpoint"] = extras_checkpoint(torch, kernels, problems, parity, geneo)
+    small = north_star(torch, 24, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory)
+    out["paranoid"] = extras_paranoid(torch, kernels, problems, small, parity, geneo)
+    del geneo, A5, B5, small
+    drop_setups()
+    torch.cuda.empty_cache()
+    out["cli"] = extras_cli(torch, kernels, cli)
+    out["ortho_full"] = extras_ortho_full(torch, kernels, problems, DIAMatrix, lobpcg_nested,
+                                          mg_inverse_factory)
+    set_counts(kernels)  # folds the last part's launches in
+    F64_TOTAL = None
+    drop_setups()
+    torch.cuda.empty_cache()
+    log("EXTRAS " + json.dumps(dict(seconds=time.perf_counter() - t_phase,
+                                    f64_launches=f64_total)))
+    for name, count in f64_total.items():
+        if count <= 0:
+            raise RuntimeError(f"extras: the f64 {name} kernel was launched no time")
+    return out, f64_total
+
+
 def main():
     import torch
 
@@ -1538,6 +2086,8 @@ def main():
         max_err=err, dia_spmm_launches=launches, dia_spmm_taken=taken, peak_bytes=peak,
         first_run_peak_bytes=peak_first,
     )))
+    # the timed result's block, kept on the host for phase 19's refinement
+    north = dict(V=res.eigenvectors.cpu(), max_err=err, N=N3)
     del res
 
     # --- phase 5: spread and profile ---
@@ -1563,6 +2113,8 @@ def main():
     E512 = ell_from_scipy(A512.to_scipy(), dtype=torch.float32, device="cuda")
     # the operands the CLI's matvec at ev.N=2048 gives the two kernels
     B1024, E1024 = cli.matvec_gather_operands(2048, torch.float32, "cuda")
+    # f64 copies (the f64 instantiations of K2 and K3)
+    A512_64, E512_64, graph64 = (to_f64(M) for M in (A512, E512, A_graph))
     log(f"gather operands: {time.perf_counter() - t0:.1f} s host setup; "
         f"elasticity n={A512.shape[0]} nnz={A512.nnz}, graph n={A_graph.shape[0]} "
         f"nnz={A_graph.nnz} k={A_graph.k}, mean slots a warp of the ELL kernel runs "
@@ -1578,6 +2130,9 @@ def main():
         ("ell graph n=100003 m=8", A_odd, 8),
         ("bsr elasticity N=1024 scaled m=8 (matvec)", B1024, 8),
         ("ell elasticity N=1024 scalar scaled m=8 (matvec)", E1024, 8),
+        ("ell graph n=2^20 m=8 f64", graph64, 8),
+        ("ell elasticity N=512 scalar m=8 f64", E512_64, 8),
+        ("bsr elasticity N=512 m=8 f64", A512_64, 8),
     ])
     # the index stream each ELL container holds for the kernel: int32
     # columns for the graph (its rows reach ~95k columns away), int16
@@ -1593,7 +2148,8 @@ def main():
     phase_reread(torch, kd, kg, problems, A512)
     gen = torch.Generator(device="cuda").manual_seed(4)
     library = phase_library(torch, [
-        (name, A, torch.randn((m, A.shape[1]), generator=gen, device="cuda"), kernel)
+        (name, A, torch.randn((m, A.shape[1]), generator=gen, device="cuda", dtype=A.dtype),
+         kernel)
         for name, A, m, kernel in (
             ("bsr elasticity N=512 m=8", A512, 8, kg.bsr_spmm_t_cuda),
             ("ell graph n=2^20 m=8", A_graph, 8, kg.ell_spmm_t_cuda),
@@ -1604,9 +2160,12 @@ def main():
             ("bsr elasticity N=1024 scaled m=8 (matvec)", B1024, 8, kg.bsr_spmm_t_cuda),
             ("ell elasticity N=512 scalar m=24", E512, 24, kg.ell_spmm_t_cuda),
             ("ell elasticity N=1024 scalar scaled m=8 (matvec)", E1024, 8, kg.ell_spmm_t_cuda),
+            ("ell graph n=2^20 m=8 f64", graph64, 8, kg.ell_spmm_t_cuda),
+            ("ell elasticity N=512 scalar m=8 f64", E512_64, 8, kg.ell_spmm_t_cuda),
+            ("bsr elasticity N=512 m=8 f64", A512_64, 8, kg.bsr_spmm_t_cuda),
         )
     ])
-    del E512, B1024, E1024
+    del E512, B1024, E1024, A512_64, E512_64, graph64
     torch.cuda.empty_cache()
 
     # --- phases 7-9: the general-sparsity path ---
@@ -1670,9 +2229,14 @@ def main():
     del A96, B96
     torch.cuda.empty_cache()
 
+    # --- phase 19: the solver extras and float64 through the entry points ---
+    extras, f64_launches = phase_extras(torch, kernels, cli, problems, DIAMatrix, lobpcg_nested,
+                                        mg_inverse_factory, north, geneo)
+
     # --- phase 14: the kernel table ---
     def entry(name, source, replaces, launches, rec, nbytes, flops, library_ms, **more):
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops,
+                           F64_FLOPS_PER_S if rec.get("dtype") == "float64" else F32_FLOPS_PER_S)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
@@ -1688,7 +2252,8 @@ def main():
         # in ELL, of the width K2 read; a 2x2 block in BSR, int32), X and Y
         # once
         index_bytes = rec.get("index_bytes", 4)
-        nbytes = ((rec["nnz"] + 2 * rec["n"] * rec["m"]) * 4
+        itemsize = 8 if rec.get("dtype") == "float64" else 4
+        nbytes = ((rec["nnz"] + 2 * rec["n"] * rec["m"]) * itemsize
                   + rec["nnz"] // per_index * index_bytes)
         return entry(name, source, replaces, launches, rec, nbytes,
                      2.0 * rec["nnz"] * rec["m"], library[rec["case"]], **more)
@@ -1738,6 +2303,23 @@ def main():
                      4, device_ms=gathered["bsr elasticity N=96 m=128"]["device_ms"],
                      direct_launches={k: direct[k]["launches"]["bsr_spmm_t"]
                                       for k in ("rcm_124", "rcm_4")}),
+    ]
+    # the f64 instantiations: launches are phase 19's (refinement, the f64
+    # CLI), timed at phase 3's and phase 6's f64 shapes
+    k1f = next(r for r in records if r["case"] == "3d N=216 m=24 f64")
+    table += [
+        entry("dia_spmm_t", csrc + "dia_spmm.cu", "dune_eigensolver_tpu/kernels/dia_spmm.py:288",
+              f64_launches["dia_spmm_t"], k1f, (7 * k1f["n"] + 2 * k1f["n"] * k1f["m"]) * 8,
+              2.0 * k1_nnz * k1f["m"], library[k1f["case"]], device_ms=k1f["device_ms"],
+              width=k1f["width"]),
+        gather_entry("ell_spmm_t", csrc + "ell_spmm.cu",
+                     "dune_eigensolver_tpu/kernels/gather_spmm.py:792", f64_launches["ell_spmm_t"],
+                     gathered["ell graph n=2^20 m=8 f64"], 1,
+                     device_ms=gathered["ell graph n=2^20 m=8 f64"]["device_ms"]),
+        gather_entry("bsr_spmm_t", csrc + "bsr_spmm.cu",
+                     "dune_eigensolver_tpu/kernels/gather_spmm.py:845", f64_launches["bsr_spmm_t"],
+                     gathered["bsr elasticity N=512 m=8 f64"], 4,
+                     device_ms=gathered["bsr elasticity N=512 m=8 f64"]["device_ms"]),
     ]
     n2, m2 = 2048**2, 8
     v_bytes = (5 * n2 + 2 * n2 * m2) * 4  # bytes_spmm_dia

@@ -8,8 +8,9 @@ inputs. This package imports ``torch``, ``numpy`` and ``scipy`` and never
 
 Layout (the ported slices: the nested-LOBPCG north-star solve, the
 general-sparsity ELL/BSR path with the CG inverse and
-``generalized_inverse``, the kernel-measurement path, and the standard
-entry points with the iterative inverse engines):
+``generalized_inverse``, the kernel-measurement path, the standard entry
+points with the iterative and direct inverse engines, and the single-card
+solver extras):
 
 * ``sparse``     — ``DIAMatrix``/``ELLMatrix``/``BSRMatrix`` containers,
   problem builders, RCM reordering, ``spmm_t``
@@ -21,7 +22,11 @@ entry points with the iterative inverse engines):
 * ``factorize``  — Jacobi-CG, Chebyshev, Chebyshev-CG, multigrid V-cycle
   and V-cycle-CG inverses, and ``default_inverse_factory``'s routing
 * ``solvers``    — ``standard_largest``/``standard_inverse``, LOBPCG on the
-  reciprocal pencil, nested iteration, shift-invert ``generalized_inverse``
+  reciprocal pencil, nested iteration, shift-invert ``generalized_inverse``,
+  f64 Rayleigh-Ritz refinement, adaptive GenEO selection, checkpointed
+  (segmented) solves
+* ``utils``      — device default, kernel build, verbosity/profiler trace
+  (``vlog``), the paranoid NaN tripwire (``paranoid``)
 * ``experiments`` — the kernel studies: copy probe, DIA staging variants,
   ELL ablation, gather probes
 * ``cli``        — the reference program's protocols (``python -m``)
@@ -57,8 +62,12 @@ from dune_eigensolver_tpu_torch.sparse import problems  # noqa: E402
 from dune_eigensolver_tpu_torch.solvers import (  # noqa: E402
     EigenResult,
     generalized_inverse,
+    generalized_inverse_adaptive,
+    generalized_inverse_checkpointed,
     lobpcg_generalized,
+    lobpcg_generalized_checkpointed,
     lobpcg_nested,
+    refine_eigenpairs,
     standard_inverse,
     standard_largest,
 )
@@ -85,8 +94,12 @@ __all__ = [
     "problems",
     "EigenResult",
     "generalized_inverse",
+    "generalized_inverse_adaptive",
+    "generalized_inverse_checkpointed",
     "lobpcg_generalized",
+    "lobpcg_generalized_checkpointed",
     "lobpcg_nested",
+    "refine_eigenpairs",
     "standard_inverse",
     "standard_largest",
     "cg_inverse_factory",

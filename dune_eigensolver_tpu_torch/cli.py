@@ -18,7 +18,10 @@ protocols:
 * ``eigenvalues`` — timing run dispatching on ``ev.method`` (cc:448-525):
   ``raes``/``tpu`` -> ``generalized_inverse``, ``arpack`` -> the scipy
   oracle, ``lobpcg`` -> preconditioned LOBPCG (``ev.nested=1``: nested
-  iteration); line ``RESULT eigenvalues_test ...``.
+  iteration; ``ev.ortho_block=full``: whole-basis CholeskyQR),
+  ``adaptive`` -> ``generalized_inverse_adaptive`` (grow nev by
+  ``ev.growth`` until lambda_max >= ``ev.threshold``); line
+  ``RESULT eigenvalues_test ...`` (``n_below=`` appended for ``adaptive``).
 * ``mgs``     — orthonormalization benchmark (cc:164-311) with the roofline
   models of bench/models.py; line ``P_n_m_i_perfn_perfb``.
 * ``matvec``  — SpMM benchmark (cc:315-427); lines
@@ -32,10 +35,15 @@ protocols:
 ``mgcg``, ``cheb``, or ``auto``/``banded``/``lu`` for the solver's default
 (``factorize.default_inverse_factory``: the block-banded direct engine for
 2D stencils and 3D ones up to N = 45, V-cycle-CG beyond, RCM-banded for
-the elasticity pencil), as in the reference. ``--test scaling``,
-``ev.method=dist|dist_general|adaptive`` and ``ev.refine=on`` print what
-they wait for and return 2. ``float64`` runs natively on the card, so
-``ev.refine=auto`` never refines.
+the elasticity pencil), as in the reference. ``--test scaling`` and
+``ev.method=dist|dist_general`` print what they wait for and return 2.
+``ev.refine=on`` refines the whole block of ``largest``/``smallest`` in f64
+(``solvers/refine.py``) and prints ``REFINED_N_M_ERROR``. ``float64`` runs
+natively on the card (the kernels have f64 instantiations), so
+``ev.refine=auto`` never refines. ``ev.paranoid=1`` turns on the NaN
+tripwire (``utils/paranoid.py``; its alarms print after each test);
+``ev.profile_dir=<dir>`` writes a ``torch.profiler`` Chrome trace of the
+tests there.
 
 Everything runs on the current CUDA device unless ``ev.device=cpu``.
 
@@ -125,14 +133,8 @@ def _inverse_factory(ptree):
 def _want_refine(ptree) -> bool:
     """The reference refines for ``ev.refine=on`` and, on a TPU, for
     ``ev.dtype=float64`` (it iterates in f32 there). This card has f64
-    hardware, so ``auto`` is False; ``on`` asks for ``solvers/refine.py``,
-    which is not ported."""
-    mode = str(ptree.get("ev.refine", "auto")).lower()
-    if mode in ("on", "1", "true"):
-        raise NotImplementedError(
-            "ev.refine=on: solvers/refine.py is not ported yet (ROADMAP queue 1 item 12)"
-        )
-    return False
+    hardware, so ``auto`` (and ``off``) is False."""
+    return str(ptree.get("ev.refine", "auto")).lower() in ("on", "1", "true")
 
 
 def _timed(fn, device):
@@ -167,7 +169,6 @@ def largest_eigenvalues_convergence_test(ptree) -> dict:
     tol = float(ptree["ev.tol"])
     block = int(ptree["ev.block"])
     device = _device(ptree)
-    _want_refine(ptree)
 
     A = problems.laplacian_dirichlet_2d(N, dtype=_dtype(ptree), device=device)
     m = -(-nev // block) * block
@@ -202,11 +203,20 @@ def largest_eigenvalues_convergence_test(ptree) -> dict:
         f"{t_es / max(t_oracle, 1e-12):.2f}",
         flush=True,
     )
+    err_refined = None
+    if _want_refine(ptree):
+        from dune_eigensolver_tpu_torch.solvers import refine_eigenpairs
+
+        # refine on the whole block, report the requested nev: the block's
+        # trailing vectors act as guard vectors for the leading Ritz values
+        w, _ = refine_eigenpairs(A, None, res.eigenvectors)
+        err_refined = float(np.abs(np.sort(w)[::-1][:nev] - ev_oracle[:nev]).max())
+        print(f"REFINED_N_M_ERROR: {N} {nev} {err_refined:.3e}", flush=True)
     return dict(
         err_vs_oracle=float(err_es_or),
         err_vs_analytic=float(err_es_an),
         oracle_vs_analytic=float(err_or_an),
-        err_refined=None,
+        err_refined=err_refined,
         time=t_es,
         time_oracle=t_oracle,
         time_oracle_hi=t_oracle_hi,
@@ -238,7 +248,6 @@ def smallest_eigenvalues_convergence_test(ptree) -> dict:
     shift = float(ptree["ev.shift"])
     block = int(ptree["ev.block"])
     m = -(-nev // block) * block
-    _want_refine(ptree)
     A, B = _problem_pair(ptree)
 
     t0 = time.perf_counter()
@@ -265,10 +274,17 @@ def smallest_eigenvalues_convergence_test(ptree) -> dict:
         f"{t_ras / max(t_oracle, 1e-12):.2f}",
         flush=True,
     )
+    err_refined = None
+    if _want_refine(ptree):
+        from dune_eigensolver_tpu_torch.solvers import refine_eigenpairs
+
+        w, _ = refine_eigenpairs(A, B, res.eigenvectors)
+        err_refined = float(np.abs(np.sort(w)[:nev] - np.sort(ev_truth)[:nev]).max())
+        print(f"REFINED_N_M_ERROR: {ptree['ev.N']} {nev} {err_refined:.3e}", flush=True)
     return dict(
         err_vs_truth=float(err_ras),
         oracle_err=float(err_arp),
-        err_refined=None,
+        err_refined=err_refined,
         time=t_ras,
         time_oracle=t_oracle,
         time_truth=t_truth,
@@ -281,7 +297,6 @@ def smallest_eigenvalues_convergence_test(ptree) -> dict:
 _METHODS_NOT_PORTED = {
     "dist": "the distributed layer (ROADMAP queue 1 item 14)",
     "dist_general": "the distributed layer (ROADMAP queue 1 item 14)",
-    "adaptive": "solvers/adaptive.py (ROADMAP queue 1 item 12)",
 }
 
 
@@ -292,10 +307,11 @@ def eigenvalues_test(ptree) -> dict:
     block = int(ptree["ev.block"])
     m = -(-nev // block) * block
     device = _device(ptree)
+    extra: dict = {}
     if method in _METHODS_NOT_PORTED:
         raise NotImplementedError(
             f"ev.method={method}: waits for {_METHODS_NOT_PORTED[method]}")
-    if method not in ("raes", "tpu", "lobpcg", "arpack"):
+    if method not in ("raes", "tpu", "lobpcg", "adaptive", "arpack"):
         raise ValueError(f"unknown ev.method={method!r}")
     A, B = _problem_pair(ptree)
 
@@ -320,9 +336,6 @@ def eigenvalues_test(ptree) -> dict:
                 "partition-of-unity mass matrix"
             )
         ortho_block = str(ptree.get("ev.ortho_block", ""))
-        if ortho_block == "full":
-            raise NotImplementedError(
-                "ev.ortho_block=full: not ported yet (ROADMAP queue 1 item 5)")
         kwargs = dict(
             nev=m,
             tol=float(ptree["ev.tol"]),
@@ -333,7 +346,8 @@ def eigenvalues_test(ptree) -> dict:
             seed=int(ptree["ev.seed"]),
             precond=False if str(ptree["ev.inverse"]) == "none" else _inverse_factory(ptree),
             ortho_iterations=int(ptree.get("ev.ortho_iterations", 2)),
-            ortho_block=int(ortho_block) if ortho_block else None,
+            ortho_block=(None if ortho_block == "" else
+                         "full" if ortho_block == "full" else int(ortho_block)),
             b_identity=b_identity,
         )
         if bool(int(ptree.get("ev.nested", 0))):
@@ -352,6 +366,32 @@ def eigenvalues_test(ptree) -> dict:
         res, t = _timed(run, device)
         ev = res.eigenvalues.cpu().numpy()
         iters = int(res.iterations)
+    elif method == "adaptive":
+        # GenEO coarse-space selection: grow nev by ev.growth until
+        # lambda_max >= ev.threshold
+        from dune_eigensolver_tpu_torch.solvers import generalized_inverse_adaptive
+
+        (res, n_below), t = _timed(
+            lambda: generalized_inverse_adaptive(
+                A, B,
+                threshold=float(ptree["ev.threshold"]),
+                nev=m,
+                tol=float(ptree["ev.tol"]),
+                maxiter=int(ptree["ev.maxiter"]),
+                shift=float(ptree["ev.shift"]),
+                reg=float(ptree["ev.regularization"]),
+                growth=float(ptree["ev.growth"]),
+                block=block,
+                seed=int(ptree["ev.seed"]),
+                verbose=int(ptree["ev.verbose"]),
+            ),
+            device,
+        )
+        ev = res.eigenvalues.cpu().numpy()
+        iters = int(res.iterations)
+        m = ev.size  # the final (possibly grown) block; the RESULT line reports it
+        extra = dict(n_below=n_below)
+        _log(ptree, 1, f"  adaptive: m_final={ev.size} n_below={n_below}")
     else:  # arpack
         from dune_eigensolver_tpu_torch.oracle import smallest_generalized
 
@@ -365,10 +405,11 @@ def eigenvalues_test(ptree) -> dict:
     _log(ptree, 1, f"  eigenvalues: {np.sort(ev)[:6]}")
     print(
         f"RESULT eigenvalues_test {method} N={ptree['ev.N']} m={m} "
-        f"iters={iters} time={t:.3f}s",
+        f"iters={iters} time={t:.3f}s"
+        + "".join(f" {k}={v}" for k, v in extra.items()),
         flush=True,
     )
-    return dict(time=t, iterations=iters, eigenvalues=np.sort(ev)[:m])
+    return dict(time=t, iterations=iters, eigenvalues=np.sort(ev)[:m], **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -551,17 +592,29 @@ def main(argv: Optional[list] = None) -> int:
             print(f"unknown test {name!r}; choose from {sorted(TESTS)} or 'all'")
             return 2
 
+    from dune_eigensolver_tpu_torch.utils import paranoid
+    from dune_eigensolver_tpu_torch.utils.vlog import profiler_trace
+
     device = _device(ptree)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     _log(ptree, 1, f"device: {kind} platform={device.type}")
     _log(ptree, 2, repr(ptree))
-    for name in names:
-        _log(ptree, 1, f"== {name} ==")
-        try:
-            TESTS[name](ptree)
-        except NotImplementedError as e:  # an option that waits for an unported module
-            print(f"not ported yet: {e}")
-            return 2
+    was_paranoid = paranoid.paranoid_enabled()
+    if int(ptree.get("ev.paranoid", 0)):
+        # the NaN tripwire on every kernel dispatch; alarms print after each test
+        paranoid.set_paranoid(True)
+    try:
+        with profiler_trace(ptree.get("ev.profile_dir")):
+            for name in names:
+                _log(ptree, 1, f"== {name} ==")
+                try:
+                    TESTS[name](ptree)
+                except NotImplementedError as e:  # an option that waits for an unported module
+                    print(f"not ported yet: {e}")
+                    return 2
+                paranoid.report()
+    finally:
+        paranoid.set_paranoid(was_paranoid)
     return 0
 
 

@@ -6,7 +6,9 @@
 //     Y[r, i] = sum_d data[d, i] * X[r, i + off_d],   zero outside [0, n)
 //
 // with X and Y contiguous row-major (m, n), data (ndiag, n), f32 or bf16
-// storage and f32 accumulation. The TPU kernel's rolling VMEM window and
+// storage with f32 accumulation, or f64 storage with f64 accumulation (the
+// TPU has no f64; the card does, and the f64 solves and the f64 Rayleigh-Ritz
+// refinement need this product). The TPU kernel's rolling VMEM window and
 // far-offset windows exist for Pallas BlockSpecs; here each thread masks
 // its own out-of-range columns.
 //
@@ -44,7 +46,10 @@
 //   * one chain of fused multiply-adds per output, diagonals in offset
 //     order, exactly as the first version: every width gives the same bits.
 // V = 1 (odd n, or offsets that fit no vector) is the first version's body
-// with the diagonal count as a template constant.
+// with the diagonal count as a template constant. f64 always takes V = 1
+// (kernels/dia_spmm.py::dia_vector_width): one 8-byte load per multiply-add,
+// coalesced across the warp, accumulated in f64 (Acc<double>); a simple,
+// correct body first, its time beside its bound in PERF.md section 6.
 // X is not staged in shared memory: the staging variants of
 // csrc/dia_variants.cu all lost to L1/L2 re-reads on this card.
 // Registers (ptxas, sm_90a): see PERF.md section 6; the build log prints
@@ -68,14 +73,22 @@ struct DiaOffsets {
   int off[DIA_MAX_DIAG];
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+// the accumulator of a storage type: f32 for f32 and bf16, f64 for f64
+template <typename T> struct Acc { using type = float; };
+template <> struct Acc<double> { using type = double; };
+
+__device__ __forceinline__ float load_acc(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_acc(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ double load_acc(const double* p) { return __ldg(p); }
+__device__ __forceinline__ void store_acc(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_acc(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+__device__ __forceinline__ void store_acc(double* p, double v) { *p = v; }
+__device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
 
 // ---------------------------------------------------------------------------
 // V = 1: one column a thread. ND > 0 is the diagonal count; ND == 0 takes
@@ -86,6 +99,7 @@ template <typename T, int ND>
 __global__ void __launch_bounds__(DIA_SCALAR_THREADS)
 dia_spmm_t_scalar_kernel(const T* __restrict__ data, const T* __restrict__ x,
                          T* __restrict__ y, int n, int m, DiaOffsets offs) {
+  using A = typename Acc<T>::type;
   constexpr int SLOTS = ND ? ND : DIA_MAX_DIAG;
   const int count = ND ? ND : offs.count;
   const int i = blockIdx.x * DIA_SCALAR_THREADS + threadIdx.x;
@@ -93,28 +107,28 @@ dia_spmm_t_scalar_kernel(const T* __restrict__ data, const T* __restrict__ x,
   // coefficients of column i, in registers for the whole row loop; a column
   // outside [0, n) gets a zero coefficient and reads column i instead, so
   // every load stays in bounds
-  float coef[SLOTS];
+  A coef[SLOTS];
   int col[SLOTS];
 #pragma unroll
   for (int d = 0; d < SLOTS; ++d) {
-    coef[d] = 0.f;
+    coef[d] = A(0);
     col[d] = i;
     if (d < count) {
       const long long j = (long long)i + offs.off[d];
       if (j >= 0 && j < n) {
-        coef[d] = load_f32(data + (size_t)d * n + i);
+        coef[d] = load_acc(data + (size_t)d * n + i);
         col[d] = (int)j;
       }
     }
   }
   for (int r = 0; r < m; ++r) {
     const T* xr = x + (size_t)r * n;
-    float acc = 0.f;
+    A acc = A(0);
 #pragma unroll
     for (int d = 0; d < SLOTS; ++d) {
-      if (d < count) acc = fmaf(coef[d], load_f32(xr + col[d]), acc);
+      if (d < count) acc = fma_acc(coef[d], load_acc(xr + col[d]), acc);
     }
-    store_f32(y + (size_t)r * n + i, acc);
+    store_acc(y + (size_t)r * n + i, acc);
   }
 }
 
@@ -192,8 +206,8 @@ __device__ __forceinline__ void dia_rows(const T* __restrict__ x, T* __restrict_
     }
     xl[q] = 0.f;
     xr[q] = 0.f;
-    if (lane == 0) xl[q] = load_f32(xq + left);
-    if (lane == 31) xr[q] = load_f32(xq + right);
+    if (lane == 0) xl[q] = load_acc(xq + left);
+    if (lane == 31) xr[q] = load_acc(xq + right);
   }
 #pragma unroll
   for (int q = 0; q < RR; ++q) {
@@ -295,32 +309,36 @@ static int launch(const void* data_, const void* x_, void* y_, long long n_, int
     }
     return (int)cudaGetLastError();
   }
-  // the vector kernels' conditions, checked again here: a misaligned vector
-  // load would fault only at run time
-  if ((width != 2 && width != 4) || n_ % width) return (int)cudaErrorInvalidValue;
-  const size_t align = (size_t)width * sizeof(T);
-  if ((size_t)data % align || (size_t)x % align || (size_t)y % align)
-    return (int)cudaErrorMisalignedAddress;
-  const int c = ndiag / 2;
-  for (int d = 0; d < ndiag; ++d) {
-    if (d >= c - 1 && d <= c + 1) {
-      if (offs.off[d] != d - c) return (int)cudaErrorInvalidValue;
-    } else if (offs.off[d] % width) {
-      return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 8) {
+    return (int)cudaErrorInvalidValue;  // no vector kernel for 8-byte items
+  } else {
+    // the vector kernels' conditions, checked again here: a misaligned vector
+    // load would fault only at run time
+    if ((width != 2 && width != 4) || n_ % width) return (int)cudaErrorInvalidValue;
+    const size_t align = (size_t)width * sizeof(T);
+    if ((size_t)data % align || (size_t)x % align || (size_t)y % align)
+      return (int)cudaErrorMisalignedAddress;
+    const int c = ndiag / 2;
+    for (int d = 0; d < ndiag; ++d) {
+      if (d >= c - 1 && d <= c + 1) {
+        if (offs.off[d] != d - c) return (int)cudaErrorInvalidValue;
+      } else if (offs.off[d] % width) {
+        return (int)cudaErrorInvalidValue;
+      }
     }
+    const long long threads = n_ / width;
+    const unsigned grid = (unsigned)((threads + DIA_THREADS - 1) / DIA_THREADS);
+    const bool found = width == 4 ? launch_vec<T, 4>(ndiag, grid, s, data, x, y, n, m, offs)
+                                  : launch_vec<T, 2>(ndiag, grid, s, data, x, y, n, m, offs);
+    return found ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
   }
-  const long long threads = n_ / width;
-  const unsigned grid = (unsigned)((threads + DIA_THREADS - 1) / DIA_THREADS);
-  const bool found = width == 4 ? launch_vec<T, 4>(ndiag, grid, s, data, x, y, n, m, offs)
-                                : launch_vec<T, 2>(ndiag, grid, s, data, x, y, n, m, offs);
-  return found ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. width: columns a thread owns (1, 2, 4);
-// 2 and 4 need a stencil the vector kernels are built for. Returns a
-// cudaError_t as int.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float64. width: columns a thread
+// owns (1, 2, 4); 2 and 4 need a stencil the vector kernels are built for
+// and a 4- or 2-byte type (float64 takes 1). Returns a cudaError_t as int.
 int dia_spmm_t_launch(int dtype, const void* data, const void* x, void* y,
                       long long n, int m, int ndiag, const int* offsets,
                       int width, void* stream) {
@@ -332,6 +350,7 @@ int dia_spmm_t_launch(int dtype, const void* data, const void* x, void* y,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(data, x, y, n, m, ndiag, offs, width, s);
   if (dtype == 1) return launch<__nv_bfloat16>(data, x, y, n, m, ndiag, offs, width, s);
+  if (dtype == 2) return launch<double>(data, x, y, n, m, ndiag, offs, width, s);
   return (int)cudaErrorInvalidValue;
 }
 

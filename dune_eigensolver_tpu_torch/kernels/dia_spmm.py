@@ -4,12 +4,14 @@ Counterpart of ``dune_eigensolver_tpu/kernels/dia_spmm.py``:
 
 * ``dia_spmm_t_reference`` — plain PyTorch, the semantics: the JAX
   package's ``dia_spmm_t_xla`` with the Pallas kernel's accumulation rule
-  (f32 accumulation for bf16/f16 storage, output in the input's dtype).
+  (f32 accumulation for bf16/f16 storage, f64 for f64, output in the
+  input's dtype).
 * ``dia_spmm_t_cuda`` — wrapper of the hand-written CUDA kernel
   ``csrc/dia_spmm.cu`` (replaces the Pallas ``_kernel``/``padded_spmm``).
   It counts its launches in ``dia_spmm_t_cuda.launches`` and records the
-  vector width of the last one in ``dia_spmm_t_cuda.width`` and a tally by
-  ``(n, width)`` in ``dia_spmm_t_cuda.taken``.
+  vector width of the last one in ``dia_spmm_t_cuda.width``, a tally by
+  ``(n, width)`` in ``dia_spmm_t_cuda.taken`` and one by dtype in
+  ``dia_spmm_t_cuda.by_dtype``.
 * ``dia_vector_width`` — which of the kernel's specialisations (4, 2 or 1
   columns a thread) an operand takes, from its shape alone.
 
@@ -31,7 +33,7 @@ import torch
 
 from dune_eigensolver_tpu_torch.sparse.formats import DIAMatrix
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _MAX_DIAG = 16  # DIA_MAX_DIAG in csrc/dia_spmm.cu
 
 
@@ -69,9 +71,10 @@ def dia_vector_width(offsets: Sequence[int], n: int, dtype: torch.dtype,
     neighbours from the centre vector and its neighbouring lanes),
     ``n % V == 0`` (so that every row of X, Y and ``data`` starts on a
     vector boundary), every other offset a multiple of V (so that a diagonal
-    is one aligned vector load), and operands whose addresses are multiples
-    of ``align`` bytes with ``V * itemsize`` dividing it. Everything else
-    takes width 1, which has no condition. The choice depends on shapes
+    is one aligned vector load), a 4- or 2-byte type (float64 takes width
+    1: the kernel has no vector body for 8-byte items), and operands whose
+    addresses are multiples of ``align`` bytes with ``V * itemsize``
+    dividing it. Everything else takes width 1, which has no condition. The choice depends on shapes
     alone; it is a dispatch between hand-written specialisations that all
     give the same bits."""
     return _vector_width(tuple(int(o) for o in offsets), int(n),
@@ -80,6 +83,8 @@ def dia_vector_width(offsets: Sequence[int], n: int, dtype: torch.dtype,
 
 @functools.lru_cache(maxsize=None)
 def _vector_width(offsets: Tuple[int, ...], n: int, itemsize: int, align: int) -> int:
+    if itemsize > 4:
+        return 1
     c = len(offsets) // 2
     if len(offsets) in _STENCIL_COUNTS and offsets[c - 1 : c + 2] == (-1, 0, 1):
         far = offsets[: c - 1] + offsets[c + 2 :]
@@ -93,7 +98,7 @@ def _vector_width(offsets: Tuple[int, ...], n: int, itemsize: int, align: int) -
 def dia_spmm_t_cuda(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
     """Yt = (A @ Xt.T).T by the CUDA kernel, on the current stream.
 
-    Takes f32 or bf16, with ``A.data`` and ``Xt`` of one dtype, on one CUDA
+    Takes f32, bf16 or f64, with ``A.data`` and ``Xt`` of one dtype, on one CUDA
     device, both contiguous; raises on anything else and on a launch the
     CUDA runtime refuses. The specialisation is ``dia_vector_width``'s, recorded
     in ``dia_spmm_t_cuda.width``."""
@@ -111,7 +116,7 @@ def dia_spmm_t_cuda(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
     if Xt.dtype not in _KERNEL_DTYPES or data.dtype != Xt.dtype:
         raise TypeError(
             f"dia_spmm_t_cuda: dtypes {data.dtype}/{Xt.dtype}; the kernel "
-            "takes float32 or bfloat16, the same for both operands"
+            "takes float32, bfloat16 or float64, the same for both operands"
         )
     if not (Xt.is_contiguous() and data.is_contiguous()):
         raise ValueError("dia_spmm_t_cuda: operands must be contiguous")
@@ -134,10 +139,12 @@ def dia_spmm_t_cuda(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
     dia_spmm_t_cuda.launches += 1
     dia_spmm_t_cuda.width = width
     dia_spmm_t_cuda.taken[n, width] += 1
+    dia_spmm_t_cuda.by_dtype[Xt.dtype] += 1
     return Y
 
 
 dia_spmm_t_cuda.launches = 0
 dia_spmm_t_cuda.width = None  # of the last launch
 dia_spmm_t_cuda.taken = collections.Counter()  # launches by (n, width)
+dia_spmm_t_cuda.by_dtype = collections.Counter()  # launches by dtype
 

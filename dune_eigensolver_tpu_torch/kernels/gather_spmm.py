@@ -6,14 +6,15 @@ Counterpart of ``dune_eigensolver_tpu/kernels/gather_spmm.py``:
   semantics: torch translations of the JAX package's ``ell_spmm_t`` and
   ``bsr_spmm_t`` (``sparse/spmm.py``), a gather plus an einsum that
   accumulates in at least f32 (f32 for bf16/f16 storage, as the Pallas
-  kernels do), output in X's dtype.
+  kernels do; f64 for f64), output in X's dtype.
 * ``ell_spmm_t_cuda`` — wrapper of ``csrc/ell_spmm.cu``, which replaces the
   Pallas ``_seg_kernel`` (launched by ``windowed_spmm_t``).
 * ``bsr_spmm_t_cuda`` — wrapper of ``csrc/bsr_spmm.cu``, which replaces the
   Pallas ``_blk_kernel`` (same launcher), for square b x b blocks with
   b in ``BSR_KERNEL_BLOCKS``.
 
-Each wrapper counts its launches in ``<wrapper>.launches``;
+Each wrapper counts its launches in ``<wrapper>.launches`` (and by dtype
+in ``<wrapper>.by_dtype``);
 ``sparse/spmm.py::spmm_t`` dispatches between plain version and kernel by
 device. The TPU side's windowed/segment planner (``WindowedELL``,
 ``WindowedBSR``, the COO tail, ``WindowedLayout``) is not ported: a CUDA
@@ -25,11 +26,16 @@ kernel also reads ``ELLMatrix.warp_slots``).
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from dune_eigensolver_tpu_torch.sparse.formats import BSRMatrix, ELLMatrix
 
 BSR_KERNEL_BLOCKS = (2, 4)  # the b the BSR kernel is instantiated for
+#: the value types the ELL and BSR kernels are instantiated for (the TPU
+#: gather kernels stream f32; the card adds f64)
+GATHER_KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -69,10 +75,10 @@ def _check_cuda_operands(what: str, coef: torch.Tensor, index: torch.Tensor,
             f"{what}: operands on {coef.device} and {Xt.device}; "
             "both must be on one CUDA device"
         )
-    if Xt.dtype != torch.float32 or coef.dtype != torch.float32:
+    if Xt.dtype not in GATHER_KERNEL_DTYPES or coef.dtype != Xt.dtype:
         raise TypeError(
-            f"{what}: dtypes {coef.dtype}/{Xt.dtype}; the kernel takes float32 "
-            "only (as the TPU gather kernel streams f32)"
+            f"{what}: dtypes {coef.dtype}/{Xt.dtype}; the kernel takes float32 or "
+            "float64, the same for both operands"
         )
     if index.dtype != torch.int32 or index.device != coef.device:
         raise TypeError(f"{what}: indices must be int32 beside the coefficients")
@@ -96,7 +102,8 @@ def _launch(name: str, Xt: torch.Tensor, y_shape, *args) -> torch.Tensor:
 
 def ell_spmm_t_cuda(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
     """Yt = (A @ Xt.T).T by the CUDA ELL kernel, on the current stream.
-    f32 only, one CUDA device, contiguous Xt; raises on anything else and
+    f32 or f64 (operands of one dtype), one CUDA device, contiguous Xt;
+    raises on anything else and
     on a launch CUDA refuses. Each warp of 32 rows runs its slots up to
     ``A.warp_slots`` (the trailing padding is skipped): on finite X the
     plain version's function; a non-finite X value in the column of a
@@ -106,18 +113,20 @@ def ell_spmm_t_cuda(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
     n, n_cols = A.shape
     _check_cuda_operands("ell_spmm_t_cuda", A.data, A.cols, Xt, n_cols)
     data_t, index_t = A.kernel_streams
-    Y = _launch("ell_spmm_t_launch", Xt, (Xt.shape[0], n), data_t.data_ptr(),
+    Y = _launch("ell_spmm_t_launch", Xt, (Xt.shape[0], n), Xt.element_size(), data_t.data_ptr(),
                 index_t.data_ptr(), index_t.element_size(), A.warp_slots.data_ptr(), n, A.k,
                 n_cols)
     ell_spmm_t_cuda.launches += 1
+    ell_spmm_t_cuda.by_dtype[Xt.dtype] += 1
     return Y
 
 
 def bsr_spmm_t_cuda(A: BSRMatrix, Xt: torch.Tensor) -> torch.Tensor:
     """Yt = (A @ Xt.T).T by the CUDA BSR kernel, on the current stream.
-    Square b x b blocks with b in ``BSR_KERNEL_BLOCKS``, f32 only, one CUDA
-    device, contiguous Xt whose rows are aligned to b floats; raises on
-    anything else and on a launch CUDA refuses."""
+    Square b x b blocks with b in ``BSR_KERNEL_BLOCKS``, f32 or f64
+    (operands of one dtype), one CUDA device, contiguous Xt whose rows are
+    aligned to b items (16 bytes at most: the kernel's widest load); raises
+    on anything else and on a launch CUDA refuses."""
     br, bc = A.block
     if br != bc or br not in BSR_KERNEL_BLOCKS:
         raise ValueError(
@@ -126,14 +135,18 @@ def bsr_spmm_t_cuda(A: BSRMatrix, Xt: torch.Tensor) -> torch.Tensor:
         )
     _check_cuda_operands("bsr_spmm_t_cuda", A.bdata, A.bcols, Xt, A.shape[1])
     bdata_t, bcols_t = A.kernel_streams
-    if Xt.data_ptr() % (4 * br) or bdata_t.data_ptr() % 16:
-        raise ValueError(f"bsr_spmm_t_cuda: Xt rows or blocks not aligned to {br} floats")
-    Y = _launch("bsr_spmm_t_launch", Xt, (Xt.shape[0], A.shape[0]), br,
+    align = min(Xt.element_size() * br, 16)
+    if Xt.data_ptr() % align or bdata_t.data_ptr() % 16:
+        raise ValueError(f"bsr_spmm_t_cuda: Xt rows or blocks not aligned to {br} items")
+    Y = _launch("bsr_spmm_t_launch", Xt, (Xt.shape[0], A.shape[0]), Xt.element_size(), br,
                 bdata_t.data_ptr(), bcols_t.data_ptr(), A.nbr, A.bcols.shape[1],
                 A.shape[1])
     bsr_spmm_t_cuda.launches += 1
+    bsr_spmm_t_cuda.by_dtype[Xt.dtype] += 1
     return Y
 
 
 ell_spmm_t_cuda.launches = 0
 bsr_spmm_t_cuda.launches = 0
+ell_spmm_t_cuda.by_dtype = collections.Counter()
+bsr_spmm_t_cuda.by_dtype = collections.Counter()

@@ -43,6 +43,7 @@ from dune_eigensolver_tpu_torch.solvers.standard import (
     shifted_operand,
 )
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
+from dune_eigensolver_tpu_torch.utils.paranoid import reporting
 
 
 def _gen_core(apply_a, apply_b, inv_aux, inv_fn, Q0, nev, tol, maxiter, shift,
@@ -89,6 +90,7 @@ def _gen_core(apply_a, apply_b, inv_aux, inv_fn, Q0, nev, tol, maxiter, shift,
     )
 
 
+@reporting
 def generalized_inverse(
     A,
     B,

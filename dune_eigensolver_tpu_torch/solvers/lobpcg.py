@@ -19,7 +19,7 @@ residual norm.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -39,6 +39,7 @@ from dune_eigensolver_tpu_torch.solvers.standard import (
     shifted_operand,
 )
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
+from dune_eigensolver_tpu_torch.utils.paranoid import b_identity_check, reporting
 
 
 def _identity_apply(X):
@@ -55,12 +56,14 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
 
     def a_ortho(S):
         # CholeskyQR in the A'-inner product; A' is PD so no junk handling
-        # is needed (the eps floor only guards W -> 0 at convergence). The
-        # block is clamped: the iteration-0 ortho sees the (m, n) start
-        # block, the loop the (3m, n) search basis
+        # is needed (the eps floor only guards W -> 0 at convergence).
+        # ortho_block='full' is one whole-basis CholeskyQR: one Gram and one
+        # trisolve instead of a prefix sweep, but its Gram sees cond(S)^2.
+        # Otherwise the block is clamped: the iteration-0 ortho sees the
+        # (m, n) start block, the loop the (3m, n) search basis
+        blk = S.shape[0] if ortho_block == "full" else min(ortho_block, S.shape[0])
         S, _ = b_orthonormalize_blocked_t(
-            apply_a, S, block=min(ortho_block, S.shape[0]),
-            iterations=ortho_iters, eps=ortho_eps,
+            apply_a, S, block=blk, iterations=ortho_iters, eps=ortho_eps,
         )
         return S
 
@@ -131,6 +134,7 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
     )
 
 
+@reporting
 def lobpcg_generalized(
     A,
     B,
@@ -144,7 +148,7 @@ def lobpcg_generalized(
     min_iter: int = 3,
     ortho_eps: float = 1e-9,
     ortho_iterations: int = 2,
-    ortho_block: Optional[int] = None,
+    ortho_block: Optional[Union[int, str]] = None,
     b_identity: bool = False,
     precond=None,
     q0: Optional[torch.Tensor] = None,
@@ -157,9 +161,12 @@ def lobpcg_generalized(
 
     ``ortho_iterations``: CholeskyQR passes per basis orthonormalization.
     ``ortho_block``: row-block size of the orthonormalization sweep
-    (default ``block``).
+    (default ``block``); ``'full'`` is one whole-basis CholeskyQR (one Gram,
+    one Cholesky), valid where the preconditioner keeps the basis well
+    conditioned: its Gram sees cond(S)^2.
     ``b_identity=True`` asserts B is the identity, so ``B @ X`` is skipped;
-    the assertion is the caller's and is not checked.
+    the assertion is the caller's, checked only in paranoid mode
+    (``utils/paranoid.py::b_identity_check``).
     ``precond``: factory mapping A' to an approximate inverse apply (a
     callable or an ``(aux, fn)`` pair), or ``False`` for none. Default:
     ``factorize.default_inverse_factory``, the engine the shift-invert
@@ -171,8 +178,7 @@ def lobpcg_generalized(
     ``shift``), for a caller that folded the shift into A itself.
 
     Not ported yet from the JAX signature: the ``apply_a``/``apply_b``/
-    ``gram_reduce`` hooks of the distributed layer and
-    ``ortho_block='full'``.
+    ``gram_reduce`` hooks of the distributed layer.
     """
     if precond is None:
         from dune_eigensolver_tpu_torch.factorize import default_inverse_factory
@@ -204,11 +210,16 @@ def lobpcg_generalized(
     else:
         gen = torch.Generator(device=A.device).manual_seed(seed)
         Q0 = to_internal(random_multivector_t(gen, n, m, dtype, A.device))
-    apply_b = _identity_apply if b_identity else (lambda X: spmm_t(B_int, X))
+    if b_identity:
+        b_identity_check(B)  # paranoid mode only; a no-op otherwise
+        apply_b = _identity_apply
+    else:
+        apply_b = lambda X: spmm_t(B_int, X)  # noqa: E731
     with torch.no_grad():
         return _lobpcg_core(
             lambda X: spmm_t(A_int, X), apply_b, prec_aux, prec_fn, Q0,
             nev, float(tol), int(maxiter),
             float(shift if eval_shift is None else eval_shift), int(min_iter),
-            float(ortho_eps), int(ortho_iterations), int(ortho_block or block),
+            float(ortho_eps), int(ortho_iterations),
+            "full" if ortho_block == "full" else int(ortho_block or block),
         )

@@ -34,6 +34,7 @@ from dune_eigensolver_tpu_torch.solvers.lobpcg import lobpcg_generalized
 from dune_eigensolver_tpu_torch.solvers.result import EigenResult
 from dune_eigensolver_tpu_torch.solvers.standard import padded_width
 from dune_eigensolver_tpu_torch.sparse.formats import DIAMatrix
+from dune_eigensolver_tpu_torch.utils.paranoid import reporting
 
 
 def prolong_vectors(Y: torch.Tensor, coarse_dims: Tuple[int, ...],
@@ -88,6 +89,7 @@ def _identity_b(n: int, dtype, device) -> DIAMatrix:
     )
 
 
+@reporting
 def lobpcg_nested(
     A: DIAMatrix,
     B,

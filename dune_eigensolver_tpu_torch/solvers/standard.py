@@ -35,6 +35,7 @@ from dune_eigensolver_tpu_torch.solvers.engine import (
 )
 from dune_eigensolver_tpu_torch.solvers.result import EigenResult, sort_result_t
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
+from dune_eigensolver_tpu_torch.utils.paranoid import reporting
 
 
 def padded_width(nev: int, block: int) -> int:
@@ -140,6 +141,7 @@ def _start_block(A, q0, seed, m, dtype):
     return to_internal(random_multivector_t(gen, A.shape[0], m, dtype, A.device))
 
 
+@reporting
 def standard_largest(
     A,
     nev: int,
@@ -182,6 +184,7 @@ def standard_largest(
                      int(block), int(ortho_iterations), bool(rayleigh_ritz), descending=True)
 
 
+@reporting
 def standard_inverse(
     A,
     nev: int,

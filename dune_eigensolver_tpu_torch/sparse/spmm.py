@@ -8,7 +8,9 @@ stream. Each container type has a hand-written CUDA kernel and its plain
 PyTorch version: a CUDA tensor launches the kernel (which raises on what it
 cannot take), CPU operands take the plain version, and nothing falls back
 between them. Any other operand type raises ``TypeError``, as the
-reference does for unknown types.
+reference does for unknown types. In paranoid mode (``utils/paranoid.py``)
+each kernel dispatch feeds its output to ``nan_check`` under the kernel's
+name, as the JAX package checks its Pallas dispatches.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from dune_eigensolver_tpu_torch.kernels.gather_spmm import (
     ell_spmm_t_reference,
 )
 from dune_eigensolver_tpu_torch.sparse.formats import BSRMatrix, DIAMatrix, ELLMatrix
+from dune_eigensolver_tpu_torch.utils.paranoid import nan_check
 
 # container type -> (CUDA kernel wrapper, plain version)
 _ROUTES = {
@@ -42,7 +45,7 @@ def spmm_t(A, Xt: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"spmm_t: unsupported operand type {type(A)}")
     kernel, plain = route
     if Xt.is_cuda:
-        return kernel(A, Xt)
+        return nan_check(kernel(A, Xt), kernel.__name__)
     if Xt.device.type == "cpu" and A.device.type == "cpu":
         return plain(A, Xt)
     raise ValueError(f"spmm_t: operands on {A.device} and {Xt.device}")

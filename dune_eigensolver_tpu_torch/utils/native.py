@@ -101,12 +101,13 @@ def load() -> ctypes.CDLL:
     lib.dia_spmm_t_launch.argtypes = [
         i32, vp, vp, vp, i64, i32, i32, ctypes.POINTER(i32), i32, vp,
     ]  # (dtype, data, x, y, n, m, ndiag, offsets, width, stream)
-    # (data_t, index_t, index_bytes, warp_slots, n, k, ncols, x, y, m, stream)
+    # (value_bytes, data_t, index_t, index_bytes, warp_slots, n, k, ncols, x, y,
+    # m, stream)
     lib.ell_spmm_t_launch.restype = i32
-    lib.ell_spmm_t_launch.argtypes = [vp, vp, i32, vp, i64, i32, i64, vp, vp, i32, vp]
-    # (b, bdata_t, bcols_t, nbr, k, ncols, x, y, m, stream)
+    lib.ell_spmm_t_launch.argtypes = [i32, vp, vp, i32, vp, i64, i32, i64, vp, vp, i32, vp]
+    # (value_bytes, b, bdata_t, bcols_t, nbr, k, ncols, x, y, m, stream)
     lib.bsr_spmm_t_launch.restype = i32
-    lib.bsr_spmm_t_launch.argtypes = [i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
+    lib.bsr_spmm_t_launch.argtypes = [i32, i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
     # copy probe: (x, y, rows, width, tile, stream), (x, rows, width, tile,
     # stream), (d, x, y, rows, width, nd, tile, stream)
     lib.copy_add1_launch.restype = i32

@@ -178,28 +178,25 @@ def test_mgs_protocol_cpu(capsys):
     assert re.fullmatch(rf"P_n_m_i_perfn_perfb: 1 1024 16 15 {FLOAT} {FLOAT}", line), line
 
 
-#: what of each protocol still waits for an unported module, and for which
+#: the protocol that still waits for an unported module, and an unknown name
 UNPORTED = {
-    "largest": (["ev.refine=on"], "solvers/refine.py"),
-    "smallest": (["ev.refine=on"], "solvers/refine.py"),
-    "eigenvalues": (["ev.method=adaptive"], "solvers/adaptive.py"),
-    "scaling": ([], "item 14"),
-    "nonsense": ([], "unknown test"),
+    "scaling": "item 14",
+    "nonsense": "unknown test",
 }
 
 
-@pytest.mark.parametrize("name", ["largest", "smallest", "eigenvalues", "scaling", "nonsense"])
+@pytest.mark.parametrize("name", ["scaling", "nonsense"])
 def test_unported_protocol_returns_2(name, capsys):
-    """``scaling`` and an unknown name return 2 before anything runs; the
-    three ported protocols return 2, saying what they wait for, when an
-    option asks for an unported module."""
-    extra, waits_for = UNPORTED[name]
-    assert cli.main(["--test", name, "ev.device=cpu", *extra]) == 2
+    """``scaling`` and an unknown name return 2 before anything runs,
+    naming what ``scaling`` waits for and the tests there are. (The three
+    convergence protocols' options ``ev.refine=on`` and
+    ``ev.method=adaptive`` run now: ``test_refine_protocol_cpu``,
+    ``test_adaptive_protocol_cpu``.)"""
+    assert cli.main(["--test", name, "ev.device=cpu"]) == 2
     out = capsys.readouterr().out
     assert ("not ported yet" in out) == (name != "nonsense")
-    assert waits_for in out
-    if name in ("scaling", "nonsense"):
-        assert "matvec" in out and "mgs" in out and "largest" in out
+    assert UNPORTED[name] in out
+    assert "matvec" in out and "mgs" in out and "largest" in out
 
 
 @pytest.mark.parametrize("name,head", [
@@ -334,15 +331,106 @@ def test_eigenvalues_protocol_cpu(overrides, capsys):
         assert np.abs(et - ej)[:4].max() <= 1e-2 * np.abs(ej)[:4].max()
 
 
+@pytest.mark.parametrize("test,overrides", [
+    ("largest", ["ev.N=16", "ev.m=4", "ev.tol=1e-7", "ev.maxiter=2000"]),
+    ("smallest", ["ev.N=12", "ev.m=4", "ev.tol=1e-7", "ev.maxiter=800"]),
+])
+def test_refine_protocol_cpu(test, overrides, capsys):
+    """``ev.refine=on`` with the INI's f32 in both packages at the same N:
+    the reference's ``REFINED_N_M_ERROR`` line, ``err_refined`` in the
+    result, and both refined errors within the reference's target of 1e-6
+    of the 1e-14 oracle and no worse than the unrefined ones. The port
+    refines in f64 (measured ~1e-13 here), the JAX package on the CPU in
+    compensated f32 (~1e-7 and ~1e-8): the port's error is held to 1e-9."""
+    import dune_eigensolver_tpu.cli as jcli
+
+    t, j = _trees(["ev.refine=on", *overrides])
+    protocol = {"largest": "largest_eigenvalues_convergence_test",
+                "smallest": "smallest_eigenvalues_convergence_test"}[test]
+    rt = getattr(cli, protocol)(t)
+    (line,) = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("REFINED")]
+    assert re.fullmatch(rf"REFINED_N_M_ERROR: {t['ev.N']} 4 {SCI}", line), line
+    rj = getattr(jcli, protocol)(j)
+    capsys.readouterr()
+    raw = "err_vs_oracle" if test == "largest" else "err_vs_truth"
+    for r in (rt, rj):
+        assert r["err_refined"] is not None and r["err_refined"] <= 1e-6
+        assert r["err_refined"] <= r[raw] + 1e-12
+    assert float(line.split()[-1]) == pytest.approx(rt["err_refined"], rel=1e-3, abs=1e-15)
+    assert rt["err_refined"] <= 1e-9
+
+
+def test_adaptive_protocol_cpu(capsys):
+    """``ev.method=adaptive`` in both packages on the 2D GenEO pencil at
+    N = 16 (f64, tol 1e-7): the threshold 0.83 lies between lambda_12 =
+    0.809 and lambda_13 = 0.851, so nev grows 8 -> 11 -> 15 and 12
+    eigenvalues lie below, in both; ``n_below`` ends the RESULT line. The
+    two packages start from their own random blocks; their eigenvalues
+    below the threshold agree to 1e-5 of the largest."""
+    import dune_eigensolver_tpu.cli as jcli
+
+    t, j = _trees(["ev.method=adaptive", "ev.N=16", "ev.threshold=0.83", "ev.verbose=1",
+                   "ev.dtype=float64", "ev.tol=1e-7"])
+    rt = cli.eigenvalues_test(t)
+    out = capsys.readouterr().out
+    (line,) = [ln for ln in out.splitlines() if ln.startswith("RESULT")]
+    assert re.fullmatch(rf"RESULT eigenvalues_test adaptive N=16 m=15 iters=\d+ time={FLOAT}s "
+                        rf"n_below=12", line), line
+    assert re.findall(r"adaptive: nev=(\d+)", out) == ["8", "11", "15"]
+    assert "  adaptive: m_final=15 n_below=12" in out
+    rj = jcli.eigenvalues_test(j)
+    capsys.readouterr()
+    assert rt["n_below"] == rj["n_below"] == 12
+    et, ej = np.asarray(rt["eigenvalues"]), np.asarray(rj["eigenvalues"], np.float64)
+    assert et.shape == ej.shape == (15,)
+    assert np.abs(et - ej)[:12].max() <= 1e-5 * np.abs(ej).max()
+
+
+def test_ortho_block_full_protocol_cpu(capsys):
+    """``ev.ortho_block=full`` (whole-basis CholeskyQR) in both packages:
+    the RESULT line and the smallest four eigenvalues within 1e-2 of each
+    other, as ``test_eigenvalues_protocol_cpu`` holds its solves."""
+    import dune_eigensolver_tpu.cli as jcli
+
+    t, j = _trees(["ev.method=lobpcg", "ev.ortho_block=full", "ev.N=12", "ev.inverse=cg"])
+    rt = cli.eigenvalues_test(t)
+    (line,) = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("RESULT")]
+    assert re.fullmatch(rf"RESULT eigenvalues_test lobpcg N=12 m=8 iters=\d+ time={FLOAT}s",
+                        line), line
+    rj = jcli.eigenvalues_test(j)
+    capsys.readouterr()
+    et, ej = np.asarray(rt["eigenvalues"]), np.asarray(rj["eigenvalues"], np.float64)
+    assert np.abs(et - ej)[:4].max() <= 1e-2 * np.abs(ej)[:4].max()
+
+
+def test_paranoid_and_profile_dir_cli(tmp_path, capsys):
+    """``ev.paranoid=1``: a clean solve alarms nothing, and paranoid mode is
+    as it was after ``main`` returns; ``ev.profile_dir``: a Chrome trace of
+    the test lands there."""
+    from dune_eigensolver_tpu_torch.utils import paranoid
+
+    logdir = tmp_path / "prof"
+    assert cli.main(["--test", "eigenvalues", "ev.method=lobpcg", "ev.dim=3", "ev.N=8",
+                     "ev.inverse=mg", "ev.b_identity=1", "ev.paranoid=1",
+                     f"ev.profile_dir={logdir}", "ev.device=cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "RESULT eigenvalues_test lobpcg N=8 " in out and "PARANOID" not in out
+    assert not paranoid.paranoid_enabled() and paranoid._FLAGS == {}
+    (name,) = os.listdir(logdir)
+    assert name.endswith(".json") and os.path.getsize(logdir / name) > 0
+
+
 def test_eigenvalues_protocol_guards(capsys):
     with pytest.raises(ValueError, match="ev.b_identity=1 requires"):
         cli.main(["--test", "eigenvalues", "ev.method=lobpcg", "ev.b_identity=1", "ev.N=8",
                   "ev.device=cpu"])
     with pytest.raises(ValueError, match="unknown ev.inverse"):
         cli.main(["--test", "eigenvalues", "ev.inverse=qr", "ev.N=8", "ev.device=cpu"])
+    # ev.ortho_block=full runs now (test_ortho_block_full_protocol_cpu)
+    capsys.readouterr()
     assert cli.main(["--test", "eigenvalues", "ev.method=lobpcg", "ev.ortho_block=full",
-                     "ev.N=8", "ev.inverse=cg", "ev.device=cpu"]) == 2
-    assert "item 5" in capsys.readouterr().out
+                     "ev.N=12", "ev.inverse=cg", "ev.device=cpu"]) == 0
+    assert "RESULT eigenvalues_test lobpcg N=12 m=8 " in capsys.readouterr().out
 
 
 def test_inverse_factory_kinds():

@@ -111,7 +111,7 @@ def test_kernel_masks_a_column_outside_with_its_own(cuda, pattern):
 
 def test_kernel_wrapper_refuses_bad_operands(cuda):
     A, X = _operands("3d7", 8, torch.float32, cuda)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float64"):
         kd.dia_spmm_t_cuda(A, X.double())
     with pytest.raises(ValueError, match="contiguous"):
         kd.dia_spmm_t_cuda(A, X.T.contiguous().T)
@@ -828,3 +828,176 @@ def test_host_lu_on_card_matches_cpu(cuda):
         out.append(fn(aux, R.to(dev)))
     assert ((out[1].cpu() - out[0]).abs().max() / out[0].abs().max()).item() <= 1e-5
     assert _backward_err(A, out[1], R) <= 1e-5
+
+
+# --- float64: the f64 instantiations of K1, K2 and K3 ---------------------
+
+
+def _f64(A):
+    import dataclasses
+
+    field = "bdata" if hasattr(A, "bdata") else "data"
+    return dataclasses.replace(A, **{field: getattr(A, field).double()})
+
+
+@pytest.mark.parametrize("pattern", sorted(PATTERNS))
+@pytest.mark.parametrize("m", [1, 3, 8, 24])
+def test_f64_dia_kernel_matches_reference(cuda, pattern, m):
+    """K1 in f64 takes one column a thread on every pattern (no vector body
+    for 8-byte items) and sums the plain version's f64 products in offset
+    order, FMA-contracted: within 1e-12 of max|A| max|X| ndiag."""
+    A, X = _operands(pattern, m, torch.float64, cuda)
+    before = kd.dia_spmm_t_cuda.launches
+    Y = spmm_t(A, X)
+    torch.cuda.synchronize()
+    assert kd.dia_spmm_t_cuda.launches == before + 1
+    assert kd.dia_spmm_t_cuda.width == 1 and Y.dtype == torch.float64
+    tol = 1e-12 * A.data.abs().max().item() * X.abs().max().item() * len(A.offsets)
+    assert (Y - kd.dia_spmm_t_reference(A, X)).abs().max().item() <= tol
+
+
+def test_f64_leaves_the_f32_and_bf16_widths(cuda):
+    """The f64 rule moves no f32/bf16 dispatch: the widths chip_smoke.py
+    asserts at the solve's shapes (4 at N=108, 2 at N=54, 1 at N=37)."""
+    for pattern, want in (("3d108", 4), ("3d54", 2), ("3d37", 1), ("2d16", 4)):
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
+            A, X = _operands(pattern, 2, dtype, cuda)
+            kd.dia_spmm_t_cuda(A, X)
+            assert kd.dia_spmm_t_cuda.width == (1 if dtype == torch.float64 else want)
+
+
+@pytest.mark.parametrize("kind", GATHER_KINDS)
+@pytest.mark.parametrize("m", [1, 3, 8, 24, 128])
+def test_f64_gather_kernels_match_reference(cuda, kind, m):
+    """K2 and K3 in f64 against their plain versions: the same f64 products
+    of a row in other orders, within 1e-12 of the row's |A|.|X|; int16
+    offsets and int32 columns alike; b = 2 and 4."""
+    import dataclasses
+
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.sparse import BSRMatrix
+
+    A = _f64(_gather_operand(kind, cuda))
+    field = "bdata" if isinstance(A, BSRMatrix) else "data"
+    wrapper = kg.bsr_spmm_t_cuda if field == "bdata" else kg.ell_spmm_t_cuda
+    plain = kg.bsr_spmm_t_reference if field == "bdata" else kg.ell_spmm_t_reference
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, A.shape[1]))).to(cuda)
+    before = wrapper.launches
+    Y = spmm_t(A, X)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert Y.shape == (m, A.shape[0]) and Y.dtype == torch.float64
+    absA = dataclasses.replace(A, **{field: getattr(A, field).abs()})
+    tol = 1e-12 * plain(absA, X.abs()).max().item()
+    assert (Y - plain(A, X)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kind", WARP_KINDS)
+def test_f64_ell_kernel_stops_each_warp_at_its_count(cuda, kind):
+    import dataclasses
+
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+
+    A = _f64(_warp_operand(kind, cuda))
+    X = torch.from_numpy(np.random.default_rng(9).standard_normal((9, A.shape[1]))).to(cuda)
+    absA = dataclasses.replace(A, data=A.data.abs())
+    tol = 1e-12 * kg.ell_spmm_t_reference(absA, X.abs()).max().item()
+    assert (kg.ell_spmm_t_cuda(A, X) - kg.ell_spmm_t_reference(A, X)).abs().max().item() <= tol
+
+
+def test_f64_wrappers_refuse_mixed_operands(cuda):
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+
+    A, X = _operands("3d7", 4, torch.float64, cuda)
+    with pytest.raises(TypeError, match="the same for both"):
+        kd.dia_spmm_t_cuda(A, X.float())
+    for kind, wrapper in (("ell-graph", kg.ell_spmm_t_cuda), ("bsr2-elasticity", kg.bsr_spmm_t_cuda)):
+        A = _f64(_gather_operand(kind, cuda))
+        with pytest.raises(TypeError, match="float32 or float64"):
+            wrapper(A, torch.randn((4, A.shape[1]), device=cuda))
+
+
+def test_paranoid_nan_check_on_kernel_dispatches(cuda, capsys):
+    """In paranoid mode each kernel dispatch of ``spmm_t`` feeds its output
+    to ``nan_check`` under the kernel's name: an infinite X value inside the
+    sampled centre raises that kernel's flag on the card, read once by
+    ``report``; paranoid mode off, a dispatch makes no flag."""
+    from dune_eigensolver_tpu_torch.utils import paranoid
+
+    dia, _ = _operands("3d108", 2, torch.float32, cuda)
+    operands = {"dia_spmm_t_cuda": dia, "ell_spmm_t_cuda": _gather_operand("ell-graph", cuda),
+                "bsr_spmm_t_cuda": _gather_operand("bsr2-elasticity", cuda)}
+    paranoid.set_paranoid(True)
+    try:
+        for tag, A in operands.items():
+            n = A.shape[1]
+            X = torch.ones((2, n), device=cuda)
+            spmm_t(A, X)
+            assert paranoid.report() == []
+            X[:, n // 2] = float("inf")
+            spmm_t(A, X)
+            flag = paranoid._FLAGS[("nan", tag, X.device)]
+            assert flag.is_cuda and bool(flag)
+            (line,) = paranoid.report()
+            assert f"kernel '{tag}'" in line and line.startswith("PARANOID")
+    finally:
+        paranoid.set_paranoid(False)
+    spmm_t(dia, torch.full((2, dia.shape[1]), float("inf"), device=cuda))
+    assert paranoid._FLAGS == {}
+
+
+def test_refine_on_card_matches_cpu(cuda):
+    """``refine_eigenpairs`` on the card (the f64 kernels, one launch for
+    B = None) against the same refinement on the CPU: 1e-12 relative."""
+    from dune_eigensolver_tpu_torch.solvers import refine_eigenpairs
+
+    for A_cpu, B_cpu in (
+        (problems.laplacian_dirichlet_2d(40, dtype=torch.float32, device="cpu"), None),
+        problems.elasticity_2d(12, dtype=torch.float32, device="cpu"),
+    ):
+        n = A_cpu.shape[0]
+        V = torch.from_numpy(np.random.default_rng(0).standard_normal((n, 8))).float()
+        w_cpu, _ = refine_eigenpairs(A_cpu, B_cpu, V)
+        move = lambda M: None if M is None else _to(M, cuda)  # noqa: E731
+        before = kd.dia_spmm_t_cuda.launches
+        w, Vr = refine_eigenpairs(move(A_cpu), move(B_cpu), V.to(cuda), rotate_vectors=True)
+        if B_cpu is None:
+            assert kd.dia_spmm_t_cuda.launches == before + 1
+        assert Vr.is_cuda and Vr.dtype == torch.float32
+        assert np.abs(w - w_cpu).max() <= 1e-12 * np.abs(w_cpu).max()
+
+
+def _to(M, device):
+    import dataclasses
+
+    return dataclasses.replace(M, **{f.name: getattr(M, f.name).to(device)
+                                     for f in dataclasses.fields(M)
+                                     if isinstance(getattr(M, f.name), torch.Tensor)})
+
+
+def test_f64_solves_on_card_match_cpu(cuda):
+    """f64 end to end on the card (the CLI's ``ev.dtype=float64``): the
+    default-inverse ``generalized_inverse`` on the 2D GenEO pencil (DIA,
+    K1 f64) and on elasticity_2d(8) (BSR, K3 f64) from one start block,
+    against the same solve on the CPU: iterations within one, eigenvalues
+    to 1e-8 relative."""
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.solvers import generalized_inverse
+
+    pencils = (
+        (problems.laplacian_neumann_2d(16, dtype=torch.float64, device="cpu"),
+         problems.laplacian_b_2d(16, 3, dtype=torch.float64, device="cpu"), kd.dia_spmm_t_cuda),
+        problems.elasticity_2d(8, dtype=torch.float64, device="cpu") + (kg.bsr_spmm_t_cuda,),
+    )
+    for A, B, kernel in pencils:
+        q0 = torch.from_numpy(np.random.default_rng(1).standard_normal((A.shape[0], 8)))
+        kw = dict(nev=8, tol=1e-8, maxiter=300, shift=1e-3)
+        r_cpu = generalized_inverse(A, B, q0=q0, **kw)
+        before = kernel.launches
+        r = generalized_inverse(_to(A, cuda), _to(B, cuda), q0=q0.to(cuda), **kw)
+        assert kernel.launches > before
+        # cuBLAS and the CPU's BLAS round differently: the change-based stop
+        # may move by one iteration
+        assert abs(int(r.iterations) - int(r_cpu.iterations)) <= 1
+        e = r_cpu.eigenvalues.numpy()
+        assert np.abs(r.eigenvalues.cpu().numpy() - e).max() <= 1e-8 * np.abs(e).max()

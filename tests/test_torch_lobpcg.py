@@ -75,6 +75,30 @@ def test_lobpcg_matches_jax_f64(precond):
     assert _max_subspace_sine(np.asarray(rj.eigenvectors), rt.eigenvectors.numpy()) < 1e-6
 
 
+@pytest.mark.parametrize("precond", ["none", "cg"])
+def test_lobpcg_ortho_block_full_matches_jax_f64(precond):
+    """``ortho_block='full'`` (one whole-basis CholeskyQR a basis) from the
+    same q0 in f64, unpreconditioned and with an f64 Jacobi-CG
+    preconditioner: the same iterations and eigenvalues to rtol 1e-10 in
+    both packages, and the same eigenvalues as the default blocked sweep
+    (the basis is well conditioned here) to 1e-8."""
+    from dune_eigensolver_tpu.factorize import cg_inverse_factory as jcg
+    from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory as tcg
+
+    Aj, Bj, At, Bt = _pencil(np.float64)[:4]
+    q0 = _pencil(np.float64)[4]
+    kw = dict(nev=NEV, tol=1e-8, maxiter=150, b_identity=True, ortho_block="full")
+    pj = False if precond == "none" else jcg(rtol=1e-3, maxiter=20)
+    pt = False if precond == "none" else tcg(rtol=1e-3, maxiter=20)
+    rj = jlobpcg(Aj, Bj, precond=pj, q0=jnp.asarray(q0), **kw)
+    rt = tlobpcg(At, Bt, precond=pt, q0=torch.from_numpy(q0), **kw)
+    assert int(rt.iterations) == int(rj.iterations)
+    assert bool(rt.converged) == bool(rj.converged) is True
+    np.testing.assert_allclose(rt.eigenvalues.numpy(), np.asarray(rj.eigenvalues), rtol=1e-10)
+    blocked = tlobpcg(At, Bt, precond=pt, q0=torch.from_numpy(q0), **dict(kw, ortho_block=8))
+    np.testing.assert_allclose(rt.eigenvalues.numpy(), blocked.eigenvalues.numpy(), rtol=1e-8)
+
+
 def test_lobpcg_matches_pallas_interpret_f32():
     """The JAX side on its guarded layout, so every A.X runs the Pallas
     kernel in interpret mode. In f32, both accumulate A.X in f32 but in

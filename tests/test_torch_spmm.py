@@ -155,6 +155,16 @@ def test_vector_width_follows_the_operands_alignment():
             assert kd.dia_vector_width(offsets, 216**3, dtype, align=align) == width
 
 
+@pytest.mark.parametrize("N,dim", [(216, 3), (128, 3), (108, 3), (54, 3), (37, 3), (2048, 2)])
+def test_vector_width_is_one_for_float64(N, dim):
+    """float64 (8-byte items) takes one column a thread at every shape and
+    alignment: the kernel has no vector body for them, and a 16-byte
+    aligned operand would otherwise qualify for width 2."""
+    for align in (16, 8):
+        assert kd.dia_vector_width(_stencil(N, dim), N**dim, torch.float64, align=align) == 1
+    assert kd.dia_vector_width((-64, -8, -1, 0, 1, 8, 64), 1024, torch.float64) == 1
+
+
 def test_spmm_t_dispatch_on_cpu():
     data, offsets, n, Xt = _operands("3d7", 8, np.float64)
     A = dia_from_numpy(data, offsets, (n, n), device="cpu")
