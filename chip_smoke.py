@@ -183,7 +183,19 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               ``ev.profile_dir``; (f) ``ortho_block='full'`` at N=24
               (gated) and 216^3 (recorded).
 
-Phases 15-19 run before phase 14, the kernel table, which comes last.
+20. dist    — the distributed layer (``dune_eigensolver_tpu_torch/dist``)
+              at world size 1 under NCCL (``DIST`` lines; ``phase_dist``
+              states each gate): an impossible start raises, a CUDA
+              operand on a gloo group raises; (a) the north star through
+              ``sharded_lobpcg_generalized`` in the JAX package's sharded
+              form (MG, bf16, ortho_block 24) beside the single-card
+              solve; (b) the other DIA drivers beside phases 17/18; (c) the
+              general drivers (K2) against phases 7-9's ARPACK values;
+              (d) K1's and K2's local applies split P = 2, 3, 4, 8 ways in
+              one process against the global kernel. NCCL refuses two ranks
+              on one card, so no exchange between real ranks runs here.
+
+Phases 15-20 run before phase 14, the kernel table, which comes last.
 
 Each solve phase zeroes every kernel's launch counter just before its
 timed run and reads the counters just after; a phase whose kernel was not
@@ -196,7 +208,9 @@ phase 7, ELL phase 9, the probe and variant kernels phase 12, the ablation
 and gather-probe kernels phase 16; the K1, K2 and K3 rows that the
 direct engines drive add ``direct_launches``, those of phase 18's runs;
 three f64 rows (K1 at 3D N=216 m=24, K2 on the graph, K3 on
-elasticity_2d(512), m=8) carry the f64 launches of phase 19;
+elasticity_2d(512), m=8) carry the f64 launches of phase 19; the f32 K1
+row and the graph's K2 row carry ``dist_launches``, those of phase 20's
+timed runs;
 ``bound_ms``
 is the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s (34 in f64), the card's
 published rates, over the least bytes the function needs: coefficients,
@@ -1115,6 +1129,7 @@ def phase_standard(torch, kernels, problems):
                rayleigh_ritz=dict(iterations=int(res_rr.iterations), max_err=err_rr, **pairs_rr),
                eigenvalues=ev.tolist())
     log("LARGEST " + json.dumps(rec))
+    largest_ev = ev
     if launches != 2 * rec["iterations"]:
         raise RuntimeError(f"largest: {launches} DIA launches in {rec['iterations']} iterations")
     if not (err <= gate and err_rr <= gate):
@@ -1157,6 +1172,7 @@ def phase_standard(torch, kernels, problems):
     )
     for argv, head in protocols:
         cli_protocol(kernels, cli, [ini, *argv], head)
+    return dict(largest=largest_ev)  # phase 20 holds its sharded solve to these
 
 
 def cli_protocol(kernels, cli, argv, head, kernel="dia_spmm_t", f64=False, also=()):
@@ -1974,7 +1990,8 @@ def phase_extras(torch, kernels, cli, problems, DIAMatrix, lobpcg_nested, mg_inv
     oracle, _ = smallest_generalized(A, B, nev=24, sigma=-1e-3)
     parity = dict(A=A, B=B, oracle=np.sort(oracle))
     log(f"extras: parity oracle nev=24 {time.perf_counter() - t0:.1f} s")
-    out = dict(refine=extras_refine(torch, kernels, problems, north, parity))
+    out = dict(refine=extras_refine(torch, kernels, problems, north, parity),
+               parity_oracle=parity["oracle"])  # phase 20 holds its sharded solve to it
     out["adaptive"] = extras_adaptive(torch, kernels, cli, parity)
     A5, B5 = problems.elasticity_2d(512, dtype=torch.float32, device="cuda")
     geneo = dict(geneo_rec, A=A5, B=B5,
@@ -1998,6 +2015,344 @@ def phase_extras(torch, kernels, cli, problems, DIAMatrix, lobpcg_nested, mg_inv
         if count <= 0:
             raise RuntimeError(f"extras: the f64 {name} kernel was launched no time")
     return out, f64_total
+
+
+def dist_record(torch, kernels, run, counts):
+    """One sharded solve, timed as ``timed_twice`` times it, with the
+    collectives of the timed run beside the kernels' launches."""
+    def counted():
+        counts.clear()
+        return run()
+
+    res, rec = timed_twice(torch, counted, kernels)
+    rec["collectives"] = dict(counts)
+    return res, rec
+
+
+def dist_match(name, ev, ref, gate, absolute=False):
+    """Agreement of a sharded solve's eigenvalues with another solve's
+    (``ref``): max |difference| over max |ref| (or absolute), held to
+    ``gate``."""
+    ref = np.asarray(ref)[: len(ev)]
+    err = float(np.abs(np.sort(ev) - np.sort(ref)).max())
+    if not absolute:
+        err /= float(np.abs(ref).max())
+    if not err <= gate:
+        kind = "absolute" if absolute else "relative"
+        raise RuntimeError(f"{name}: eigenvalues {err:.3e} ({kind}) from the reference solve, "
+                           f"gate {gate:.0e}")
+    return err
+
+
+def dist_no_fallback(torch, dist):
+    """A process-group start that cannot succeed (rank 1 of a world of one)
+    raises and leaves no group behind; run before the real group exists.
+    Its store waits 5 s for the NCCL id rank 0 would publish."""
+    import datetime
+    import tempfile
+
+    from dune_eigensolver_tpu_torch.dist import init_distributed
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    store = dist.FileStore(os.path.join(tmp, "bad"), 1)
+    store.set_timeout(datetime.timedelta(seconds=5))  # rank 1 waits for rank 0's NCCL id
+    t0 = time.perf_counter()
+    try:
+        init_distributed("cuda", store=store, rank=1, world_size=1,
+                         timeout=datetime.timedelta(seconds=5))
+    except Exception as e:  # the one failure this phase provokes on purpose
+        failed = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    else:
+        raise RuntimeError("an impossible NCCL start did not raise")
+    if dist.is_initialized():
+        raise RuntimeError("a failed NCCL start left a process group behind")
+    return dict(failed_start=failed, failed_start_seconds=time.perf_counter() - t0), tmp
+
+
+def phase_dist(torch, kernels, problems, DIAMatrix, refs):
+    """Phase 20: the distributed layer (``dune_eigensolver_tpu_torch/dist``)
+    on the card, world size 1 under NCCL (one card: NCCL refuses two ranks
+    on one device, so no exchange between real ranks runs here; the layer's
+    exchanges are held to the JAX package's on gloo CPU ranks by the tests).
+
+    (a) The north star through ``sharded_lobpcg_generalized`` in the JAX
+    package's sharded form (precond='mg', bf16 smoothing, ortho_block=24,
+    nev=24, identity B as a one-diagonal DIA operand), 216^3, twice, timing
+    the second: max_err <= 1e-5 against the analytic smallest 20, and the
+    single-card ``lobpcg_generalized`` with the same flags (the V(1,1) bf16
+    cycle, the same seed and so the same start block) within 1e-6
+    relative. (b) ``sharded_standard_largest`` (2D N=2048, nev 8: phase
+    17's call, held to its eigenvalues to 1e-6: the same products and the
+    Grams all-reduced over one rank), ``sharded_standard_inverse`` (2D
+    N=512, nev 8, inner='schwarz', the block solve alone at P = 1: the
+    analytic spectrum within 1e-5, and the single-card default-inverse
+    solve within the same 10 tol = 1e-5) and ``sharded_generalized_inverse``
+    on the parity pencil (phase 18 (a)'s gate, 5e-2 of ARPACK, and its
+    eigenvalues within 10 tol = 2e-2 relative). The single-card banded
+    engine refines its solve once and the Schwarz block solve does not, so
+    the two iterations differ in the last f32 digits of every inverse, and
+    each change-based stop may leave its eigenvalues up to tol/(1 - rho)
+    from the limit (phase 17's reasoning). (c)
+    The general drivers (K2): ``sharded_standard_largest_general`` on the
+    RCM-ordered 2^20 graph (the single-card ``standard_largest`` on its
+    ELL container to 1e-6: the same sums), ``sharded_generalized_inverse_
+    general`` on RCM-ordered elasticity_2d(96), nev 4, inner 'schwarz' and
+    'cg' (phase 8's ARPACK values, its gate 1e-2), ``sharded_lobpcg_general``
+    on elasticity_2d(512), nev 8 (phase 7's ARPACK values and gate, 1e-2).
+    (d) The local applies split P ways in one process, P = 2, 3, 4, 8, fed
+    with the slabs the neighbours would send, against the global kernel on
+    the same X: K1 on 3D N=216 m=24 (f32: 1e-6 of max|Y|, the edge terms
+    added after the interior sum; bf16: 1e-2, after the kernel's bf16
+    rounding), K2 overlapped and serialized on RCM-ordered elasticity_2d(512)
+    scalar m=8 (P = 3 pads its rows) and serialized on the graph m=8 (its
+    halo, ~95k, is past the dense boundary blocks' cap, so the reference
+    serializes there too), 1e-6 of max|Y|; the bandwidth guards raise.
+    Every product of (a)-(c) launches its kernel (``PlainProductsRefused``).
+    Returns the launches of K1 and K2 on the dist path."""
+    import tempfile
+
+    import scipy.sparse as sp
+    import torch.distributed as dist
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from dune_eigensolver_tpu_torch import dist as tdist
+    from dune_eigensolver_tpu_torch.dist import dryrun, sharded, windowed
+    from dune_eigensolver_tpu_torch.dist.mesh import Mesh
+    from dune_eigensolver_tpu_torch.factorize import mg_inverse_factory
+    from dune_eigensolver_tpu_torch.kernels import dia_spmm as kd
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.oracle.analytic import (
+        eigenvalues_laplace_dirichlet_2d,
+        eigenvalues_laplace_dirichlet_3d,
+    )
+    from dune_eigensolver_tpu_torch.solvers import (
+        lobpcg_generalized,
+        standard_inverse,
+        standard_largest,
+    )
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+
+    t_phase = time.perf_counter()
+    counts = sharded.COUNTS
+    launches = dict(dia_spmm_t=0, ell_spmm_t=0)
+
+    def tally(rec):
+        for k in launches:
+            launches[k] += rec["launches"][k]
+
+    checks, tmp = dist_no_fallback(torch, dist)
+    device = tdist.init_distributed("cuda", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1)
+    mesh = tdist.make_mesh()
+    gloo = dist.new_group(backend="gloo")
+    try:
+        tdist.sharded_standard_largest(
+            problems.laplacian_dirichlet_2d(8, dtype=torch.float32, device="cuda"), nev=4,
+            tol=1e-3, maxiter=3, mesh=Mesh(group=gloo, ranks=(0,), rank=0, device=device))
+    except ValueError as e:
+        checks["cuda_on_gloo"] = str(e)
+    else:
+        raise RuntimeError("a CUDA operand on a gloo group did not raise")
+    log("DIST checks " + json.dumps(dict(checks, mesh=dict(size=mesh.size, rank=mesh.rank,
+                                                           device=str(mesh.device)))))
+    out = {}
+    with PlainProductsRefused():
+        # (a) the north star, sharded form
+        N3 = 216
+        A3 = problems.laplacian_dirichlet_3d(N3, dtype=torch.float32, device="cuda")
+        n3 = A3.shape[0]
+        B3 = DIAMatrix(data=torch.ones((1, n3), device="cuda"), offsets=(0,), shape=A3.shape)
+        kw = dict(nev=24, tol=2e-3, maxiter=300, shift=0.0, ortho_block=24)
+        res, rec = dist_record(torch, kernels, lambda: tdist.sharded_lobpcg_generalized(
+            A3, B3, mesh=mesh, precond="mg", prec_dtype=torch.bfloat16, **kw), counts)
+        ev = check_solve(torch, "dist north star", res, n3, 24)
+        exact = eigenvalues_laplace_dirichlet_3d(N3, count=20)
+        err = float(np.abs(np.sort(ev)[:20] - exact).max())
+        del res
+        t0 = time.perf_counter()
+        single = lobpcg_generalized(A3, B3, precond=mg_inverse_factory(
+            nu1=1, nu2=1, dtype=torch.bfloat16), **kw)
+        ev1 = single.eigenvalues.cpu().numpy()
+        t_single = time.perf_counter() - t0
+        rec.update(n=n3, nev=24, max_err=err, gate=1e-5,
+                   single_card=dict(seconds=t_single, iterations=int(single.iterations),
+                                    max_err=float(np.abs(np.sort(ev1)[:20] - exact).max())),
+                   single_card_relative=dist_match("dist north star", ev, ev1, 1e-6),
+                   eigenvalues=ev.tolist())
+        del single
+        log("DIST north_star " + json.dumps(rec))
+        if not err <= 1e-5:
+            raise RuntimeError(f"dist north star: max_err {err:.3e} > 1e-5")
+        if rec["launches"]["dia_spmm_t"] <= 0 or rec["collectives"].get("all_gather", 0) <= 0:
+            raise RuntimeError("dist north star: no K1 launch or no all_gather in the timed run")
+        tally(rec)
+        out["north_star"] = rec
+        del A3, B3
+        drop_setups()
+        torch.cuda.empty_cache()
+
+        # (b) the other DIA drivers
+        A2 = problems.laplacian_dirichlet_2d(2048, dtype=torch.float32, device="cuda")
+        res, rec = dist_record(torch, kernels, lambda: tdist.sharded_standard_largest(
+            A2, nev=8, tol=2e-3, maxiter=4000, mesh=mesh), counts)
+        ev = check_solve(torch, "dist largest", res, 2048**2, 8)
+        err = float(np.abs(ev - eigenvalues_laplace_dirichlet_2d(2048)[::-1][:8]).max())
+        rec.update(max_err=err, gate=4 * np.sqrt(2e-3),
+                   single_card_relative=dist_match("dist largest", ev, refs["largest"], 1e-6))
+        log("DIST largest " + json.dumps(rec))
+        if not err <= 4 * np.sqrt(2e-3):
+            raise RuntimeError(f"dist largest: max_err {err:.3e} > {4 * np.sqrt(2e-3):.3e}")
+        tally(rec)
+        out["largest"] = rec
+        del A2, res
+        A5 = problems.laplacian_dirichlet_2d(512, dtype=torch.float32, device="cuda")
+        res, rec = dist_record(torch, kernels, lambda: tdist.sharded_standard_inverse(
+            A5, nev=8, tol=1e-6, maxiter=200, mesh=mesh, inner="schwarz"), counts)
+        ev = check_solve(torch, "dist inverse", res, 512**2, 8)
+        err = float(np.abs(ev - eigenvalues_laplace_dirichlet_2d(512)[:8]).max())
+        drop_setups()
+        ev1 = standard_inverse(A5, nev=8, tol=1e-6, maxiter=200).eigenvalues.cpu().numpy()
+        rec.update(max_err=err, gate=1e-5,
+                   single_card_absolute=dist_match("dist inverse", ev, ev1, 1e-5, absolute=True),
+                   single_card_relative=float(np.abs(np.sort(ev) - np.sort(ev1)).max()
+                                              / np.abs(ev1).max()))
+        log("DIST inverse " + json.dumps(rec))
+        if not err <= 1e-5:
+            raise RuntimeError(f"dist inverse: max_err {err:.3e} > 1e-5")
+        tally(rec)
+        out["inverse"] = rec
+        del A5, res
+        drop_setups()
+        Ap = problems.laplacian_neumann_2d(256, dtype=torch.float32, device="cuda")
+        Bp = problems.laplacian_b_2d(256, 3, dtype=torch.float32, device="cuda")
+        res, rec = dist_record(torch, kernels, lambda: tdist.sharded_generalized_inverse(
+            Ap, Bp, nev=8, tol=2e-3, maxiter=200, shift=1e-3, mesh=mesh), counts)
+        ev = check_solve(torch, "dist parity", res, 256**2, 8)
+        err = relerr(ev, refs["parity_oracle"][:8])
+        rec.update(relerr=err, gate=5e-2, plateau=plateau(err, 2e-3),
+                   single_card_relative=dist_match("dist parity", ev, refs["parity"], 2e-2))
+        log("DIST parity " + json.dumps(rec))
+        if not err <= 5e-2:
+            raise RuntimeError(f"dist parity: relerr {err:.3e} > 5e-2")
+        tally(rec)
+        out["parity"] = rec
+        del Ap, Bp, res
+        drop_setups()
+        torch.cuda.empty_cache()
+
+        # (c) the general drivers: K2 on the rank's rows
+        Sg = refs["graph"]
+        t0 = time.perf_counter()
+        plan = windowed.windowed_shard_plan(windowed.largest_operator(Sg), 1, 0, "cuda")
+        t_plan = time.perf_counter() - t0
+        res, rec = dist_record(torch, kernels, lambda: tdist.sharded_standard_largest_general(
+            Sg, nev=4, tol=1e-3, maxiter=1000, mesh=mesh, plan=plan), counts)
+        ev = check_solve(torch, "dist largest_general", res, Sg.shape[0], 4)
+        Eg = ell_from_scipy(Sg, dtype=torch.float32, device="cuda")
+        ev1 = standard_largest(Eg, nev=4, tol=1e-3, maxiter=1000).eigenvalues.cpu().numpy()
+        rec.update(plan_seconds=t_plan, halo=plan.halo,
+                   single_card_relative=dist_match("dist largest_general", ev, ev1, 1e-6))
+        log("DIST largest_general " + json.dumps(rec))
+        tally(rec)
+        out["largest_general"] = rec
+        del plan, res, Eg
+        Sa96, Sb96 = refs["flagship_pencil"]
+        p96 = np.asarray(reverse_cuthill_mckee(Sa96, symmetric_mode=True))
+        Sa96, Sb96 = Sa96[p96][:, p96].tocsr(), Sb96[p96][:, p96].tocsr()
+        for inner, extra in (("schwarz", {}), ("cg", dict(cg_rtol=1e-5, cg_maxiter=1000))):
+            def run(inner=inner, extra=extra):
+                return tdist.sharded_generalized_inverse_general(
+                    Sa96, Sb96, nev=4, tol=2e-3, maxiter=300, shift=1e-3, mesh=mesh,
+                    inner=inner, **extra)
+
+            res, rec = dist_record(torch, kernels, run, counts)
+            ev = check_solve(torch, f"dist generalized_general {inner}", res, Sa96.shape[0], 4)
+            err = relerr(ev, refs["flagship4_oracle"])
+            rec.update(relerr=err, gate=1e-2, plateau=plateau(err, 2e-3), inner=inner)
+            log(f"DIST generalized_general {inner} " + json.dumps(rec))
+            if not err <= 1e-2:
+                raise RuntimeError(f"dist generalized_general {inner}: relerr {err:.3e} > 1e-2")
+            tally(rec)
+            out[f"generalized_general_{inner}"] = rec
+            del res
+            drop_setups()
+        Sa5, Sb5 = refs["geneo_pencil"]
+        res, rec = dist_record(torch, kernels, lambda: tdist.sharded_lobpcg_general(
+            Sa5, Sb5, nev=8, tol=2e-3, maxiter=300, shift=1e-3, mesh=mesh, cg_rtol=1e-2,
+            cg_maxiter=25), counts)
+        ev = check_solve(torch, "dist lobpcg_general", res, Sa5.shape[0], 8)
+        err = relerr(ev, refs["geneo_oracle"])
+        rec.update(relerr=err, gate=1e-2, plateau=plateau(err, 2e-3))
+        log("DIST lobpcg_general " + json.dumps(rec))
+        if not err <= 1e-2:
+            raise RuntimeError(f"dist lobpcg_general: relerr {err:.3e} > 1e-2")
+        if rec["launches"]["ell_spmm_t"] <= 0:
+            raise RuntimeError("dist lobpcg_general: K2 was launched no time")
+        tally(rec)
+        out["lobpcg_general"] = rec
+        del res
+        drop_setups()
+        torch.cuda.empty_cache()
+
+    # (d) the local applies split P ways in one process
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    split = []
+    A3 = problems.laplacian_dirichlet_3d(216, dtype=torch.float32, device="cuda")
+    for dtype, gate in ((torch.float32, 1e-6), (torch.bfloat16, 1e-2)):
+        Ad = DIAMatrix(data=A3.data.to(dtype), offsets=A3.offsets, shape=A3.shape)
+        X = torch.randn((24, A3.shape[0]), generator=gen, device="cuda").to(dtype)
+        Y = kd.dia_spmm_t_cuda(Ad, X).float()
+        for P in (2, 3, 4, 8):
+            err = (dryrun.split_dia_apply_t(Ad, X, P).float() - Y).abs().max().item()
+            split.append(dict(kernel="dia_spmm_t", operand="3d N=216 m=24", dtype=str(dtype),
+                              P=P, max_abs_err=err, rel=err / Y.abs().max().item(), gate=gate))
+        del Ad, X, Y
+    try:
+        dryrun.split_dia_apply_t(A3, torch.zeros((1, A3.shape[0]), device="cuda"), 216**2)
+    except ValueError as e:
+        guard = [str(e)]
+    else:
+        raise RuntimeError("the K1 route's bandwidth guard did not raise")
+    del A3
+    torch.cuda.empty_cache()
+    S5 = refs["geneo_pencil"][0]
+    p5 = np.asarray(reverse_cuthill_mckee(S5, symmetric_mode=True))
+    for name, S, forms in (("elasticity N=512 scalar rcm m=8", S5[p5][:, p5].tocsr(),
+                            (True, False)),
+                           ("graph n=2^20 m=8", refs["graph"], (False,))):
+        E = ell_from_scipy(S, dtype=torch.float32, device="cuda")
+        X = torch.randn((8, S.shape[0]), generator=gen, device="cuda")
+        Y = kg.ell_spmm_t_cuda(E, X)
+        del E
+        for P in (2, 3, 4, 8):
+            plans = None
+            for overlap in forms:
+                Z, plans = dryrun.split_windowed_apply_t(S, X, P, overlap, plans)
+                err = (Z - Y).abs().max().item()
+                split.append(dict(kernel="ell_spmm_t", operand=name, P=P, overlap=overlap,
+                                  halo=plans[0].halo, max_abs_err=err,
+                                  rel=err / Y.abs().max().item(), gate=1e-6))
+            del plans, Z
+        del X, Y
+    try:
+        windowed.windowed_shard_plans(refs["graph"], 64, "cuda")
+    except ValueError as e:
+        guard.append(str(e))
+    else:
+        raise RuntimeError("the K2 route's bandwidth guard did not raise")
+    for row in split:
+        log("DIST split " + json.dumps(row))
+        if not row["rel"] <= row["gate"]:
+            raise RuntimeError(f"dist split: {row}")
+    log("DIST guards " + json.dumps(guard))
+    out["split_seconds"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    log("DIST " + json.dumps(dict(seconds=time.perf_counter() - t_phase,
+                                  split_seconds=out["split_seconds"], launches=launches)))
+    if launches["dia_spmm_t"] <= 0 or launches["ell_spmm_t"] <= 0:
+        raise RuntimeError(f"dist: a kernel of the path was launched no time {launches}")
+    return out, launches
 
 
 def main():
@@ -2170,12 +2525,14 @@ def main():
 
     # --- phases 7-9: the general-sparsity path ---
     geneo = phase_geneo(torch, kernels, A512, B512)
+    geneo_pencil = (A512.to_scipy(), B512.to_scipy())  # phase 20's general drivers
     del A512, B512
     torch.cuda.empty_cache()
     flagship = phase_flagship(torch, kernels, A96, B96)
     S20 = problems.unstructured_laplacian(20_000, extra_edges=1_000, seed=5, fmt="scipy")
     graph_small = (S20, rcm_pencil(S20, dtype=torch.float32, device="cuda")[0])
     graph = phase_graph(torch, kernels, A_graph, graph_small)
+    graph_scipy = A_graph.to_scipy()  # phase 20's general drivers
     del A_graph
 
     del graph_small
@@ -2222,16 +2579,25 @@ def main():
     torch.cuda.empty_cache()
 
     # --- phase 17: the standard entry points and the CLI's protocols ---
-    phase_standard(torch, kernels, problems)
+    standard = phase_standard(torch, kernels, problems)
 
     # --- phase 18: the direct engines, the reference's default inverse ---
     direct = phase_direct(torch, kernels, problems, flagship, A96, B96)
+    flagship_pencil = (A96.to_scipy(), B96.to_scipy())  # phase 20's general drivers
     del A96, B96
     torch.cuda.empty_cache()
 
     # --- phase 19: the solver extras and float64 through the entry points ---
     extras, f64_launches = phase_extras(torch, kernels, cli, problems, DIAMatrix, lobpcg_nested,
                                         mg_inverse_factory, north, geneo)
+
+    # --- phase 20: the distributed layer, world size 1 under NCCL ---
+    dist_refs = dict(largest=standard["largest"], parity=direct["parity"]["eigenvalues"],
+                     parity_oracle=extras["parity_oracle"], graph=graph_scipy,
+                     flagship_pencil=flagship_pencil, flagship4_oracle=flagship[1]["oracle"],
+                     geneo_pencil=geneo_pencil, geneo_oracle=geneo["oracle"])
+    _, dist_launches = phase_dist(torch, kernels, problems, DIAMatrix, dist_refs)
+    del dist_refs, graph_scipy, flagship_pencil, geneo_pencil
 
     # --- phase 14: the kernel table ---
     def entry(name, source, replaces, launches, rec, nbytes, flops, library_ms, **more):
@@ -2268,12 +2634,14 @@ def main():
               launches, k1, k1_bytes, 2.0 * k1_nnz * k1["m"], library[k1["case"]],
               device_ms=k1["device_ms"], width=k1["width"],
               direct_launches={k: direct[k]["launches"]["dia_spmm_t"]
-                               for k in ("parity", "band_1024")}),
+                               for k in ("parity", "band_1024")},
+              dist_launches=dist_launches["dia_spmm_t"]),
         gather_entry("ell_spmm_t", csrc + "ell_spmm.cu",
                      "dune_eigensolver_tpu/kernels/gather_spmm.py:792",
                      graph["launches"]["ell_spmm_t"], gathered["ell graph n=2^20 m=8"], 1,
                      device_ms=gathered["ell graph n=2^20 m=8"]["device_ms"],
-                     direct_launches={"rcm_ell_4": direct["rcm_ell_4"]["launches"]["ell_spmm_t"]}),
+                     direct_launches={"rcm_ell_4": direct["rcm_ell_4"]["launches"]["ell_spmm_t"]},
+                     dist_launches=dist_launches["ell_spmm_t"]),
         # the CLI's matvec operand; elasticity_2d(512) scalar at m=8, whose
         # launches are those of ablate_table on that operand (scaled: the
         # same pattern), and at m=24, which no path launches

@@ -9,8 +9,8 @@ inputs. This package imports ``torch``, ``numpy`` and ``scipy`` and never
 Layout (the ported slices: the nested-LOBPCG north-star solve, the
 general-sparsity ELL/BSR path with the CG inverse and
 ``generalized_inverse``, the kernel-measurement path, the standard entry
-points with the iterative and direct inverse engines, and the single-card
-solver extras):
+points with the iterative and direct inverse engines, the single-card
+solver extras, and the distributed layer):
 
 * ``sparse``     — ``DIAMatrix``/``ELLMatrix``/``BSRMatrix`` containers,
   problem builders, RCM reordering, ``spmm_t``
@@ -25,10 +25,14 @@ solver extras):
   reciprocal pencil, nested iteration, shift-invert ``generalized_inverse``,
   f64 Rayleigh-Ritz refinement, adaptive GenEO selection, checkpointed
   (segmented) solves
+* ``dist``       — the distributed layer on ``torch.distributed``: halo
+  SpMM on each rank's rows (K1, K2), all-reduced Grams, the sharded
+  drivers and V-cycle, spawned gloo ranks (``dist.dryrun``)
 * ``utils``      — device default, kernel build, verbosity/profiler trace
   (``vlog``), the paranoid NaN tripwire (``paranoid``)
 * ``experiments`` — the kernel studies: copy probe, DIA staging variants,
   ELL ablation, gather probes
+* ``bench``      — FLOP/byte models, device timing, weak scaling
 * ``cli``        — the reference program's protocols (``python -m``)
 * ``oracle``     — closed-form Dirichlet Laplacian spectra, scipy/ARPACK
   oracles

@@ -20,10 +20,16 @@ protocols:
   oracle, ``lobpcg`` -> preconditioned LOBPCG (``ev.nested=1``: nested
   iteration; ``ev.ortho_block=full``: whole-basis CholeskyQR),
   ``adaptive`` -> ``generalized_inverse_adaptive`` (grow nev by
-  ``ev.growth`` until lambda_max >= ``ev.threshold``); line
-  ``RESULT eigenvalues_test ...`` (``n_below=`` appended for ``adaptive``).
+  ``ev.growth`` until lambda_max >= ``ev.threshold``), ``dist`` ->
+  ``dist.sharded_generalized_inverse`` and ``dist_general`` ->
+  ``dist.sharded_generalized_inverse_general`` (the pencil as scipy
+  matrices, K2 on each rank's rows; ``ev.dist_inner``) over
+  ``parallel.ndevices`` ranks (0: all); line ``RESULT eigenvalues_test
+  ...`` (``n_below=`` appended for ``adaptive``).
 * ``mgs``     — orthonormalization benchmark (cc:164-311) with the roofline
   models of bench/models.py; line ``P_n_m_i_perfn_perfb``.
+* ``scaling`` — weak scaling of the sharded SpMM and of one sharded
+  solver iteration (``bench/scaling.py``); lines ``SCALING ...``.
 * ``matvec``  — SpMM benchmark (cc:315-427); lines
   ``RESULT <variant> <n> <nnz> <m> <GFLOPs> <GBs>``. Variants: ``plain``
   (column layout), ``plain_t`` and ``cuda_t`` (the DIA kernel) on the 2D
@@ -35,8 +41,7 @@ protocols:
 ``mgcg``, ``cheb``, or ``auto``/``banded``/``lu`` for the solver's default
 (``factorize.default_inverse_factory``: the block-banded direct engine for
 2D stencils and 3D ones up to N = 45, V-cycle-CG beyond, RCM-banded for
-the elasticity pencil), as in the reference. ``--test scaling`` and
-``ev.method=dist|dist_general`` print what they wait for and return 2.
+the elasticity pencil), as in the reference.
 ``ev.refine=on`` refines the whole block of ``largest``/``smallest`` in f64
 (``solvers/refine.py``) and prints ``REFINED_N_M_ERROR``. ``float64`` runs
 natively on the card (the kernels have f64 instantiations), so
@@ -46,9 +51,15 @@ tripwire (``utils/paranoid.py``; its alarms print after each test);
 tests there.
 
 Everything runs on the current CUDA device unless ``ev.device=cpu``.
+``scaling`` and ``ev.method=dist|dist_general`` need a process group: in a
+process without one the CLI starts a world-size-1 group itself (NCCL on
+the card, gloo with ``ev.device=cpu``) on a ``FileStore`` in a temporary
+directory and ends it after the tests; under ``torchrun`` it joins the
+launcher's group (each rank on card ``LOCAL_RANK``), every rank runs the
+CLI and rank 0 prints.
 
 Usage: ``python -m dune_eigensolver_tpu_torch [ini-file] [sec.key=value ...]
-[--test largest|smallest|eigenvalues|mgs|matvec|all]``
+[--test largest|smallest|eigenvalues|mgs|matvec|scaling|all]``
 """
 
 from __future__ import annotations
@@ -64,8 +75,16 @@ from dune_eigensolver_tpu_torch.config import ParameterTree
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 
+def _rank0() -> bool:
+    """Whether this process prints: always without a process group, rank 0
+    of one otherwise."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _log(ptree, level, *msg):
-    if int(ptree["ev.verbose"]) >= level:
+    if int(ptree["ev.verbose"]) >= level and _rank0():
         print(*msg, flush=True)
 
 
@@ -293,13 +312,6 @@ def smallest_eigenvalues_convergence_test(ptree) -> dict:
     )
 
 
-#: ``ev.method`` values of the reference that wait for other modules
-_METHODS_NOT_PORTED = {
-    "dist": "the distributed layer (ROADMAP queue 1 item 14)",
-    "dist_general": "the distributed layer (ROADMAP queue 1 item 14)",
-}
-
-
 def eigenvalues_test(ptree) -> dict:
     """Reference cc:448-525: timing run dispatching on ev.method."""
     method = str(ptree["ev.method"])
@@ -308,10 +320,7 @@ def eigenvalues_test(ptree) -> dict:
     m = -(-nev // block) * block
     device = _device(ptree)
     extra: dict = {}
-    if method in _METHODS_NOT_PORTED:
-        raise NotImplementedError(
-            f"ev.method={method}: waits for {_METHODS_NOT_PORTED[method]}")
-    if method not in ("raes", "tpu", "lobpcg", "adaptive", "arpack"):
+    if method not in ("raes", "tpu", "lobpcg", "adaptive", "arpack", "dist", "dist_general"):
         raise ValueError(f"unknown ev.method={method!r}")
     A, B = _problem_pair(ptree)
 
@@ -392,6 +401,29 @@ def eigenvalues_test(ptree) -> dict:
         m = ev.size  # the final (possibly grown) block; the RESULT line reports it
         extra = dict(n_below=n_below)
         _log(ptree, 1, f"  adaptive: m_final={ev.size} n_below={n_below}")
+    elif method in ("dist", "dist_general"):
+        # the distributed layer over parallel.ndevices ranks of the group
+        # main() joined or started; dist_general takes the pencil as scipy
+        # matrices (K2 on each rank's rows)
+        import torch.distributed as dist
+
+        from dune_eigensolver_tpu_torch import dist as tdist
+
+        nd = int(ptree["parallel.ndevices"]) or dist.get_world_size()
+        mesh = tdist.make_mesh(nd)
+        if not mesh.member:  # a rank past parallel.ndevices: nothing to solve
+            return dict(time=0.0, iterations=-1, eigenvalues=None)
+        common = dict(nev=m, tol=float(ptree["ev.tol"]), maxiter=int(ptree["ev.maxiter"]),
+                      shift=float(ptree["ev.shift"]), mesh=mesh, seed=int(ptree["ev.seed"]))
+        if method == "dist":
+            run = lambda: tdist.sharded_generalized_inverse(A, B, **common)  # noqa: E731
+        else:
+            run = lambda: tdist.sharded_generalized_inverse_general(  # noqa: E731
+                A.to_scipy(), B.to_scipy(), cg_rtol=1e-8, cg_maxiter=500,
+                inner=str(ptree.get("ev.dist_inner", "schwarz")), **common)
+        res, t = _timed(run, device)
+        ev = res.eigenvalues.cpu().numpy()
+        iters = int(res.iterations)
     else:  # arpack
         from dune_eigensolver_tpu_torch.oracle import smallest_generalized
 
@@ -403,12 +435,13 @@ def eigenvalues_test(ptree) -> dict:
         iters = -1
 
     _log(ptree, 1, f"  eigenvalues: {np.sort(ev)[:6]}")
-    print(
-        f"RESULT eigenvalues_test {method} N={ptree['ev.N']} m={m} "
-        f"iters={iters} time={t:.3f}s"
-        + "".join(f" {k}={v}" for k, v in extra.items()),
-        flush=True,
-    )
+    if _rank0():
+        print(
+            f"RESULT eigenvalues_test {method} N={ptree['ev.N']} m={m} "
+            f"iters={iters} time={t:.3f}s"
+            + "".join(f" {k}={v}" for k, v in extra.items()),
+            flush=True,
+        )
     return dict(time=t, iterations=iters, eigenvalues=np.sort(ev)[:m], **extra)
 
 
@@ -558,16 +591,53 @@ def matvec_performance_test(ptree) -> dict:
 # Entry point
 # ---------------------------------------------------------------------------
 
+def scaling_test(ptree):
+    """Weak scaling over the process group's ranks (``bench/scaling.py``)."""
+    from dune_eigensolver_tpu_torch.bench.scaling import scaling_test as run
+
+    return run(ptree, device=_device(ptree))
+
+
 TESTS = {
     "largest": largest_eigenvalues_convergence_test,
     "smallest": smallest_eigenvalues_convergence_test,
     "eigenvalues": eigenvalues_test,
     "mgs": mgs_performance_test,
     "matvec": matvec_performance_test,
+    "scaling": scaling_test,
 }
 
-#: the reference's other protocol, which waits for the distributed layer
-NOT_PORTED = ("scaling",)
+
+def _join_group(device: torch.device):
+    """Make sure a process group exists for the distributed protocols:
+    under ``torchrun`` (``RANK``/``WORLD_SIZE`` set) join the launcher's,
+    else start a world-size-1 group on a ``FileStore`` in a temporary
+    directory. Returns the cleanup to call after the tests (ends the group
+    this call started; nothing for one that was there)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dune_eigensolver_tpu_torch.dist import init_distributed
+
+    if dist.is_initialized():
+        return lambda: None
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":  # one card a rank
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        init_distributed(device, init_method="env://")
+        return dist.destroy_process_group
+    tmp = tempfile.mkdtemp(prefix="cli_group_")
+    store = dist.FileStore(os.path.join(tmp, "store"), 1)
+    init_distributed(device, store=store, rank=0, world_size=1)
+
+    def cleanup():
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    return cleanup
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -584,10 +654,6 @@ def main(argv: Optional[list] = None) -> int:
 
     names = list(TESTS) if test == "all" else [test]
     for name in names:
-        if name in NOT_PORTED:
-            print(f"test {name!r} not ported yet (ROADMAP queue 1 item 14); "
-                  f"choose from {sorted(TESTS)} or 'all'")
-            return 2
         if name not in TESTS:
             print(f"unknown test {name!r}; choose from {sorted(TESTS)} or 'all'")
             return 2
@@ -596,6 +662,11 @@ def main(argv: Optional[list] = None) -> int:
     from dune_eigensolver_tpu_torch.utils.vlog import profiler_trace
 
     device = _device(ptree)
+    needs_group = "scaling" in names or (
+        "eigenvalues" in names and str(ptree["ev.method"]) in ("dist", "dist_general"))
+    leave_group = _join_group(device) if needs_group else (lambda: None)
+    if needs_group:
+        device = _device(ptree)  # under torchrun: this rank's card
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     _log(ptree, 1, f"device: {kind} platform={device.type}")
     _log(ptree, 2, repr(ptree))
@@ -607,14 +678,11 @@ def main(argv: Optional[list] = None) -> int:
         with profiler_trace(ptree.get("ev.profile_dir")):
             for name in names:
                 _log(ptree, 1, f"== {name} ==")
-                try:
-                    TESTS[name](ptree)
-                except NotImplementedError as e:  # an option that waits for an unported module
-                    print(f"not ported yet: {e}")
-                    return 2
+                TESTS[name](ptree)
                 paranoid.report()
     finally:
         paranoid.set_paranoid(was_paranoid)
+        leave_group()
     return 0
 
 

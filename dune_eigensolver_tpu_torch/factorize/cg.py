@@ -13,8 +13,10 @@ host once per iteration, exactly as the reference decides it: no check is
 skipped and no converged row is frozen, so the iterates are the
 reference's. That is one host sync per CG iteration.
 
-Not ported yet: the ``gram_reduce`` and ``apply_a`` hooks of the
-distributed layer.
+``gram_reduce`` (JAX ``factorize/cg.py:40``): for a row-sharded
+multivector every row dot goes through it (an ``all_reduce`` SUM in the
+distributed layer), so each rank takes the same stopping decision;
+``apply_a`` is the caller's operator, the halo SpMM there.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ def cg_solve_t(
     maxiter: int = 1000,
     x0: Optional[torch.Tensor] = None,
     precond_apply: Optional[Callable] = None,
+    gram_reduce: Optional[Callable] = None,
 ):
     """Solve ``A X = B`` for SPD A, all rows of the transposed multivector
     simultaneously. B: (m, n).
@@ -45,6 +48,7 @@ def cg_solve_t(
     apply_a: Xt -> (A @ X)^T. inv_diag: (n,) reciprocal diagonal of A for
     Jacobi preconditioning. precond_apply: R -> M^-1 R, a fixed SPD
     preconditioner application; overrides the Jacobi default.
+    gram_reduce: the reduction of every row dot for a sharded B.
     Returns (X, iterations).
     """
     if precond_apply is not None:
@@ -58,8 +62,10 @@ def cg_solve_t(
     # f64 stays): a long bf16 sum would lose the residual norm entirely
     acc_dt = torch.promote_types(B.dtype, torch.float32)
 
+    reduce_ = gram_reduce or (lambda g: g)
+
     def rowdot(U, V):
-        return torch.sum((U * V).to(acc_dt), dim=1)
+        return reduce_(torch.sum((U * V).to(acc_dt), dim=1))
 
     X = torch.zeros_like(B) if x0 is None else x0
     R = B - apply_a(X) if x0 is not None else B

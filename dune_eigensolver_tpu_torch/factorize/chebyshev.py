@@ -16,8 +16,12 @@ The operator ``p(D^-1 A) D^-1`` is SPD whenever p > 0 on the spectrum, as
 LOBPCG and CG require of a preconditioner.
 
 Factories return ``(aux, fn)`` pairs with ``fn.layout_t = True``, as
-``cg_inverse_factory`` does. Not ported yet: the ``apply_a``/
-``gram_reduce``/``fold`` hooks of the distributed layer.
+``cg_inverse_factory`` does. Given ``apply_a`` (JAX ``chebyshev.py:148,
+236``: the caller's operator, e.g. a halo SpMM on local rows) they return
+the plain transposed-layout solve instead, the bounds estimated through the
+hook with every dot through ``gram_reduce``; ``fold`` (e.g. the rank)
+seeds the power iteration's start apart per rank (JAX ``:57``: a
+rank-periodic global start is structured, not i.i.d.).
 """
 
 from __future__ import annotations
@@ -32,12 +36,15 @@ from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
 POWER_SEED = 42  # the reference's PRNGKey(42) for the power iteration's start
 
 
-def _power_lmax_t(apply_a, inv_diag, n: int, dtype, iters: int, generator: torch.Generator):
+def _power_lmax_t(apply_a, inv_diag, n: int, dtype, iters: int, generator: torch.Generator,
+                  gram_reduce=None):
     """Largest eigenvalue of ``D^-1 A`` by blocked power iteration on an
     8-row block, as a 0-d tensor on the device. The N(0,1) start comes from
     ``generator`` (on the operand's device): the top mode of diffusion-type
     operators is highly oscillatory, and a smooth deterministic start is
-    nearly orthogonal to it."""
+    nearly orthogonal to it. ``gram_reduce``: the reduction of every dot
+    for a row-sharded operator (``n`` is then the local row count)."""
+    reduce_ = gram_reduce or (lambda g: g)
     v = torch.randn((8, n), generator=generator, dtype=dtype, device=generator.device)
 
     def mat(u):
@@ -46,11 +53,11 @@ def _power_lmax_t(apply_a, inv_diag, n: int, dtype, iters: int, generator: torch
 
     for _ in range(iters):
         w = mat(v)
-        nrm = torch.sqrt(torch.sum(w * w, dim=1))
+        nrm = torch.sqrt(reduce_(torch.sum(w * w, dim=1)))
         v = w / torch.clamp(nrm, min=1e-30)[:, None]
     w = mat(v)
-    num = torch.sum(v * w, dim=1)
-    den = torch.sum(v * v, dim=1)
+    num = reduce_(torch.sum(v * w, dim=1))
+    den = reduce_(torch.sum(v * v, dim=1))
     return torch.max(num / torch.clamp(den, min=1e-30))
 
 
@@ -107,13 +114,18 @@ def _check(what: str, degree: int, cond_target: float):
         raise ValueError(f"{what}: degree must be >= 1, got {degree}")
 
 
-def _bounds(A_int, inv_diag, power_iters, lmax_scale, cond_target, generator):
-    """(lmin, lmax) of ``D^-1 A`` as 0-d tensors on the operand's device."""
+def _bounds(A_int, inv_diag, power_iters, lmax_scale, cond_target, generator,
+            apply_a=None, gram_reduce=None, fold=None):
+    """(lmin, lmax) of ``D^-1 A`` as 0-d tensors on the operand's device;
+    through ``apply_a``/``gram_reduce`` when given (the distributed hooks),
+    the start drawn from ``POWER_SEED`` folded with ``fold``."""
     if generator is None:
-        generator = torch.Generator(device=A_int.device).manual_seed(POWER_SEED)
+        seed = POWER_SEED if fold is None else POWER_SEED * 1_000_003 + int(fold) + 1
+        generator = torch.Generator(device=A_int.device).manual_seed(seed)
+    op = apply_a or (lambda V: spmm_t(A_int, V))
     with torch.no_grad():
-        lmax = _power_lmax_t(lambda V: spmm_t(A_int, V), inv_diag, A_int.shape[0],
-                             A_int.dtype, int(power_iters), generator) * lmax_scale
+        lmax = _power_lmax_t(op, inv_diag, A_int.shape[0], A_int.dtype, int(power_iters),
+                             generator, gram_reduce) * lmax_scale
     return lmax / cond_target, lmax
 
 
@@ -125,6 +137,9 @@ def chebyshev_inverse_factory(
     jacobi: bool = True,
     dtype=None,
     generator: Optional[torch.Generator] = None,
+    gram_reduce=None,
+    apply_a=None,
+    fold=None,
 ):
     """Factory of factories (same contract as ``cg_inverse_factory``):
     ``inverse(A_int)`` yields the Chebyshev approximate inverse of A_int
@@ -140,13 +155,24 @@ def chebyshev_inverse_factory(
         ``cg_inverse_factory(dtype=...)``.
     generator: the ``torch.Generator`` (on the operand's device) the power
         iteration's start block is drawn from; default a fresh one seeded
-        with ``POWER_SEED``.
+        with ``POWER_SEED`` (folded with ``fold``).
+    apply_a / gram_reduce / fold: the distributed hooks (module docstring);
+        with ``apply_a``, ``inverse(A_int)`` (A_int: the rank's local rows,
+        for its diagonal and row count) returns the plain solve.
     """
     _check("chebyshev", degree, cond_target)
 
     def inverse(A_int):
         inv_diag = _inv_diag_of(A_int) if jacobi else None
-        lmin, lmax = _bounds(A_int, inv_diag, power_iters, lmax_scale, cond_target, generator)
+        lmin, lmax = _bounds(A_int, inv_diag, power_iters, lmax_scale, cond_target, generator,
+                             apply_a, gram_reduce, fold)
+        if apply_a is not None:
+
+            def solve(Xt):
+                return chebyshev_apply_t(apply_a, Xt, lmin, lmax, int(degree), inv_diag)
+
+            solve.layout_t = True
+            return solve
         return (A_int, inv_diag, lmin, lmax), _cheb_solve_fn(int(degree), dtype)
 
     return inverse
@@ -160,6 +186,9 @@ def cheb_cg_inverse_factory(
     lmax_scale: float = 1.1,
     power_iters: int = 40,
     generator: Optional[torch.Generator] = None,
+    gram_reduce=None,
+    apply_a=None,
+    fold=None,
 ):
     """Chebyshev-preconditioned CG inverse, the default for wide-band
     operands that are no structured stencil.
@@ -169,13 +198,27 @@ def cheb_cg_inverse_factory(
     preconditioner the outer iteration count drops by ~d while each outer
     step stays dot-free inside the polynomial. The polynomial is FIXED
     (constant bounds, odd degree -> SPD), as CG requires of its
-    preconditioner.
+    preconditioner. ``apply_a``/``gram_reduce``/``fold``: the distributed
+    hooks, as in ``chebyshev_inverse_factory`` (the CG's dots reduce too).
     """
     _check("cheb_cg", degree, cond_target)
 
     def inverse(A_int):
         inv_diag = _inv_diag_of(A_int)
-        lmin, lmax = _bounds(A_int, inv_diag, power_iters, lmax_scale, cond_target, generator)
+        lmin, lmax = _bounds(A_int, inv_diag, power_iters, lmax_scale, cond_target, generator,
+                             apply_a, gram_reduce, fold)
+        if apply_a is not None:
+
+            def solve(Xt):
+                Y, _ = cg_solve_t(
+                    apply_a, Xt, rtol=rtol, maxiter=maxiter, gram_reduce=gram_reduce,
+                    precond_apply=lambda R: chebyshev_apply_t(apply_a, R, lmin, lmax,
+                                                              int(degree), inv_diag),
+                )
+                return Y
+
+            solve.layout_t = True
+            return solve
         return (A_int, inv_diag, lmin, lmax), _cheb_cg_solve_fn(int(degree), float(rtol),
                                                                int(maxiter))
 

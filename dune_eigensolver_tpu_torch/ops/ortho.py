@@ -20,6 +20,11 @@ roundoff:
 * the fallback selects between the two (b, b) transforms with
   ``torch.where`` instead of ``lax.cond``; only the (b, b) transform
   branches, never the (b, n) blocks.
+
+``gram_reduce`` (JAX ``ops/ortho.py:141, 189``): for a row-sharded
+multivector, every Gram and projection matrix goes through it (the
+distributed layer passes an ``all_reduce`` SUM, ``dist/sharded.py::
+psum_reduce``). ``None`` adds no operation.
 """
 
 from __future__ import annotations
@@ -77,27 +82,34 @@ def _chol_normalize_t(Xk: torch.Tensor, G: torch.Tensor, eps: float) -> torch.Te
     return _whiten_apply(_floored(G, eps), eps, (Xk,))[0]
 
 
+def _identity(g):
+    return g
+
+
 def orthonormalize_blocked_t(
     Xt: torch.Tensor,
     block: int = 8,
     iterations: int = 1,
     eps: float = 0.0,
+    gram_reduce=None,
 ) -> torch.Tensor:
     """Orthonormalize the rows of the transposed multivector Xt (m, n)
     block by block (CholeskyQR per block + projection of later blocks
-    against the finished prefix)."""
+    against the finished prefix). ``gram_reduce``: applied to every Gram
+    and projection matrix of a row-sharded Xt."""
     m, _ = Xt.shape
     if m % block != 0:
         raise ValueError(f"orthonormalize_blocked_t: m={m} not multiple of {block}")
+    reduce_ = gram_reduce or _identity
     for _ in range(iterations):
         out = torch.empty_like(Xt)
         for k in range(0, m, block):
             Xk = Xt[k : k + block]
             if k:
                 done = out[:k]
-                S = done @ Xk.T  # (k, b)
+                S = reduce_(done @ Xk.T)  # (k, b)
                 Xk = Xk - S.T @ done
-            G = Xk @ Xk.T
+            G = reduce_(Xk @ Xk.T)
             out[k : k + block] = _chol_normalize_t(Xk, G, eps)
         Xt = out
     return Xt
@@ -123,6 +135,7 @@ def b_orthonormalize_blocked_t(
     iterations: int = 1,
     eps: float = 0.0,
     return_mass: bool = False,
+    gram_reduce=None,
 ):
     """B-orthonormalize the rows of Xt (m, n): on return X B X^T = I.
 
@@ -133,7 +146,8 @@ def b_orthonormalize_blocked_t(
     per-vector B-mass ``diag(Gram)`` after projection and before
     normalization, from the first sweep. ``P = B @ (block)`` is recomputed
     per block, so it reflects earlier projections, and kept consistent
-    through the block's normalization.
+    through the block's normalization. ``gram_reduce``: applied to every
+    Gram and projection matrix of a row-sharded Xt.
     """
     from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
 
@@ -141,6 +155,7 @@ def b_orthonormalize_blocked_t(
     m, _ = Xt.shape
     if m % block != 0:
         raise ValueError(f"b_orthonormalize_blocked_t: m={m} not multiple of {block}")
+    reduce_ = gram_reduce or _identity
     offdiag = ~torch.eye(block, dtype=torch.bool, device=Xt.device)
     norm = torch.zeros((), dtype=Xt.dtype, device=Xt.device)
     mass = torch.zeros((m,), dtype=Xt.dtype, device=Xt.device)
@@ -153,11 +168,11 @@ def b_orthonormalize_blocked_t(
             Xk = Xt[k : k + block]
             if k:
                 # project against finished blocks via their B-images
-                S = bufp[:k] @ Xk.T  # (k, b)
+                S = reduce_(bufp[:k] @ Xk.T)  # (k, b)
                 norm = torch.maximum(norm, S.abs().max())
                 Xk = Xk - S.T @ bufx[:k]
             Pk = apply_b(Xk)
-            G = Pk @ Xk.T
+            G = reduce_(Pk @ Xk.T)
             norm = torch.maximum(norm, torch.where(offdiag, G, 0).abs().max())
             mass_sweep[k : k + block] = torch.diagonal(G)
             Xk, Pk = _whiten_apply(_floored(G, eps), eps, (Xk, Pk))

@@ -47,12 +47,17 @@ from dune_eigensolver_tpu_torch.utils.paranoid import reporting
 
 
 def _gen_core(apply_a, apply_b, inv_aux, inv_fn, Q0, nev, tol, maxiter, shift,
-              block, min_iter, ortho_iterations, rayleigh_ritz):
+              block, min_iter, ortho_iterations, rayleigh_ritz, gram_reduce=None):
+    """The reference's loop (module docstring). ``gram_reduce`` (JAX
+    ``_gen_core``'s hook): the all-reduce of every Gram and dot when Q0 is
+    the rank's local rows (``dist/sharded.py``); ``None`` adds no
+    operation."""
     shift_ = torch.tensor(shift, dtype=Q0.dtype, device=Q0.device)
+    reduce_ = gram_reduce or (lambda g: g)
 
     def b_ortho(Q):
         return b_orthonormalize_blocked_t(
-            apply_b, Q, block=block, iterations=ortho_iterations
+            apply_b, Q, block=block, iterations=ortho_iterations, gram_reduce=gram_reduce
         )
 
     def rayleigh(Q):
@@ -62,8 +67,8 @@ def _gen_core(apply_a, apply_b, inv_aux, inv_fn, Q0, nev, tol, maxiter, shift,
         per-column quotients."""
         AQ = apply_a(Q)
         if not rayleigh_ritz:
-            return dot_products_diagonal_t(AQ, Q) - shift_, Q
-        G = AQ @ Q.T
+            return reduce_(dot_products_diagonal_t(AQ, Q)) - shift_, Q
+        G = reduce_(AQ @ Q.T)
         G = 0.5 * (G + G.T)
         lam, V = torch.linalg.eigh(G)
         return lam - shift_, V.T @ Q
@@ -129,9 +134,9 @@ def generalized_inverse(
     (default ``shift``), for a caller that folded the shift into A itself
     and passes ``shift=0``.
 
-    Not ported yet from the JAX signature: the ``apply_a``/``apply_b``/
-    ``gram_reduce`` hooks of the distributed layer. ``force_padded`` has no
-    counterpart.
+    The distributed layer's hooks live on ``_gen_core`` (``dist/
+    sharded.py::sharded_generalized_inverse`` drives it). ``force_padded``
+    has no counterpart.
     """
     if inverse is None:
         from dune_eigensolver_tpu_torch.factorize import default_inverse_factory

@@ -48,7 +48,13 @@ def _identity_apply(X):
 
 
 def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
-                 shift, min_iter, ortho_eps, ortho_iters, ortho_block):
+                 shift, min_iter, ortho_eps, ortho_iters, ortho_block, gram_reduce=None):
+    """The loop (module docstring). ``gram_reduce`` (JAX ``_lobpcg_core``'s
+    hook): the all-reduce of every Gram and row dot when Q0 is the rank's
+    local rows (``dist/sharded.py``, ``dist/windowed.py``); ``None`` adds
+    no operation. The core reads no row count: the eigenvectors come back
+    as the rows it was given."""
+    reduce_ = gram_reduce or (lambda g: g)
     dtype, dev = Q0.dtype, Q0.device
     shift_ = torch.tensor(shift, dtype=dtype, device=dev)
     m = Q0.shape[0]
@@ -64,13 +70,14 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
         blk = S.shape[0] if ortho_block == "full" else min(ortho_block, S.shape[0])
         S, _ = b_orthonormalize_blocked_t(
             apply_a, S, block=blk, iterations=ortho_iters, eps=ortho_eps,
+            gram_reduce=gram_reduce,
         )
         return S
 
     def ritz(S, k):
         """Rayleigh-Ritz for the largest-k of ``B y = nu A' y`` on an
         A'-orthonormal basis S: returns (nu, V) with nu descending."""
-        G = apply_b(S) @ S.T
+        G = reduce_(apply_b(S) @ S.T)
         G = 0.5 * (G + G.T)
         nu, V = torch.linalg.eigh(G)  # ascending
         return nu.flip(0)[:k], V.flip(1)[:, :k]
@@ -89,7 +96,7 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
     while it < maxiter and (it <= min_iter or bool(relerror >= tol)):
         AX = apply_a(X)
         BX = apply_b(X)
-        nu = torch.sum(X * BX, dim=1)  # X is A'-orthonormal
+        nu = reduce_(torch.sum(X * BX, dim=1))  # X is A'-orthonormal
         R = BX - AX * nu[:, None]
         del AX, BX
         W = prec_fn(prec_aux, R)
@@ -97,7 +104,7 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
         # Row-normalize the preconditioned residuals: per-pair convergence
         # differs by orders of magnitude, and the blocked CholeskyQR's Gram
         # sees the square of that range. Scaling rows leaves the span as is.
-        wn = torch.sum(W * W, dim=1)
+        wn = reduce_(torch.sum(W * W, dim=1))
         W = W / torch.sqrt(torch.maximum(wn, tiny))[:, None]
         # P is absent on the first pass; the filler is projected to noise
         # by the orthonormalization (eps floor) and never selected by RR
@@ -112,7 +119,7 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
         P = Vp.T @ S
         del S
         # A'-normalize P rows (guard against zero rows)
-        pn = torch.sum(P * apply_a(P), dim=1)
+        pn = reduce_(torch.sum(P * apply_a(P), dim=1))
         P = P / torch.sqrt(torch.maximum(pn, tiny))[:, None]
         lam_n = lam_of(nu_all)
         relerror = torch.max(torch.abs(lam_n - lam)) / torch.maximum(
@@ -121,7 +128,7 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
         lam = lam_n
         it += 1
     # X rows are A'-orthonormal; rescale to B-normalized eigenvectors
-    bmass = torch.sum(X * apply_b(X), dim=1)
+    bmass = reduce_(torch.sum(X * apply_b(X), dim=1))
     X = X / torch.sqrt(torch.maximum(bmass, tiny))[:, None]
     evals, evecs_t = sort_result_t(lam, X, nev, descending=False)
     return EigenResult(
@@ -177,8 +184,9 @@ def lobpcg_generalized(
     ``eval_shift``: the shift the eigenvalues are un-shifted by (default
     ``shift``), for a caller that folded the shift into A itself.
 
-    Not ported yet from the JAX signature: the ``apply_a``/``apply_b``/
-    ``gram_reduce`` hooks of the distributed layer.
+    The distributed layer's hooks live on ``_lobpcg_core`` (``dist/
+    sharded.py::sharded_lobpcg_generalized`` and ``dist/windowed.py::
+    sharded_lobpcg_general`` drive it).
     """
     if precond is None:
         from dune_eigensolver_tpu_torch.factorize import default_inverse_factory

@@ -12,8 +12,11 @@ the largest change of an eigenvalue is below ``tol`` (a change-based stop,
 not a residual test). Eigenpairs come back sorted (descending for largest,
 ascending for smallest).
 
-Not ported yet: the ``apply_a``/``gram_reduce`` hooks of the distributed
-layer. ``force_padded`` has no counterpart (no guarded layout here).
+``_core`` takes the distributed layer's hooks (JAX ``_largest_core``,
+``standard.py:118``, and ``_sharded_inverse_core``, ``dist/sharded.py:658``):
+``apply_a``/``step`` on the rank's local rows and ``gram_reduce`` on every
+Gram and dot (``dist/sharded.py`` drives it). ``force_padded`` has no
+counterpart (no guarded layout here).
 """
 
 from __future__ import annotations
@@ -86,28 +89,37 @@ def normalize_inverse(inv_result):
     return None, fn
 
 
-def _ritz_t(rayleigh_ritz: bool, Q: torch.Tensor, AQ: torch.Tensor, shift_):
+def _identity(g):
+    return g
+
+
+def _ritz_t(rayleigh_ritz: bool, Q: torch.Tensor, AQ: torch.Tensor, shift_, reduce_=_identity):
     """Ritz values (and rotated Q), transposed layout. ``rayleigh_ritz=False``
     gives the reference's per-vector Rayleigh quotients; True diagonalizes
-    the m x m projected operator and rotates Q into the Ritz basis."""
+    the m x m projected operator and rotates Q into the Ritz basis.
+    ``reduce_`` sums the dots (or the Gram) over ranks."""
     if not rayleigh_ritz:
-        return dot_products_diagonal_t(Q, AQ) - shift_, Q
-    G = AQ @ Q.T
+        return reduce_(dot_products_diagonal_t(Q, AQ)) - shift_, Q
+    G = reduce_(AQ @ Q.T)
     G = 0.5 * (G + G.T)
     lam, V = torch.linalg.eigh(G)
     return lam - shift_, V.T @ Q
 
 
 def _core(step, apply_a, Q0, nev, tol, maxiter, shift, block, ortho_iterations,
-          rayleigh_ritz, descending):
+          rayleigh_ritz, descending, gram_reduce=None):
     """The loop of the reference's ``_largest_core`` (``step`` = A) and
     ``_inverse_core`` (``step`` = the inverse): ``Q <- ortho(step(Q))``,
-    Ritz values from a product with A, stop on their largest change."""
+    Ritz values from a product with A, stop on their largest change.
+    ``gram_reduce``: the all-reduce of a row-sharded Q0 (local rows in,
+    local rows of the eigenvectors out); ``None`` adds no operation."""
     dtype, dev = Q0.dtype, Q0.device
     shift_ = torch.tensor(shift, dtype=dtype, device=dev)
+    reduce_ = gram_reduce or _identity
 
     def ortho(X):
-        return orthonormalize_blocked_t(X, block=block, iterations=ortho_iterations)
+        return orthonormalize_blocked_t(X, block=block, iterations=ortho_iterations,
+                                        gram_reduce=gram_reduce)
 
     Q = ortho(Q0)
     s = torch.zeros((Q0.shape[0],), dtype=dtype, device=dev)
@@ -117,7 +129,7 @@ def _core(step, apply_a, Q0, nev, tol, maxiter, shift, block, ortho_iterations,
     # distance < tol
     while k < maxiter and (k < 2 or bool(distance >= tol)):
         Q = ortho(step(Q))
-        s_new, Q = _ritz_t(rayleigh_ritz, Q, apply_a(Q), shift_)
+        s_new, Q = _ritz_t(rayleigh_ritz, Q, apply_a(Q), shift_, reduce_)
         distance = torch.max(torch.abs(s_new - s))
         s = s_new
         k += 1

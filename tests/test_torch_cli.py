@@ -178,25 +178,32 @@ def test_mgs_protocol_cpu(capsys):
     assert re.fullmatch(rf"P_n_m_i_perfn_perfb: 1 1024 16 15 {FLOAT} {FLOAT}", line), line
 
 
-#: the protocol that still waits for an unported module, and an unknown name
-UNPORTED = {
-    "scaling": "item 14",
-    "nonsense": "unknown test",
-}
-
-
 @pytest.mark.parametrize("name", ["scaling", "nonsense"])
 def test_unported_protocol_returns_2(name, capsys):
-    """``scaling`` and an unknown name return 2 before anything runs,
-    naming what ``scaling`` waits for and the tests there are. (The three
-    convergence protocols' options ``ev.refine=on`` and
-    ``ev.method=adaptive`` run now: ``test_refine_protocol_cpu``,
-    ``test_adaptive_protocol_cpu``.)"""
-    assert cli.main(["--test", name, "ev.device=cpu"]) == 2
-    out = capsys.readouterr().out
-    assert ("not ported yet" in out) == (name != "nonsense")
-    assert UNPORTED[name] in out
-    assert "matvec" in out and "mgs" in out and "largest" in out
+    """An unknown name returns 2 before anything runs, naming the tests
+    there are. (``scaling`` waited for the distributed layer when this test
+    was named; now it runs on a world-size-1 gloo group the CLI starts and
+    ends itself, and prints its ``SCALING`` lines.)"""
+    import torch.distributed as dist
+
+    argv = ["--test", name, "ev.device=cpu", "scaling.log2_rows_per_device=8",
+            "scaling.n_iter=2", "scaling.solver_n_iter=1"]
+    if name == "nonsense":
+        assert cli.main(argv) == 2
+        out = capsys.readouterr().out
+        assert "unknown test" in out
+        assert "matvec" in out and "mgs" in out and "largest" in out and "scaling" in out
+        return
+    assert cli.main(argv) == 0
+    lines = [ln.split() for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("SCALING ")]
+    assert [ln[1:4] for ln in lines] == [
+        ["spmm", "xla", "islands"], ["spmm", "xla", "connected"],
+        ["solver", "xla", "islands"], ["solver", "xla", "connected"]]
+    for ln in lines:
+        assert ln[4:6] == ["1", "256"] and float(ln[7]) == 1.0  # P, n, efficiency at P = 1
+        assert len(ln) == (8 if ln[1] == "spmm" else 12)  # + four phase columns
+    assert not dist.is_initialized()  # the CLI's own group is gone
 
 
 @pytest.mark.parametrize("name,head", [
@@ -219,8 +226,23 @@ def test_ini_defaults_run(name, head, capsys):
 
 @pytest.mark.parametrize("method", ["dist", "dist_general"])
 def test_distributed_methods_return_2(method, capsys):
-    assert cli.main(["--test", "eigenvalues", f"ev.method={method}", "ev.device=cpu"]) == 2
-    assert "item 14" in capsys.readouterr().out
+    """``ev.method=dist|dist_general`` waited for the distributed layer when
+    this test was named; now they run on the CLI's own world-size-1 gloo
+    group, which is gone afterwards, and print the ``RESULT`` line with the
+    eigenvalues (``ev.verbose=1``) of the GenEO pencil: the smallest is the
+    Neumann null space at ~0. An unknown method still raises."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    assert cli.main(["--test", "eigenvalues", f"ev.method={method}", "ev.N=16",
+                     "ev.dtype=float64", "ev.verbose=1", "ev.device=cpu"]) == 0
+    assert not dist.is_initialized()
+    out = capsys.readouterr().out
+    (line,) = [ln for ln in out.splitlines()
+               if ln.startswith(f"RESULT eigenvalues_test {method} N=16 m=8 ")]
+    assert re.search(r"iters=\d+ time=", line)
+    ev = [float(v) for v in out.split("eigenvalues: [")[1].split("]")[0].split()]
+    assert len(ev) == 6 and abs(ev[0]) < 1e-6 and 0.19 < ev[1] < 0.2
     with pytest.raises(ValueError, match="unknown ev.method"):
         cli.main(["--test", "eigenvalues", "ev.method=nope", "ev.device=cpu"])
 

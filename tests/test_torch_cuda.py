@@ -1001,3 +1001,107 @@ def test_f64_solves_on_card_match_cpu(cuda):
         assert abs(int(r.iterations) - int(r_cpu.iterations)) <= 1
         e = r_cpu.eigenvalues.numpy()
         assert np.abs(r.eigenvalues.cpu().numpy() - e).max() <= 1e-8 * np.abs(e).max()
+
+
+@pytest.fixture
+def nccl_world1(cuda, tmp_path):
+    """A world-size-1 NCCL group on the card (FileStore under tmp_path),
+    ended after the test."""
+    import torch.distributed as dist
+
+    from dune_eigensolver_tpu_torch.dist import init_distributed
+
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    init_distributed(cuda, store=store, rank=0, world_size=1)
+    yield cuda
+    dist.destroy_process_group()
+
+
+def test_dist_world1_nccl_solves_run_the_kernels(nccl_world1):
+    """The sharded drivers at world size 1 under NCCL: the north-star form
+    (``precond='mg'``, bf16 smoothing, ``ortho_block=24``) on the 3D N=24
+    Laplacian launches K1 (f32 and bf16), all-reduces its Grams and gathers
+    once a V-cycle, and gives the single-card LOBPCG's eigenvalues (same
+    seed; at P = 1 the sharded V(1,1) cycle restricts in the single-card
+    order, so the same operations) to 1e-6 relative and the analytic
+    spectrum to 3e-4; ``sharded_standard_largest`` gives
+    ``standard_largest``'s bits. A CUDA tensor on a gloo group raises."""
+    import torch.distributed as dist
+
+    from dune_eigensolver_tpu_torch import dist as tdist
+    from dune_eigensolver_tpu_torch.dist import sharded
+    from dune_eigensolver_tpu_torch.dist.mesh import Mesh
+    from dune_eigensolver_tpu_torch.factorize import mg_inverse_factory
+    from dune_eigensolver_tpu_torch.oracle.analytic import eigenvalues_laplace_dirichlet_3d
+    from dune_eigensolver_tpu_torch.solvers import lobpcg_generalized, standard_largest
+
+    dev = nccl_world1
+    A = problems.laplacian_dirichlet_3d(24, dtype=torch.float32, device=dev)
+    n = A.shape[0]
+    B = DIAMatrix(data=torch.ones((1, n), device=dev), offsets=(0,), shape=A.shape)
+    kw = dict(nev=24, tol=2e-3, maxiter=300, ortho_block=24)
+    mesh = tdist.make_mesh()
+    assert (mesh.size, mesh.rank, mesh.device.type) == (1, 0, "cuda")
+    sharded.COUNTS.clear()
+    before = dict(kd.dia_spmm_t_cuda.by_dtype)
+    r = tdist.sharded_lobpcg_generalized(A, B, mesh=mesh, precond="mg",
+                                         prec_dtype=torch.bfloat16, **kw)
+    for dt in (torch.float32, torch.bfloat16):
+        assert kd.dia_spmm_t_cuda.by_dtype[dt] > before.get(dt, 0)
+    assert sharded.COUNTS["all_reduce"] > 0 and sharded.COUNTS["all_gather"] > int(r.iterations)
+    r1 = lobpcg_generalized(A, B, precond=mg_inverse_factory(nu1=1, nu2=1, dtype=torch.bfloat16),
+                            **kw)
+    ev, ev1 = r.eigenvalues.cpu().numpy(), r1.eigenvalues.cpu().numpy()
+    assert np.abs(ev - ev1).max() <= 1e-6 * np.abs(ev1).max()
+    exact = eigenvalues_laplace_dirichlet_3d(24, count=20)
+    assert np.abs(np.sort(ev)[:20] - exact).max() <= 3e-4
+    A2 = problems.laplacian_dirichlet_2d(64, dtype=torch.float32, device=dev)
+    rs = tdist.sharded_standard_largest(A2, nev=8, tol=1e-4, maxiter=500, mesh=mesh)
+    rl = standard_largest(A2, nev=8, tol=1e-4, maxiter=500)
+    assert int(rs.iterations) == int(rl.iterations)
+    assert torch.equal(rs.eigenvalues, rl.eigenvalues)
+    gloo = dist.new_group(backend="gloo")
+    with pytest.raises(ValueError, match="no fallback"):
+        tdist.sharded_standard_largest(A2, nev=8, tol=1e-4, maxiter=5,
+                                       mesh=Mesh(group=gloo, ranks=(0,), rank=0, device=dev))
+
+
+@pytest.mark.parametrize("P", [2, 3, 4, 8])
+def test_dist_local_applies_split_p_ways(cuda, P):
+    """The K1 and K2 routes' local applies, P ranks played in one process
+    (``dist/dryrun.py``), against the global kernel on the card: K1 on the
+    3D N=24 and 2D N=50 (padded rows at P = 3, 8) Laplacians, f32 to 1e-6
+    of max|Y| and bf16 to 1e-2 (the edge terms are added after the
+    kernel's bf16 rounding); K2 overlapped and serialized on an RCM-ordered
+    graph Laplacian (n = 3001, padded at every P) to 1e-6 of max|Y|. K1 and
+    K2 launch once a rank; the bandwidth guard raises."""
+    from dune_eigensolver_tpu_torch.dist.dryrun import split_dia_apply_t, split_windowed_apply_t
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.sparse import rcm_pencil
+
+    gen = torch.Generator(device=cuda).manual_seed(P)
+    for A in (problems.laplacian_dirichlet_3d(24, dtype=torch.float32, device=cuda),
+              problems.laplacian_dirichlet_2d(50, dtype=torch.float32, device=cuda)):
+        for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-2)):
+            Ad = DIAMatrix(data=A.data.to(dtype), offsets=A.offsets, shape=A.shape)
+            X = torch.randn((8, A.shape[0]), generator=gen, device=cuda).to(dtype)
+            Y = spmm_t(Ad, X).float()
+            before = kd.dia_spmm_t_cuda.launches
+            Z = split_dia_apply_t(Ad, X, P).float()
+            assert kd.dia_spmm_t_cuda.launches == before + P
+            assert (Z - Y).abs().max().item() <= tol * Y.abs().max().item()
+    S = problems.unstructured_laplacian(3001, extra_edges=100, seed=5, fmt="scipy")
+    E = rcm_pencil(S, dtype=torch.float32, device=cuda)[0]
+    X = torch.randn((8, 3001), generator=gen, device=cuda)
+    Y = spmm_t(E, X)
+    plans = None
+    for overlap in (True, False):
+        before = kg.ell_spmm_t_cuda.launches
+        Z, plans = split_windowed_apply_t(E.to_scipy(), X, P, overlap, plans)
+        assert kg.ell_spmm_t_cuda.launches == before + P
+        assert (Z - Y).abs().max().item() <= 1e-6 * Y.abs().max().item()
+    from dune_eigensolver_tpu_torch.dist import sharded
+
+    with pytest.raises(ValueError, match="bandwidth"):
+        sharded.dia_local_apply_t(sharded.local_operand(A.data[:, :40].contiguous(), A.offsets),
+                                  X[:, :40].contiguous())
