@@ -128,8 +128,13 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               the 2^20 graph (``ABLATE`` lines: the four variants, then the
               (KC, threads) sweep; K2's launches counted per operand),
               ``gather_probe.form_table`` at
-              (8, 4,194,304) (``FORM`` lines). These tables are the only
-              timing of the new kernels; every one must have been launched.
+              (8, 4,194,304) (``FORM`` lines), where ``lane_slice`` and
+              ``block_select``, one row-copy kernel, are timed in turns
+              with their first versions and must have taken float4 moves
+              (``REDESIGN`` lines: both times, the library call's, the
+              shares of the table's ``x + 1.0`` rate). These tables are the
+              only timing of the new kernels; every one must have been
+              launched.
 17. standard — ``standard_largest`` on laplacian_dirichlet_2d(2048)
               (n = 4,194,304), nev=8, tol 2e-3, twice, timing the second
               (``LARGEST``: seconds, iterations, max_err against the closed
@@ -223,7 +228,9 @@ flagship's elasticity_2d(96) m=128, carry ``device_ms`` beside ``ms``;
 so do the four ELL rows: the 2^20 graph at m=8 (the graph solve's
 launches), the CLI ``matvec`` operand at m=8 (its launches),
 elasticity_2d(512) scalar at m=8 (the launches of ``ablate_table`` on that
-operand, scaled) and at m=24 (no path launches it: 0)),
+operand, scaled) and at m=24 (no path launches it: 0)); the
+``lane_slice`` and ``block_select`` rows carry ``first_version_ms``, their
+first versions' time in turns (phase 16),
 then the card's name and
 power limit as nvidia-smi reports them, then the last line
 ``{"ok": true, "device": {...}}``.
@@ -1053,6 +1060,17 @@ def phase_study(torch, study_kernels, ga, gp):
     numbers = [r["us"] for r in ablate_rows] + [r["us"] for r in forms.values()]
     if not all(np.isfinite(x) and x > 0 for x in numbers):
         raise RuntimeError(f"study: non-finite or non-positive times {numbers}")
+    for name in gp.FIRST_VERSIONS:
+        # the row copy, timed in turns with its first version; the timed
+        # shape lies on 16 bytes everywhere, so it must take float4 moves
+        row, width = forms[name], gp.KERNELS[name].width
+        if width != 4 or not row["first_us"] > 0:
+            raise RuntimeError(f"study: {name} width {width}, first version {row['first_us']} us")
+        log("REDESIGN " + json.dumps(dict(
+            name=name, shape=row["shape"], width=width, us=row["us"], first_us=row["first_us"],
+            library_us=row["library_us"], plain_us=row["plain_us"], share=row["share"],
+            first_share=row["share"] * row["us"] / row["first_us"],
+            vs_library=row["us"] / row["library_us"])))
     best = {}
     for r in sweep:
         if r["operand"] not in best or r["us"] < best[r["operand"]]["us"]:
@@ -2734,7 +2752,9 @@ def main():
                            study_launches[name], rec, row["nbytes"], flops,
                            row["library_us"] / 1e3, share_of_form_copy=row["share"],
                            streamed_bytes=row["streamed_bytes"],
-                           streamed_gbps=row["streamed_bytes"] / row["us"] / 1e3))
+                           streamed_gbps=row["streamed_bytes"] / row["us"] / 1e3,
+                           **({} if row["first_us"] is None else
+                              {"first_version_ms": row["first_us"] / 1e3})))
     log(json.dumps({"kernels": table}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

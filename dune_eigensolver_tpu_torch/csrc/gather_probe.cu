@@ -28,7 +28,13 @@
 //                  that holds all nb blocks (dyn_scratch_load_3d), or
 //                  straight from device memory at the run-time offset
 //                  (dyn_input_load_3d, dyn_lane_slice_aligned,
-//                  vmem_scalar_index: the strides say which).
+//                  vmem_scalar_index: the strides say which). The straight
+//                  form is a copy of `rows` runs of bw floats: one block of
+//                  the grid a (chunk of a row, row), float4 moves where the
+//                  addresses and strides allow, four moves in flight a
+//                  thread (slice_rows_launch). Its first version, one
+//                  float a thread with a division an element, stays for
+//                  timing in turns (block_select_launch, via_smem = 0).
 //   roll_lanes     out[r, c] = x[r, seg(c) + (c + s) mod seg], s read from
 //                  device memory; through shared memory (dyn_roll_lane).
 //   gather_axis0   out[r, c] = x[idx[r, c], c]: a gather across rows,
@@ -49,6 +55,7 @@
 #define GP_THREADS 256
 #define GP_CHUNK 2048        // columns a block of the shared-memory forms stages
 #define GP_MAX_BLOCKS 4224   // 32 blocks on each of 132 SMs, for grid-stride kernels
+#define SR_UNROLL 4          // vectors a thread of slice_rows_kernel moves
 
 __device__ __forceinline__ int clampi(int v, int hi) { return min(max(v, 0), hi); }
 
@@ -131,7 +138,8 @@ block_select_smem_kernel(const float* __restrict__ x, const int* __restrict__ p_
     out[(size_t)blockIdx.y * bw + c0 + c] = sm[p * chunk + c];
 }
 
-// out[r, c] = x[p * block_stride + r * row_stride + c]
+// out[r, c] = x[p * block_stride + r * row_stride + c]; the first version:
+// one float a thread over the flat output, a 64-bit division an element
 __global__ void __launch_bounds__(GP_THREADS)
 block_select_global_kernel(const float* __restrict__ x, const int* __restrict__ p_ptr,
                            float* __restrict__ out, int rows, int bw, int nb,
@@ -144,6 +152,38 @@ block_select_global_kernel(const float* __restrict__ x, const int* __restrict__ 
     const long long r = f / bw;
     out[f] = src[(size_t)r * row_stride + (f - r * bw)];
   }
+}
+
+template <int V> struct vec_of;
+template <> struct vec_of<1> { typedef float T; };
+template <> struct vec_of<4> { typedef float4 T; };
+
+// The same function as a copy of runs: block (bx, r) moves the
+// GP_THREADS * SR_UNROLL vectors of V floats from vector bx * GP_THREADS *
+// SR_UNROLL on of row r, neighbouring threads on neighbouring vectors. All
+// SR_UNROLL loads of a thread are issued before its first store: with V = 4,
+// 64 bytes a thread in flight, which covers HBM's latency at far below full
+// occupancy. Bound by bytes (one block in, one out); the launcher checks
+// that V = 4 finds every row of source and destination on 16 bytes.
+template <int V>
+__global__ void __launch_bounds__(GP_THREADS)
+slice_rows_kernel(const float* __restrict__ x, const int* __restrict__ p_ptr,
+                  float* __restrict__ out, int bw, int nb, long long row_stride,
+                  long long block_stride) {
+  typedef typename vec_of<V>::T vec;
+  const int p = clampi(__ldg(p_ptr), nb - 1);
+  const vec* src = reinterpret_cast<const vec*>(x + (size_t)p * block_stride +
+                                                (size_t)blockIdx.y * row_stride);
+  vec* dst = reinterpret_cast<vec*>(out + (size_t)blockIdx.y * bw);
+  const long long nvec = bw / V;
+  const long long v0 = (long long)blockIdx.x * (GP_THREADS * SR_UNROLL) + threadIdx.x;
+  vec v[SR_UNROLL];
+#pragma unroll
+  for (int u = 0; u < SR_UNROLL; ++u)
+    if (v0 + u * GP_THREADS < nvec) v[u] = __ldg(src + v0 + u * GP_THREADS);
+#pragma unroll
+  for (int u = 0; u < SR_UNROLL; ++u)
+    if (v0 + u * GP_THREADS < nvec) dst[v0 + u * GP_THREADS] = v[u];
 }
 
 // --- roll by a shift read from device memory -------------------------------
@@ -250,8 +290,8 @@ int gather_lanes_launch(int form, int idx_bytes, const void* x, const void* idx,
 }
 
 // via_smem: x is (rows, nb * bw) and the strides are ignored; else block p
-// starts at p * block_stride and its rows are row_stride apart. p is read
-// from p_ptr[0].
+// starts at p * block_stride and its rows are row_stride apart (the first
+// version of slice_rows_launch). p is read from p_ptr[0].
 int block_select_launch(int via_smem, const void* x, const void* p_ptr, void* out, int rows,
                         int bw, int nb, long long row_stride, long long block_stride,
                         void* stream) {
@@ -275,6 +315,27 @@ int block_select_launch(int via_smem, const void* x, const void* p_ptr, void* ou
         (const float*)x, (const int*)p_ptr, (float*)out, rows, bw, nb, row_stride,
         block_stride);
   }
+  return (int)cudaGetLastError();
+}
+
+// block p of x, at p * block_stride, its rows row_stride apart, p read from
+// p_ptr[0]; vec: 4 (float4 moves: x and out on 16 bytes, bw and both
+// strides multiples of 4) or 1
+int slice_rows_launch(int vec, const void* x, const void* p_ptr, void* out, int rows, int bw,
+                      int nb, long long row_stride, long long block_stride, void* stream) {
+  if (rows < 1 || rows > 65535 || bw < 1 || nb < 1 || (vec != 1 && vec != 4) ||
+      (vec == 4 && (bw % 4 || row_stride % 4 || block_stride % 4 || !aligned16(x) ||
+                    !aligned16(out))))
+    return (int)cudaErrorInvalidValue;
+  const long long per_block = (long long)GP_THREADS * SR_UNROLL * vec;
+  const dim3 grid((unsigned)((bw + per_block - 1) / per_block), (unsigned)rows);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec == 4)
+    slice_rows_kernel<4><<<grid, GP_THREADS, 0, s>>>(
+        (const float*)x, (const int*)p_ptr, (float*)out, bw, nb, row_stride, block_stride);
+  else
+    slice_rows_kernel<1><<<grid, GP_THREADS, 0, s>>>(
+        (const float*)x, (const int*)p_ptr, (float*)out, bw, nb, row_stride, block_stride);
   return (int)cudaGetLastError();
 }
 

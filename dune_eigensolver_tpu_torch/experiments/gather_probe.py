@@ -16,6 +16,9 @@ reference's names, inputs and functions:
                             shared-memory scratch, p read by the kernel
   dyn_input_load_3d, vmem_scalar_index   ``block_select``: x[p]
   dyn_lane_slice_aligned    ``lane_slice``: x[:, p*bw:(p+1)*bw]
+                            (both one row-copy kernel, float4 moves where
+                            ``slice_vector_width`` allows; their first
+                            versions, ``FIRST_VERSIONS``, are timed beside)
   dyn_roll_lane             ``roll_lanes``: roll by a run-time shift
   gather_sublane_axis0      ``gather_axis0``: out[r, c] = x[idx[r, c], c]
   int8_widen                ``int8_widen``: x + float(int8)
@@ -200,31 +203,78 @@ def block_select_scratch(x: torch.Tensor, p: torch.Tensor, bw: int = 128) -> tor
     return out
 
 
+def slice_vector_width(bw: int, row_stride: int, block_stride: int, align: int = 16) -> int:
+    """How many floats a thread of the row-copy kernel moves at once: 4 (one
+    ``float4``) where every row of the selected block and of the output
+    starts on 16 bytes, that is ``bw`` and both strides are multiples of 4
+    and both tensors' addresses are multiples of ``align`` with 16 dividing
+    it; 1 (one float) else, which has no condition. A dispatch between two
+    specialisations that give the same bits."""
+    if align % 16 == 0 and bw % 4 == 0 and row_stride % 4 == 0 and block_stride % 4 == 0:
+        return 4
+    return 1
+
+
+def _lane_strides(what: str, x: torch.Tensor, p: torch.Tensor, bw: int):
+    """(rows, bw, nb, row_stride, block_stride) of a selection from x (rows,
+    nb*bw)."""
+    _index_ok(what, x, p)
+    if x.ndim != 2 or bw < 1 or x.shape[1] % bw:
+        raise ValueError(f"{what}: x {tuple(x.shape)} is not (rows, nb * {bw})")
+    return x.shape[0], bw, x.shape[1] // bw, x.shape[1], bw
+
+
+def _block_strides(what: str, x: torch.Tensor, p: torch.Tensor):
+    """The same for x (nb, rows, bw)."""
+    _index_ok(what, x, p)
+    if x.ndim != 3:
+        raise ValueError(f"{what}: x {tuple(x.shape)} is not (nb, rows, bw)")
+    nb, rows, bw = x.shape
+    return rows, bw, nb, bw, rows * bw
+
+
+def _select(fn, x, p, rows, bw, nb, row_stride, block_stride, first=False) -> torch.Tensor:
+    """Block p of x, its rows ``row_stride`` apart, by the row copy
+    (``slice_rows_launch``; its width recorded in ``fn.width``) or, with
+    ``first``, by its first version; counted on wrapper ``fn``."""
+    out = torch.empty((rows, bw), dtype=x.dtype, device=x.device)
+    if first:
+        _run("block_select_launch", x, 0, x.data_ptr(), p.data_ptr(), out.data_ptr(), rows, bw,
+             nb, row_stride, block_stride)
+    else:
+        ptrs = x.data_ptr() | out.data_ptr() | 16
+        fn.width = slice_vector_width(bw, row_stride, block_stride, align=ptrs & -ptrs)
+        _run("slice_rows_launch", x, fn.width, x.data_ptr(), p.data_ptr(), out.data_ptr(), rows,
+             bw, nb, row_stride, block_stride)
+    fn.launches += 1
+    return out
+
+
 def lane_slice(x: torch.Tensor, p: torch.Tensor, bw: int = 128) -> torch.Tensor:
     """x[:, p*bw:(p+1)*bw] for x (rows, nb*bw), straight from device memory
-    at the offset the kernel reads from ``p``."""
-    _index_ok("lane_slice", x, p)
-    if x.ndim != 2 or bw < 1 or x.shape[1] % bw:
-        raise ValueError(f"lane_slice: x {tuple(x.shape)} is not (rows, nb * {bw})")
-    out = torch.empty((x.shape[0], bw), dtype=x.dtype, device=x.device)
-    _run("block_select_launch", x, 0, x.data_ptr(), p.data_ptr(), out.data_ptr(), x.shape[0],
-         bw, x.shape[1] // bw, x.shape[1], bw)
-    lane_slice.launches += 1
-    return out
+    at the offset the kernel reads from ``p``: one run of bw floats a row,
+    float4 moves where ``slice_vector_width`` allows."""
+    return _select(lane_slice, x, p, *_lane_strides("lane_slice", x, p, bw))
 
 
 def block_select(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """x[p] for x (nb, rows, bw), p read by the kernel from the first entry
-    of ``p`` (int32, on the card; pass a view to read another entry)."""
-    _index_ok("block_select", x, p)
-    if x.ndim != 3:
-        raise ValueError(f"block_select: x {tuple(x.shape)} is not (nb, rows, bw)")
-    nb, rows, bw = x.shape
-    out = torch.empty((rows, bw), dtype=x.dtype, device=x.device)
-    _run("block_select_launch", x, 0, x.data_ptr(), p.data_ptr(), out.data_ptr(), rows, bw, nb,
-         bw, rows * bw)
-    block_select.launches += 1
-    return out
+    of ``p`` (int32, on the card; pass a view to read another entry); the
+    same row-copy kernel as ``lane_slice``."""
+    return _select(block_select, x, p, *_block_strides("block_select", x, p))
+
+
+def lane_slice_first(x: torch.Tensor, p: torch.Tensor, bw: int = 128) -> torch.Tensor:
+    """``lane_slice`` by its first version (one float a thread over the
+    flat output), kept to be timed in turns with the row copy."""
+    return _select(lane_slice_first, x, p, *_lane_strides("lane_slice_first", x, p, bw),
+                   first=True)
+
+
+def block_select_first(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``block_select`` by its first version."""
+    return _select(block_select_first, x, p, *_block_strides("block_select_first", x, p),
+                   first=True)
 
 
 def roll_lanes(x: torch.Tensor, s: torch.Tensor, seg: int) -> torch.Tensor:
@@ -268,8 +318,12 @@ def int8_widen(x: torch.Tensor, i8: torch.Tensor) -> torch.Tensor:
 KERNELS = {fn.__name__: fn for fn in (
     gather_lanes_smem, gather_lanes_shfl, gather_lanes_global, gather_lanes_int8,
     block_select_scratch, lane_slice, block_select, roll_lanes, gather_axis0, int8_widen)}
-for _fn in KERNELS.values():
+#: the first versions of the row copy, by the name of the kernel they
+#: preceded; no probe runs them, only ``form_table``'s timing in turns
+FIRST_VERSIONS = {"lane_slice": lane_slice_first, "block_select": block_select_first}
+for _fn in (*KERNELS.values(), *FIRST_VERSIONS.values()):
     _fn.launches = 0
+lane_slice.width = block_select.width = None  # the vector width of the last launch
 
 
 # ---------------------------------------------------------------------------
@@ -456,8 +510,12 @@ def form_table(device, width: int = 4_194_304):
     moves by design where that is more (the scratch form stages all four
     blocks). On the card each kernel is first held to its plain version
     (``max_abs_err``, which must be 0: these kernels only move values, and
-    the widen-add is one f32 add). On the CPU only the plain versions run
-    and ``us`` is None. Prints each row as a ``FORM`` line."""
+    the widen-add is one f32 add); ``lane_slice`` and ``block_select`` are
+    timed in turns with their first versions (``FIRST_VERSIONS``, held to
+    the same bits): kernel, first, first, kernel, the best of each, the
+    first's in ``first_us`` (None on every other row). On the CPU only the
+    plain versions run and ``us`` is None. Prints each row as a ``FORM``
+    line."""
     device = resolve(device)
     on_card = device.type == "cuda"
     rng = np.random.default_rng(0)
@@ -482,6 +540,9 @@ def form_table(device, width: int = 4_194_304):
 
     def slice_library(v, q):
         return v[:, blk * bw:(blk + 1) * bw].clone()
+
+    firsts = {"lane_slice": lambda v, q: lane_slice_first(v, q, bw),
+              "block_select": block_select_first}
 
     # name, kernel, plain version, the one library call, x0, further
     # arguments, bytes the function moves, bytes the kernel streams
@@ -522,26 +583,35 @@ def form_table(device, width: int = 4_194_304):
     t_copy = bench_loop(lambda v: v + 1.0, x, K=30)
     copy_gbps = 2 * f4 / t_copy / 1e9
     row = dict(name="copy", shape=(ROWS, width), us=t_copy * 1e6 if on_card else None,
-               plain_us=t_copy * 1e6, library_us=t_copy * 1e6, max_abs_err=None, nbytes=2 * f4,
-               streamed_bytes=2 * f4, gbps=copy_gbps, share=1.0)
+               plain_us=t_copy * 1e6, library_us=t_copy * 1e6, first_us=None, max_abs_err=None,
+               nbytes=2 * f4, streamed_bytes=2 * f4, gbps=copy_gbps, share=1.0)
     _print_form(row)
     yield row
     for name, kernel, plain, library, x0, args, nbytes, streamed in forms:
         want = plain(x0, *args)
         if not torch.equal(library(x0, *args).view(want.shape), want):
             raise RuntimeError(f"form {name}: library call and plain version differ")
-        t = err = None
+        t = err = t_first = None
         if on_card:
             err = (kernel(x0, *args) - want).abs().max().item()
             if err != 0.0:
                 raise RuntimeError(f"form {name}: kernel and plain version differ by {err:.3e}")
-            t = bench_loop(keep(kernel), x0, K=30, op_args=args)
+            if name in firsts:
+                if not torch.equal(firsts[name](x0, *args), want):
+                    raise RuntimeError(f"form {name}: first version and plain version differ")
+                turns = {kernel: [], firsts[name]: []}
+                for fn in (kernel, firsts[name], firsts[name], kernel):
+                    turns[fn].append(bench_loop(keep(fn), x0, K=30, op_args=args))
+                t, t_first = min(turns[kernel]), min(turns[firsts[name]])
+            else:
+                t = bench_loop(keep(kernel), x0, K=30, op_args=args)
         del want
         t_plain = bench_loop(keep(plain), x0, K=30, op_args=args)
         t_library = bench_loop(keep(library), x0, K=30, op_args=args)
         best = t if on_card else t_plain
         row = dict(name=name, shape=tuple(x0.shape), us=None if t is None else t * 1e6,
-                   plain_us=t_plain * 1e6, library_us=t_library * 1e6, max_abs_err=err,
+                   plain_us=t_plain * 1e6, library_us=t_library * 1e6,
+                   first_us=None if t_first is None else t_first * 1e6, max_abs_err=err,
                    nbytes=nbytes, streamed_bytes=streamed, gbps=nbytes / best / 1e9,
                    share=nbytes / best / 1e9 / copy_gbps)
         _print_form(row)

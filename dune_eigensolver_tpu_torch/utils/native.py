@@ -134,12 +134,15 @@ def load() -> ctypes.CDLL:
     lib.ell_ablate_launch.argtypes = [i32, i32, i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
     # gather probes: (form, idx_bytes, x, idx, out, rows, width, seg, stream),
     # (via_smem, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
+    # (vec, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
     # (x, s, out, rows, width, seg, stream), (x, idx, out, rows, width, stream),
     # (x, i8, out, total, stream)
     lib.gather_lanes_launch.restype = i32
     lib.gather_lanes_launch.argtypes = [i32, i32, vp, vp, vp, i32, i64, i32, vp]
     lib.block_select_launch.restype = i32
     lib.block_select_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i64, i64, vp]
+    lib.slice_rows_launch.restype = i32
+    lib.slice_rows_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i64, i64, vp]
     lib.roll_lanes_launch.restype = i32
     lib.roll_lanes_launch.argtypes = [vp, vp, vp, i32, i64, i32, vp]
     lib.gather_axis0_launch.restype = i32

@@ -611,6 +611,64 @@ def test_gather_forms_match_plain(cuda, rows, width, seg):
     table = list(gp.form_table(cuda, width))
     assert sorted(r["name"] for r in table[1:]) == sorted(gp.KERNELS)
     assert all(r["max_abs_err"] == 0.0 for r in table[1:])
+    assert all((r["first_us"] is not None) == (r["name"] in gp.FIRST_VERSIONS) for r in table)
+
+
+# (rows, nb, bw, floats x's first element lies past an allocation, p): odd
+# rows; bw no multiple of 4 (the scalar path); a last chunk of a row that is
+# not full (8196 = 2049 float4s, 4097 floats); views 4 and 8 bytes off 16;
+# p below and above [0, nb - 1] (clamped); nb = 1
+SELECT_CASES = [
+    (7, 4, 1024, 0, 2),
+    (5, 3, 127, 0, 1),
+    (3, 4, 4, 0, 3),
+    (3, 2, 8196, 0, 1),
+    (2, 3, 4097, 0, 2),
+    (8, 4, 256, 1, 1),
+    (9, 5, 132, 2, 4),
+    (4, 6, 64, 0, -7),
+    (4, 6, 64, 0, 99),
+    (1, 1, 1000, 0, 0),
+    (6, 1, 33, 3, 5),
+]
+
+
+@pytest.mark.parametrize("rows,nb,bw,off,p", SELECT_CASES)
+def test_row_copy_selections_match_plain(cuda, rows, nb, bw, off, p):
+    """``lane_slice`` and ``block_select`` (the row copy) and their first
+    versions against the plain versions, bit for bit, each launch counted
+    once; float4 moves exactly where bw is a multiple of 4 and x lies on 16
+    bytes (the output, a fresh allocation, always does)."""
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    gen = torch.Generator(device="cuda").manual_seed(rows * nb * bw + off)
+    flat = torch.randn(rows * nb * bw + off, generator=gen, device=cuda)[off:]
+    x2, x3 = flat.view(rows, nb * bw), flat.view(nb, rows, bw)
+    pt = torch.tensor([p], dtype=torch.int32, device=cuda)
+    width = 4 if bw % 4 == 0 and off % 4 == 0 else 1
+    counts = {f: f.launches for f in (gp.lane_slice, gp.block_select, *gp.FIRST_VERSIONS.values())}
+    want2, want3 = gp.lane_slice_reference(x2, pt, bw), gp.block_select_reference(x3, pt)
+    assert torch.equal(gp.lane_slice(x2, pt, bw), want2) and gp.lane_slice.width == width
+    assert torch.equal(gp.block_select(x3, pt), want3) and gp.block_select.width == width
+    assert torch.equal(gp.lane_slice_first(x2, pt, bw), want2)
+    assert torch.equal(gp.block_select_first(x3, pt), want3)
+    torch.cuda.synchronize()
+    assert all(f.launches == c + 1 for f, c in counts.items())
+
+
+def test_row_copy_launcher_refuses_float4_off_grid(cuda):
+    """The launcher checks what ``slice_vector_width`` checks: float4 moves
+    on an address off 16 bytes, or on a bw no multiple of 4, are refused
+    before any launch."""
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    flat = torch.zeros(4 * 128 + 1, device=cuda)
+    out = torch.empty((4, 128), device=cuda)
+    p = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for x_ptr, bw in ((flat[1:].data_ptr(), 128), (flat.data_ptr(), 126)):
+        with pytest.raises(RuntimeError, match="slice_rows_launch"):
+            gp._run("slice_rows_launch", flat, 4, x_ptr, p.data_ptr(), out.data_ptr(), 4, bw, 1,
+                    bw, 4 * bw)
 
 
 def test_probe_kernels_clamp_and_refuse(cuda):

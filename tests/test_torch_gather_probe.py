@@ -145,12 +145,39 @@ def test_probe_wrappers_refuse_cpu_tensors():
         lambda: gp.roll_lanes(x, p, 128),
         lambda: gp.gather_axis0(x, i32),
         lambda: gp.int8_widen(x, i32.to(torch.int8)),
+        lambda: gp.lane_slice_first(x, p, 32),
+        lambda: gp.block_select_first(x.reshape(4, 8, 32), p),
     ]
-    assert len(calls) == len(gp.KERNELS)
+    assert len(calls) == len(gp.KERNELS) + len(gp.FIRST_VERSIONS)
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert all(fn.launches == 0 for fn in gp.KERNELS.values())
+    assert all(fn.launches == 0 for fn in (*gp.KERNELS.values(), *gp.FIRST_VERSIONS.values()))
+
+
+# (bw, row_stride, block_stride, align, width): lane_slice's strides are
+# (nb * bw, bw), block_select's (bw, rows * bw)
+WIDTH_CASES = [
+    (128, 512, 128, 16, 4),        # the probes' blocks, aligned
+    (1048576, 4194304, 1048576, 16, 4),  # form_table's lane_slice
+    (1048576, 1048576, 8388608, 16, 4),  # form_table's block_select
+    (128, 512, 128, 64, 4),        # more than 16 bytes of alignment is 16
+    (128, 512, 128, 8, 1),         # a view 8 bytes off
+    (128, 512, 128, 4, 1),         # a view one float off
+    (127, 508, 127, 16, 1),        # bw not a multiple of 4: the scalar path
+    (6, 6, 18, 16, 1),             # bw even, but rows of 6 floats break float4
+    (4, 4, 12, 16, 4),             # one float4 a row, odd rows (3)
+    (8, 8, 8, 16, 4),              # nb = 1, one row
+    (8, 10, 8, 16, 1),             # a row stride off the 16-byte grid
+    (8, 8, 6, 16, 1),              # a block stride off the 16-byte grid
+]
+
+
+@pytest.mark.parametrize("bw,row_stride,block_stride,align,width", WIDTH_CASES)
+def test_slice_vector_width(bw, row_stride, block_stride, align, width):
+    """The row copy's choice between float4 and scalar moves, from shapes,
+    strides and alignment alone (the launcher refuses float4 elsewhere)."""
+    assert gp.slice_vector_width(bw, row_stride, block_stride, align) == width
 
 
 def test_probe_main_on_cpu(capsys):
@@ -187,3 +214,4 @@ def test_form_table_rows_on_cpu():
                if r["name"] != "block_select_scratch")
     assert all(r["us"] is None and r["max_abs_err"] is None and r["plain_us"] > 0
                and r["library_us"] > 0 and r["gbps"] > 0 for r in rows)
+    assert all(r["first_us"] is None for r in rows)  # first versions are timed on the card
