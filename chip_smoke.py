@@ -7,7 +7,9 @@ Phases (any failure raises and exits non-zero; there is no fallback):
 
 1. device   — requires ``torch.cuda.is_available()``; prints the card.
 2. build    — compiles ``dune_eigensolver_tpu_torch/csrc/*.cu`` with nvcc
-              into the package's ``_build/`` and prints ptxas' report.
+              into the package's ``_build/`` and prints ptxas' report;
+              then the host-setup helper (``csrc/host/dunetpu.cpp``) with
+              g++.
 3. kernel   — the CUDA DIA SpMM against its plain PyTorch version on the
               card, at the main path's shapes (2D N=2048 m=8; 3D N=216
               m=24/72 in f32 and bf16; the nested solve's coarser grids
@@ -164,7 +166,11 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               (residual through K3) beside phase 8's CG route, host syncs
               of both, and its scalar expansion to ELL at nev=4 (K2); (d)
               ``lu_inverse_factory`` on laplacian_dirichlet_2d(256), m=8,
-              against the banded pair and scipy's spsolve; (e) the CLI's
+              against the banded pair and scipy's spsolve, its setup
+              seconds beside the chunk schedules' through the host helper
+              (``schedule_route`` "native") and through the numpy loops on
+              the same triangles, whose tables must be equal bit for bit;
+              (e) the CLI's
               ``smallest`` and ``eigenvalues`` with the INI's defaults. Each
               line carries the engine taken and its blocks, iterations,
               error, seconds (setup and solve), launches by kernel, peak
@@ -200,7 +206,17 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               one process against the global kernel. NCCL refuses two ranks
               on one card, so no exchange between real ranks runs here.
 
-Phases 15-20 run before phase 14, the kernel table, which comes last.
+21. hooks   — the JAX package's public hook keywords at full width
+              (``HOOKS`` lines; ``phase_hooks`` states each gate): (a)
+              ``lobpcg_generalized`` on the 216^3 north-star operand, one
+              level, plain and matrix-free (K1 through ``apply_a``) from
+              one start block: equal iterations, eigenvalues within 1e-6
+              relative; (b) ``generalized_inverse`` with ``gram_reduce``
+              alone on the flagship pencil at nev 4 (K3): the plain call's
+              bits; (c) ``cg_inverse_factory(apply_a=, gram_reduce=)`` on
+              the 2^20 graph (K2): the plain factory's bits.
+
+Phases 15-21 run before phase 14, the kernel table, which comes last.
 
 Each solve phase zeroes every kernel's launch counter just before its
 timed run and reads the counters just after; a phase whose kernel was not
@@ -1357,6 +1373,45 @@ def drop_setups():
     importlib.import_module("dune_eigensolver_tpu_torch.solvers.engine")._SETUP_MEMO.clear()
 
 
+def host_schedules(A, stats, chunk=512):
+    """Phase 18 (d): the host LU's chunk schedules of both triangles
+    through the host helper (the package's route) and through the numpy
+    loops it replaced, on the same SuperLU triangles, one triangle at a
+    time (a route's tables take ~10 GB a triangle at 2D N = 256); seconds
+    of each route and of SuperLU. Raises unless the two routes' tables,
+    kmax and level counts are equal bit for bit and the levels are those
+    ``factorize`` recorded."""
+    from dune_eigensolver_tpu_torch.factorize import host_lu
+    from dune_eigensolver_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    lu, _ = host_lu._superlu(A.to_scipy(), "MMD_AT_PLUS_A", True, True)
+    splu_s = time.perf_counter() - t0
+    n = A.shape[0]
+    seconds = {"native": 0.0, "numpy": 0.0}
+    levels = []
+    for T in host_lu._strict_triangles(lu):
+        data = T.data.astype(np.float32)  # as ``factorize`` packs f32 factors
+        t0 = time.perf_counter()
+        got = host_lu._chunk_schedule(T.indptr, T.indices, data, n, chunk)
+        seconds["native"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = host_lu._chunk_schedule_numpy(T.indptr, T.indices, data, n, chunk)
+        seconds["numpy"] += time.perf_counter() - t0
+        if got[3:] != want[3:] or not all(g.dtype == w.dtype and np.array_equal(g, w)
+                                          for g, w in zip(got[:3], want[:3])):
+            raise RuntimeError("host lu: the helper's chunk schedule differs from the numpy "
+                               f"loops' (kmax, levels {got[3:]} against {want[3:]})")
+        levels.append(got[4])
+        del got, want
+    if tuple(levels) != tuple(stats[2:]):
+        raise RuntimeError(f"host lu: levels {levels} against factorize's {stats[2:]}")
+    return dict(schedule_route="native",
+                host_library=os.path.relpath(native.build_host()[0], ROOT),
+                schedule_seconds=seconds["native"], numpy_schedule_seconds=seconds["numpy"],
+                schedules_equal=True, splu_seconds=splu_s)
+
+
 def phase_direct(torch, kernels, problems, flagship, A96, B96):
     """Phase 18: the direct shift-invert engines, which are the reference's
     default inverse, through the entry points with no ``inverse=``.
@@ -1379,7 +1434,8 @@ def phase_direct(torch, kernels, problems, flagship, A96, B96):
     gates (5e-2, 1e-2), beside phase 8's CG route, with the host syncs of
     both; then its scalar expansion (ELL, K2) at nev 4. (d) Host LU on the
     2D Dirichlet Laplacian at N = 256, m = 8, against the banded pair and
-    scipy's spsolve. (e) The CLI's ``smallest`` and ``eigenvalues`` with the
+    scipy's spsolve, its setup seconds beside the schedules' through the
+    host helper and through the numpy loops (``host_schedules``). (e) The CLI's ``smallest`` and ``eigenvalues`` with the
     INI's defaults. No product of the phase may take a plain version."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spl
@@ -1552,6 +1608,7 @@ def phase_direct(torch, kernels, problems, flagship, A96, B96):
         lu_bytes = sum(t.numel() * t.element_size() for T in (F.L, F.U)
                        for t in (T.rows, T.cols, T.vals))
         rec = dict(n=A.shape[0], m=8, engine=lu_pair[1].engine, setup_seconds=t_setup,
+                   **host_schedules(A, F.stats),
                    nnz_L=F.stats[0], nnz_U=F.stats[1], levels_L=F.stats[2], levels_U=F.stats[3],
                    chunks_L=F.L.nchunk, chunks_U=F.U.nchunk,
                    backward_err=backward(Y_lu), banded_backward_err=backward(Y_b),
@@ -2373,6 +2430,138 @@ def phase_dist(torch, kernels, problems, DIAMatrix, refs):
     return out, launches
 
 
+def phase_hooks(torch, kernels, problems, DIAMatrix, mg_inverse_factory, A96, B96, graph):
+    """Phase 21: the JAX package's public hook keywords at full width
+    (``HOOKS`` lines), each call beside the same call without hooks.
+
+    (a) The north-star operand, one level: ``lobpcg_generalized`` on the 3D
+    Laplacian 216^3 f32, nev 24, ``ortho_block`` 24, ``ortho_iterations`` 1,
+    identity B, the V(1,1) bf16 V-cycle, from one start block: plain
+    (``b_identity``, the V-cycle factory, q0 (n, 24)), then matrix-free
+    (``apply_a`` K1 through ``spmm_t``, ``apply_b`` and ``gram_reduce`` the
+    identity, a factory that returns the V-cycle built on the operand
+    whatever it is handed, q0 (24, n)), each run twice and the second
+    timed. Gates: equal iterations, eigenvalues within 1e-6 relative (equal
+    bits expected, reported), K1 launched in the hooked run, both within
+    the north star's 1e-5 of the closed form. (b) ``generalized_inverse`` on
+    the flagship pencil ``elasticity_2d(96)`` at nev 4 (phase 8's call, K3
+    in the inner CG) with ``gram_reduce`` alone and q0 transposed: the
+    plain call's iterations and bits. (c) ``cg_inverse_factory(apply_a=,
+    gram_reduce=)`` (K2 through ``spmm_t``) on the 2^20 graph, cg25 (rtol
+    1e-2, 25 steps), against the factory without hooks: the same bits. No
+    product of the phase may take a plain version."""
+    from dune_eigensolver_tpu_torch import (
+        cg_inverse_factory,
+        ell_from_scipy,
+        generalized_inverse,
+        lobpcg_generalized,
+        spmm_t,
+    )
+    from dune_eigensolver_tpu_torch.oracle.analytic import eigenvalues_laplace_dirichlet_3d
+
+    t_phase = time.perf_counter()
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def identity(g):
+        return g
+
+    drop_setups()
+    torch.cuda.empty_cache()
+    with PlainProductsRefused():
+        # (a) the north-star operand, one level, plain and matrix-free
+        N = 216
+        A = problems.laplacian_dirichlet_3d(N, dtype=torch.float32, device="cuda")
+        n = A.shape[0]
+        B = DIAMatrix(data=torch.ones((1, n), device="cuda"), offsets=(0,), shape=A.shape)
+        prec = mg_inverse_factory(nu1=1, nu2=1, dtype=torch.bfloat16)
+        pair = prec(A)  # the V-cycle on A' = A (shift 0)
+        q0 = torch.randn((n, 24), generator=gen, device="cuda")
+        kw = dict(nev=24, tol=2e-3, maxiter=300, shift=0.0, ortho_iterations=1, ortho_block=24)
+        exact = eigenvalues_laplace_dirichlet_3d(N, count=20)
+        runs = {
+            "plain": lambda: lobpcg_generalized(A, B, precond=prec, b_identity=True, q0=q0, **kw),
+            "matrix_free": lambda: lobpcg_generalized(
+                A, B, apply_a=lambda Xt: spmm_t(A, Xt), apply_b=identity, gram_reduce=identity,
+                precond=lambda _handed: pair, q0=q0.T.contiguous(), **kw),
+        }
+        res = {}
+        for name, run in runs.items():
+            res[name], rec = timed_twice(torch, run, kernels)
+            ev = check_solve(torch, f"hooks north star {name}", res[name], n, 24)
+            rec.update(n=n, nev=24, max_err=float(np.abs(np.sort(ev)[:20] - exact).max()))
+            log(f"HOOKS north star {name} " + json.dumps(rec))
+            out[f"north_star_{name}"] = rec
+        a, b = out["north_star_plain"], out["north_star_matrix_free"]
+        ev_p, ev_h = res["plain"].eigenvalues, res["matrix_free"].eigenvalues
+        rel = float(((ev_h - ev_p).abs().max() / ev_p.abs().max()).item())
+        bits = bool(torch.equal(ev_h, ev_p) and torch.equal(res["matrix_free"].eigenvectors,
+                                                            res["plain"].eigenvectors))
+        log("HOOKS north star " + json.dumps(dict(iterations=[a["iterations"], b["iterations"]],
+                                                  relative_difference=rel, equal_bits=bits)))
+        if (a["iterations"] != b["iterations"] or not rel <= 1e-6
+                or b["launches"]["dia_spmm_t"] <= 0 or not max(a["max_err"], b["max_err"]) <= 1e-5):
+            raise RuntimeError(f"hooks north star: {a} against {b}, relative {rel:.3e}")
+        out["north_star_equal_bits"] = bits
+        del A, B, prec, pair, q0, runs, res, ev_p, ev_h
+        drop_setups()
+        torch.cuda.empty_cache()
+
+        # (b) gram_reduce alone on the flagship pencil, K3 in the inner CG
+        inv = cg_inverse_factory(rtol=1e-5, maxiter=1000)
+        q0 = torch.randn((A96.shape[0], 8), generator=gen, device="cuda")
+        common = dict(nev=4, tol=2e-3, maxiter=300, shift=1e-3, inverse=inv)
+        got = {}
+        for name, run in (
+            ("plain", lambda: generalized_inverse(A96, B96, q0=q0, **common)),
+            ("gram_reduce", lambda: generalized_inverse(A96, B96, q0=q0.T.contiguous(),
+                                                        gram_reduce=identity, **common)),
+        ):
+            torch.cuda.synchronize()
+            set_counts(kernels)
+            t0 = time.perf_counter()
+            got[name] = run()
+            got[name].eigenvalues.cpu()
+            out[f"flagship_{name}"] = rec = dict(
+                seconds=time.perf_counter() - t0, iterations=int(got[name].iterations),
+                launches=read_counts(kernels))
+            check_solve(torch, f"hooks flagship {name}", got[name], A96.shape[0], 4)
+            log(f"HOOKS flagship nev=4 {name} " + json.dumps(rec))
+        same = (torch.equal(got["plain"].eigenvalues, got["gram_reduce"].eigenvalues)
+                and torch.equal(got["plain"].eigenvectors, got["gram_reduce"].eigenvectors))
+        if (not same or out["flagship_plain"]["iterations"] != out["flagship_gram_reduce"]["iterations"]
+                or out["flagship_gram_reduce"]["launches"]["bsr_spmm_t"] <= 0):
+            raise RuntimeError(f"hooks flagship: equal bits {same}, {out}")
+        del got, q0
+        drop_setups()
+
+        # (c) the CG inverse with the operator and the reduction as hooks
+        Ag = ell_from_scipy(graph, dtype=torch.float32, device="cuda")
+        Xt = torch.randn((8, Ag.shape[0]), generator=gen, device="cuda")
+        aux, fn = cg_inverse_factory(rtol=1e-2, maxiter=25)(Ag)
+        solve = cg_inverse_factory(rtol=1e-2, maxiter=25, apply_a=lambda V: spmm_t(Ag, V),
+                                   gram_reduce=identity)(Ag)
+        Y = {}
+        for name, run in (("plain", lambda: fn(aux, Xt)), ("hooks", lambda: solve(Xt))):
+            torch.cuda.synchronize()
+            set_counts(kernels)
+            t0 = time.perf_counter()
+            Y[name] = run()
+            torch.cuda.synchronize()
+            out[f"cg_{name}"] = rec = dict(seconds=time.perf_counter() - t0,
+                                          launches=read_counts(kernels))
+            log(f"HOOKS cg graph n=2^20 m=8 {name} " + json.dumps(rec))
+        if not (torch.equal(Y["plain"], Y["hooks"]) and torch.isfinite(Y["hooks"]).all()
+                and out["cg_hooks"]["launches"]["ell_spmm_t"] > 0):
+            raise RuntimeError(f"hooks cg: the hooked solve differs or launched no K2 {out}")
+        del Ag, Xt, aux, fn, solve, Y
+    out["seconds"] = time.perf_counter() - t_phase
+    log("HOOKS " + json.dumps(dict(seconds=out["seconds"],
+                                   north_star_equal_bits=out["north_star_equal_bits"])))
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -2408,6 +2597,11 @@ def main():
     path, build_log = native.build()
     native.load()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)}")
+    t0 = time.perf_counter()
+    host_path, host_log = native.build_host()
+    native.load_host()
+    log(f"build host helper (g++): {time.perf_counter() - t0:.1f} s -> "
+        f"{os.path.relpath(host_path, ROOT)} {host_log.strip()}")
     for line in build_log.splitlines():
         if ("registers" in line or "spill" in line or "error" in line.lower()
                 or "dia_spmm_t" in line or "bsr_spmm_t" in line or "ell_spmm_t" in line):
@@ -2615,7 +2809,12 @@ def main():
                      flagship_pencil=flagship_pencil, flagship4_oracle=flagship[1]["oracle"],
                      geneo_pencil=geneo_pencil, geneo_oracle=geneo["oracle"])
     _, dist_launches = phase_dist(torch, kernels, problems, DIAMatrix, dist_refs)
-    del dist_refs, graph_scipy, flagship_pencil, geneo_pencil
+    del dist_refs, flagship_pencil, geneo_pencil
+
+    # --- phase 21: the JAX package's public hooks at full width ---
+    A96, B96 = problems.elasticity_2d(96, dtype=torch.float32, device="cuda")
+    phase_hooks(torch, kernels, problems, DIAMatrix, mg_inverse_factory, A96, B96, graph_scipy)
+    del A96, B96, graph_scipy
 
     # --- phase 14: the kernel table ---
     def entry(name, source, replaces, launches, rec, nbytes, flops, library_ms, **more):

@@ -61,8 +61,14 @@ from dune_eigensolver_tpu_torch.sparse.formats import (  # noqa: E402
     ell_from_numpy,
     ell_from_scipy,
 )
-from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t  # noqa: E402
+from dune_eigensolver_tpu_torch.sparse.spmm import spmm, spmm_t  # noqa: E402
 from dune_eigensolver_tpu_torch.sparse import problems  # noqa: E402
+from dune_eigensolver_tpu_torch.ops.ortho import (  # noqa: E402
+    b_orthonormalize_blocked,
+    dot_products_all,
+    dot_products_diagonal,
+    orthonormalize_blocked,
+)
 from dune_eigensolver_tpu_torch.solvers import (  # noqa: E402
     EigenResult,
     generalized_inverse,
@@ -94,8 +100,13 @@ __all__ = [
     "dia_from_scipy",
     "ell_from_numpy",
     "ell_from_scipy",
+    "spmm",
     "spmm_t",
     "problems",
+    "orthonormalize_blocked",
+    "b_orthonormalize_blocked",
+    "dot_products_diagonal",
+    "dot_products_all",
     "EigenResult",
     "generalized_inverse",
     "generalized_inverse_adaptive",

@@ -12,8 +12,9 @@ matrix fills only inside the band. So:
   triangular solve). ``factorize_banded_device`` does this on the operand's
   device as a loop over block rows of cuSOLVER/LAPACK calls when the band
   fits one block (block-tridiagonal, LU with pivoting inside each diagonal
-  block, or Cholesky); ``factorize_banded`` does it on the host in numpy
-  float64 (banded Cholesky, else a no-pivot banded LU) for any band.
+  block, or Cholesky); ``factorize_banded`` does it on the host in
+  float64 (scipy's banded Cholesky, else a no-pivot banded LU in the host
+  helper, ``utils/native.py``) for any band.
 * **Solve** (``banded_solve``): a loop over block rows,
   ``x_i = Dinv_i @ (b_i - sum_j Sub_ij @ x_{i-j-1})``, dense (C, C) @ (C, m)
   products and nothing else; the backward sweep is the same loop on the
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
+from dune_eigensolver_tpu_torch.utils import native
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 #: widest band the device factorization takes; beyond it the (C, C) dense
@@ -81,19 +83,26 @@ def _cholesky_banded(band: np.ndarray, bw: int, n: int) -> np.ndarray:
 def _lu_banded(band: np.ndarray, bw: int, n: int):
     """No-pivot banded LU: A = L U with unit-diagonal L. Returns
     (lb, ub): lb[b, i] = L[i + b, i] (b in [1, bw], unit diagonal implied),
-    ub[b, i] = U[i, i + b] (b in [0, bw]). Vectorized rank-1 band updates in
-    an O(n * bw) Python loop (the reference's numpy path; its optional
-    native helper is not carried over): meant for small operands.
+    ub[b, i] = U[i, i + b] (b in [0, bw]). Runs in the host helper the
+    reference also calls (``utils/native.py::lu_banded``), which multiplies
+    by 1/pivot where ``_lu_banded_numpy`` divides and may fuse the update
+    into an FMA: the factors agree with the numpy loop's to ~1e-13 of
+    max|band|, not bit for bit. Raises ``ZeroDivisionError`` at a zero
+    pivot.
 
     Requires a no-pivot-stable matrix (diagonally dominant / SPD-like, as
     the shifted, regularized operators of the reference protocol are)."""
-    # work[bw + r, i] = A[i + r, i] = band[bw - r, i + r]
-    work = np.zeros((2 * bw + 1, n))
-    for r in range(-bw, bw + 1):
-        if r >= 0:
-            work[bw + r, : n - r] = band[bw - r, r:]
-        else:
-            work[bw + r, -r:] = band[bw - r, : n + r]
+    work = _lu_band_work(band, bw, n)
+    zp = native.lu_banded(work, n, bw)
+    if zp >= 0:
+        raise ZeroDivisionError(f"banded LU: zero pivot at row {zp}")
+    return _lu_band_factors(work, bw, n)
+
+
+def _lu_banded_numpy(band: np.ndarray, bw: int, n: int):
+    """The plain version of ``_lu_banded``: vectorized rank-1 band updates
+    in an O(n * bw) Python loop (the reference's numpy path)."""
+    work = _lu_band_work(band, bw, n)
     for i in range(n):
         piv = work[bw, i]
         if piv == 0.0:
@@ -109,6 +118,23 @@ def _lu_banded(band: np.ndarray, bw: int, n: int):
             u = work[bw - b, i + b]  # U[i, i+b]
             if u != 0.0:
                 work[bw + 1 - b : bw + 1 + r - b, i + b] -= col * u
+    return _lu_band_factors(work, bw, n)
+
+
+def _lu_band_work(band: np.ndarray, bw: int, n: int) -> np.ndarray:
+    """The column-band f64 array work[bw + r, i] = A[i + r, i] =
+    band[bw - r, i + r] both LU versions factorize in place."""
+    work = np.zeros((2 * bw + 1, n))
+    for r in range(-bw, bw + 1):
+        if r >= 0:
+            work[bw + r, : n - r] = band[bw - r, r:]
+        else:
+            work[bw + r, -r:] = band[bw - r, : n + r]
+    return work
+
+
+def _lu_band_factors(work: np.ndarray, bw: int, n: int):
+    """(lb, ub) out of a factorized work array (``_lu_banded``)."""
     lb = np.zeros((bw + 1, n))
     ub = np.zeros((bw + 1, n))
     lb[0] = 1.0

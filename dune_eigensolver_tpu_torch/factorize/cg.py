@@ -16,7 +16,9 @@ reference's. That is one host sync per CG iteration.
 ``gram_reduce`` (JAX ``factorize/cg.py:40``): for a row-sharded
 multivector every row dot goes through it (an ``all_reduce`` SUM in the
 distributed layer), so each rank takes the same stopping decision;
-``apply_a`` is the caller's operator, the halo SpMM there.
+``apply_a`` is the caller's operator, the halo SpMM there. The public
+``cg_solve`` and ``cg_inverse_factory`` take both hooks as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -99,10 +101,11 @@ def cg_solve(
     diag: Optional[torch.Tensor] = None,
     rtol: float = 1e-6,
     maxiter: int = 1000,
+    gram_reduce: Optional[Callable] = None,
     x0: Optional[torch.Tensor] = None,
 ):
     """Column-layout wrapper over ``cg_solve_t``: B (n, m), apply_a on
-    (n, m)."""
+    (n, m); ``gram_reduce`` reduces every row dot of a row-sharded B."""
     X, k = cg_solve_t(
         lambda Xt: apply_a(Xt.T).T,
         B.T,
@@ -110,6 +113,7 @@ def cg_solve(
         rtol=rtol,
         maxiter=maxiter,
         x0=None if x0 is None else x0.T,
+        gram_reduce=gram_reduce,
     )
     return X.T, k
 
@@ -134,7 +138,7 @@ def _cast_floating(tree, dt):
     return tree
 
 
-def _cg_solve_fn(rtol, maxiter, dtype=None):
+def _cg_solve_fn(rtol, maxiter, dtype=None, gram_reduce=None):
     """The transposed-layout solve ``fn((A, inv_diag), Xt)``."""
 
     def solve_pair(aux, Xt):
@@ -150,6 +154,7 @@ def _cg_solve_fn(rtol, maxiter, dtype=None):
             )
         Y, _ = cg_solve_t(
             lambda V: spmm_t(A_, V), Xt, inv_diag=d_, rtol=rtol, maxiter=maxiter,
+            gram_reduce=gram_reduce,
         )
         return Y.to(out_dt)
 
@@ -157,11 +162,25 @@ def _cg_solve_fn(rtol, maxiter, dtype=None):
     return solve_pair
 
 
-def cg_inverse_factory(rtol: float = 1e-6, maxiter: int = 1000, dtype=None):
+def cg_inverse_factory(
+    rtol: float = 1e-6,
+    maxiter: int = 1000,
+    gram_reduce: Optional[Callable] = None,
+    apply_a: Optional[Callable] = None,
+    dtype=None,
+):
     """Factory of factories: returns an ``inverse=``/``precond=`` argument
     for the solvers. ``inverse(A_int)`` yields the pair
     ``((A_int, 1/diag(A_int)), fn)`` with a transposed-layout solve ``fn``
     whose inner SpMMs run the operand's kernel.
+
+    ``gram_reduce``: the reduction of every row dot of the inner CG (a
+    psum over row shards). ``apply_a``: the caller's operator on the
+    transposed layout in place of the operand's ``spmm_t`` (the JAX
+    package's hook); ``inverse(A_int)`` then returns a plain callable
+    ``Xt -> A^-1 Xt`` (``layout_t``), Jacobi-preconditioned by the
+    operand's diagonal when an operand is given and unpreconditioned for
+    ``inverse(None)``, and ``dtype`` is not applied.
 
     ``dtype``: run the entire inner CG (operand stream, iterate, axpys) in
     this dtype, casting in and out at the boundary; dots still accumulate
@@ -171,6 +190,16 @@ def cg_inverse_factory(rtol: float = 1e-6, maxiter: int = 1000, dtype=None):
     """
 
     def inverse(A_int):
-        return (A_int, _inv_diag_of(A_int)), _cg_solve_fn(rtol, maxiter, dtype)
+        if apply_a is not None:
+            inv_diag = None if A_int is None else _inv_diag_of(A_int)
+
+            def solve(Xt):
+                Y, _ = cg_solve_t(apply_a, Xt, inv_diag=inv_diag, rtol=rtol,
+                                  maxiter=maxiter, gram_reduce=gram_reduce)
+                return Y
+
+            solve.layout_t = True
+            return solve
+        return (A_int, _inv_diag_of(A_int)), _cg_solve_fn(rtol, maxiter, dtype, gram_reduce)
 
     return inverse

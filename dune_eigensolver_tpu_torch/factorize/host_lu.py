@@ -18,8 +18,12 @@ Solve convention (verified against scipy): with Equil off,
 ``L @ U = A[pr_inv][:, pc_inv]``, so ``A^-1 b = w[pc]`` where
 ``L z = b[pr_inv]`` and ``U w = z``.
 
-The level and chunk schedules take the reference's numpy paths (its
-optional native helper is not carried over).
+The level and chunk schedules run in the host helper the reference also
+calls (``native/dunetpu.cpp``, copied to ``csrc/host/`` and built with g++
+at first use by ``utils/native.py``); a failed build raises. The numpy
+loops stay beside them as their plain versions (``_levels_from_csr_numpy``,
+``_chunk_schedule_numpy``), which the tests hold the helper to bit for
+bit; no path of the package calls them.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from dune_eigensolver_tpu_torch.utils import native
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 
@@ -40,7 +45,31 @@ from dune_eigensolver_tpu_torch.utils.device import resolve
 
 def _levels_from_csr(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
     """Dependency level of each row of a (strict) triangular CSR matrix:
-    lev[i] = 1 + max(lev[j] for j in row i's off-diagonal entries)."""
+    lev[i] = 1 + max(lev[j] for j in row i's off-diagonal entries), by the
+    host helper."""
+    return native.levels_from_csr(indptr, indices)
+
+
+def _chunk_schedule(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    data: np.ndarray,
+    n: int,
+    chunk: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int, int]:
+    """Fixed-size row chunks that respect dependency levels, by the host
+    helper. Returns (rows, cols, vals, kmax, nlev): rows (nchunk, chunk)
+    int32 with pad=n; cols/vals (nchunk, chunk, kmax) with pad col=n, pad
+    val=0; nlev the number of levels. ``data`` is float32 or float64."""
+    sched = native.chunk_schedule(indptr, indices, data, n, chunk)
+    if sched is None:
+        raise TypeError(f"_chunk_schedule: values of dtype {data.dtype}, "
+                        f"expected float32 or float64")
+    return sched
+
+
+def _levels_from_csr_numpy(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """The plain version of ``_levels_from_csr``: a loop over rows."""
     n = len(indptr) - 1
     lev = np.zeros(n, dtype=np.int32)
     for i in range(n):
@@ -50,19 +79,16 @@ def _levels_from_csr(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
     return lev
 
 
-def _chunk_schedule(
+def _chunk_schedule_numpy(
     indptr: np.ndarray,
     indices: np.ndarray,
     data: np.ndarray,
     n: int,
     chunk: int,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-    """Fixed-size row chunks that respect dependency levels.
-
-    Returns (rows, cols, vals, kmax): rows (nchunk, chunk) int32 with pad=n;
-    cols/vals (nchunk, chunk, kmax) with pad col=n, pad val=0.
-    """
-    lev = _levels_from_csr(indptr, indices)
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int, int]:
+    """The plain version of ``_chunk_schedule`` (the JAX package's numpy
+    path), the same five results."""
+    lev = _levels_from_csr_numpy(indptr, indices)
     order = np.argsort(lev, kind="stable")
     lev_sorted = lev[order]
     # chunk boundaries: never split across a level boundary
@@ -88,7 +114,8 @@ def _chunk_schedule(
             s, e = indptr[r], indptr[r + 1]
             cols[c, k, : e - s] = indices[s:e]
             vals[c, k, : e - s] = data[s:e]
-    return rows, cols, vals, kmax
+    nlev = int(lev.max() + 1) if n else 0
+    return rows, cols, vals, kmax, nlev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,11 +153,46 @@ class FactorizedMatrix:
 
 def _tri_factor(rows, cols, vals, device, dtype) -> _TriFactor:
     def idx(a):
-        return torch.from_numpy(a.astype(np.int64)).to(device)
+        # int32 across, widened where it lands: the same int64 table for
+        # half the host pass and half the bytes to the card
+        return torch.from_numpy(a).to(device).to(torch.int64)
 
     return _TriFactor(rows=idx(rows), cols=idx(cols),
                       vals=torch.from_numpy(vals).to(device=device, dtype=dtype),
                       nchunk=rows.shape[0])
+
+
+def _superlu(A, permc_spec: str, symmetric: bool, equilibrate: bool):
+    """SuperLU of a scipy operand in f64, row-equilibrated first when
+    ``equilibrate`` (``factorize``'s docstring). Returns ``(lu, rs)``, rs
+    None without equilibration."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import splu
+
+    A = sp.csc_matrix(A.astype(np.float64))
+    rs = None
+    if equilibrate:
+        rowsum = np.asarray(abs(A).sum(axis=1)).ravel()
+        if np.any(rowsum == 0.0):
+            raise ZeroDivisionError("factorize: exactly zero row")
+        rs = 1.0 / rowsum
+        A = sp.csc_matrix(sp.diags(rs) @ A)
+    lu = splu(A, permc_spec=permc_spec,
+              options=dict(Equil=False, SymmetricMode=bool(symmetric)))
+    if np.any(lu.U.diagonal() == 0.0):
+        raise ZeroDivisionError("factorize: matrix is singular (zero U diagonal)")
+    return lu, rs
+
+
+def _strict_triangles(lu):
+    """The strict lower triangle of SuperLU's L and the strict upper
+    triangle of its U mirrored (i -> n-1-i), both CSR: U is solved
+    bottom-up, so the mirror lets the same forward-level schedule serve."""
+    import scipy.sparse as sp
+
+    Lstrict = sp.tril(sp.csr_matrix(lu.L), k=-1, format="csr")
+    Ustrict = sp.triu(sp.csr_matrix(lu.U), k=1, format="csr")
+    return Lstrict, Ustrict[::-1, ::-1].tocsr()
 
 
 def factorize(
@@ -156,43 +218,27 @@ def factorize(
     not hand out its own scaling), so the scaling is ours; it keeps f32
     factors accurate on ill-scaled operators. Raises ``ZeroDivisionError``
     on an exactly zero row or a zero pivot of U."""
-    import scipy.sparse as sp
-    from scipy.sparse.linalg import splu
-
     if hasattr(A, "to_scipy"):
         dtype = dtype or (A.data.dtype if hasattr(A, "data") else None)
         device = A.device if device is None else device
         A = A.to_scipy()
     device = resolve(device)
     dtype = dtype or torch.float32
-    A = sp.csc_matrix(A.astype(np.float64))
     n = A.shape[0]
-    rs = None
-    if equilibrate:
-        rowsum = np.asarray(abs(A).sum(axis=1)).ravel()
-        if np.any(rowsum == 0.0):
-            raise ZeroDivisionError("factorize: exactly zero row")
-        rs = 1.0 / rowsum
-        A = sp.csc_matrix(sp.diags(rs) @ A)
-    lu = splu(A, permc_spec=permc_spec,
-              options=dict(Equil=False, SymmetricMode=bool(symmetric)))
+    lu, rs = _superlu(A, permc_spec, symmetric, equilibrate)
     udiag = lu.U.diagonal()
-    if np.any(udiag == 0.0):
-        raise ZeroDivisionError("factorize: matrix is singular (zero U diagonal)")
+    Lstrict, Umir = _strict_triangles(lu)
+    # f32 factors are packed in f32, as the reference does: the same
+    # rounding as a cast on the device, half the table's bytes
+    pack_dt = np.float32 if dtype == torch.float32 else np.float64
+    rowsL, colsL, valsL, _, nlevL = _chunk_schedule(
+        Lstrict.indptr, Lstrict.indices, Lstrict.data.astype(pack_dt), n, chunk)
+    rowsU, colsU, valsU, _, nlevU = _chunk_schedule(
+        Umir.indptr, Umir.indices, Umir.data.astype(pack_dt), n, chunk)
+    # map the mirrored U back in place (pad n stays n)
+    for a in (rowsU, colsU):
+        np.subtract(n - 1, a, out=a, where=a < n)
 
-    Lstrict = sp.tril(sp.csr_matrix(lu.L), k=-1, format="csr")
-    Ustrict = sp.triu(sp.csr_matrix(lu.U), k=1, format="csr")
-    rowsL, colsL, valsL, _ = _chunk_schedule(
-        Lstrict.indptr, Lstrict.indices, Lstrict.data, n, chunk)
-    # U is solved bottom-up: mirror indices (i -> n-1-i) so the same
-    # forward-level machinery applies, then map back (pad n stays n)
-    Umir = Ustrict[::-1, ::-1].tocsr()
-    rowsU, colsU, valsU, _ = _chunk_schedule(Umir.indptr, Umir.indices, Umir.data, n, chunk)
-    rowsU = np.where(rowsU < n, n - 1 - rowsU, n)
-    colsU = np.where(colsU < n, n - 1 - colsU, n)
-
-    nlevL = int(_levels_from_csr(Lstrict.indptr, Lstrict.indices).max() + 1)
-    nlevU = int(_levels_from_csr(Umir.indptr, Umir.indices).max() + 1)
     stats = (int(lu.L.nnz), int(lu.U.nnz), nlevL, nlevU)
     if verbose > 0:
         print(f"factorize: n={n} nnz(L)={stats[0]} nnz(U)={stats[1]} "

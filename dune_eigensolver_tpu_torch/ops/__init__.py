@@ -1,4 +1,5 @@
 from dune_eigensolver_tpu_torch.ops.ortho import (
+    b_orthonormalize_blocked,
     b_orthonormalize_blocked_t,
     dot_products_all,
     dot_products_diagonal,
@@ -8,6 +9,7 @@ from dune_eigensolver_tpu_torch.ops.ortho import (
 )
 
 __all__ = [
+    "b_orthonormalize_blocked",
     "b_orthonormalize_blocked_t",
     "dot_products_all",
     "dot_products_diagonal",

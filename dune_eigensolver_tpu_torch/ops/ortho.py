@@ -118,13 +118,16 @@ def orthonormalize_blocked_t(
 def orthonormalize_blocked(
     X: torch.Tensor,
     block: int = 8,
+    gram_reduce=None,
     iterations: int = 1,
     eps: float = 0.0,
 ) -> torch.Tensor:
     """Column-layout wrapper over ``orthonormalize_blocked_t``: X is (n, m)
-    and its columns come back orthonormal."""
+    and its columns come back orthonormal. ``gram_reduce``: applied to
+    every Gram and projection matrix of a row-sharded X."""
     return orthonormalize_blocked_t(
-        X.T.contiguous(), block=block, iterations=iterations, eps=eps
+        X.T.contiguous(), block=block, iterations=iterations, eps=eps,
+        gram_reduce=gram_reduce,
     ).T
 
 
@@ -191,15 +194,17 @@ def b_orthonormalize_blocked(
     b_op,
     X: torch.Tensor,
     block: int = 8,
+    gram_reduce=None,
     iterations: int = 1,
     eps: float = 0.0,
     return_mass: bool = False,
 ):
     """Column-layout wrapper over ``b_orthonormalize_blocked_t``: X is
-    (n, m), ``b_op`` a sparse operand or a callable on (n, m)."""
+    (n, m), ``b_op`` a sparse operand or a callable on (n, m);
+    ``gram_reduce`` as there."""
     apply_b_t = (lambda Vt: b_op(Vt.T).T) if callable(b_op) else b_op
     out = b_orthonormalize_blocked_t(
         apply_b_t, X.T.contiguous(), block=block, iterations=iterations, eps=eps,
-        return_mass=return_mass,
+        return_mass=return_mass, gram_reduce=gram_reduce,
     )
     return (out[0].T, *out[1:])

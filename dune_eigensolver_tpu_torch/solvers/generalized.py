@@ -110,6 +110,9 @@ def generalized_inverse(
     ortho_iterations: int = 1,
     rayleigh_ritz: bool = False,
     inverse: Optional[Callable] = None,
+    apply_a: Optional[Callable] = None,
+    apply_b: Optional[Callable] = None,
+    gram_reduce: Optional[Callable] = None,
     q0: Optional[torch.Tensor] = None,
     eval_shift: Optional[float] = None,
     dtype=None,
@@ -126,49 +129,66 @@ def generalized_inverse(
     engine for DIA bands up to 2048, V-cycle-CG for wider 3D stencils,
     Chebyshev-CG for other wide DIA, RCM-banded for ELL/BSR).
 
-    ``q0``: (n, m) start block, m = nev rounded up to ``block``; default a
+    ``apply_a``/``apply_b``/``gram_reduce`` (the JAX package's hooks, on
+    the transposed (m, n_local) layout): the caller's A' and B products
+    and the reduction of every Gram and dot (a psum over row shards). With
+    both ``apply_a`` and ``apply_b`` the solve is matrix-free: no operand
+    setup runs, the setup memo is untouched, and ``inverse(None)`` gives
+    the solve, which then runs on the transposed layout as it is (e.g.
+    ``cg_inverse_factory(apply_a=...)``). Any other subset of hooks
+    replaces only the products it names; the rest run through the
+    operand's ``spmm_t``.
+
+    ``q0``: the start block, m = nev rounded up to ``block``; default a
     ``torch.Generator`` draw from ``seed`` on A's device, in ``dtype``
-    (default A's).
+    (default A's). Its layout is the column layout (n, m) without hooks,
+    and the transposed internal layout (m, n_local) when ``gram_reduce`` is
+    given or the solve is matrix-free, as in the JAX package.
 
     ``eval_shift``: the shift the Rayleigh quotients are un-shifted by
-    (default ``shift``), for a caller that folded the shift into A itself
-    and passes ``shift=0``.
-
-    The distributed layer's hooks live on ``_gen_core`` (``dist/
-    sharded.py::sharded_generalized_inverse`` drives it). ``force_padded``
-    has no counterpart.
+    (default ``shift``), for a caller that folded the shift into A (or
+    ``apply_a``) itself and passes ``shift=0``. ``force_padded`` has no
+    counterpart (no guarded layout here).
     """
-    if inverse is None:
-        from dune_eigensolver_tpu_torch.factorize import default_inverse_factory
-
-        inverse = default_inverse_factory
     dtype = dtype or A.dtype
     m = padded_width(nev, block)
-    n = A.shape[0]
+    matrix_free = apply_a is not None and apply_b is not None
+    if matrix_free:
+        inv_aux, inv_fn = normalize_inverse(inverse(None))
+    else:
+        if inverse is None:
+            from dune_eigensolver_tpu_torch.factorize import default_inverse_factory
 
-    def _build():
-        A_sh = shifted_operand(A, B, shift, reg)
-        A_int, B_int = make_engine(A_sh, B)
-        aux, fn = adapt_inverse(*normalize_inverse(inverse(A_int)))
-        return A_int, B_int, aux, fn
+            inverse = default_inverse_factory
 
-    # setup (shift fold, routing, inverse setup) memoized on the operand
-    # identities: repeated solves on one pencil (the GenEO pattern) pay it
-    # once
-    A_int, B_int, inv_aux, inv_fn = memoized_setup(
-        (A, inverse) if B is None else (A, B, inverse),
-        ("gen", float(shift), float(reg)),
-        _build,
-    )
+        def _build():
+            A_sh = shifted_operand(A, B, shift, reg)
+            A_int, B_int = make_engine(A_sh, B)
+            aux, fn = adapt_inverse(*normalize_inverse(inverse(A_int)))
+            return A_int, B_int, aux, fn
+
+        # setup (shift fold, routing, inverse setup) memoized on the operand
+        # identities: repeated solves on one pencil (the GenEO pattern) pay
+        # it once
+        A_int, B_int, inv_aux, inv_fn = memoized_setup(
+            (A, inverse) if B is None else (A, B, inverse),
+            ("gen", float(shift), float(reg)),
+            _build,
+        )
+        if apply_a is None:
+            apply_a = lambda X: spmm_t(A_int, X)  # noqa: E731
+        if apply_b is None:
+            apply_b = lambda X: spmm_t(B_int, X)  # noqa: E731
     if q0 is not None:
-        Q0 = to_internal(q0.T)
+        Q0 = to_internal(q0 if matrix_free or gram_reduce is not None else q0.T)
     else:
         gen = torch.Generator(device=A.device).manual_seed(seed)
-        Q0 = to_internal(random_multivector_t(gen, n, m, dtype, A.device))
+        Q0 = to_internal(random_multivector_t(gen, A.shape[0], m, dtype, A.device))
     with torch.no_grad():
         return _gen_core(
-            lambda X: spmm_t(A_int, X), lambda X: spmm_t(B_int, X), inv_aux, inv_fn,
+            apply_a, apply_b, inv_aux, inv_fn,
             Q0, nev, float(tol), int(maxiter),
             float(shift if eval_shift is None else eval_shift), int(block),
             int(min_iter), int(ortho_iterations), bool(rayleigh_ritz),
+            gram_reduce=gram_reduce,
         )

@@ -19,7 +19,7 @@ residual norm.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -44,6 +44,11 @@ from dune_eigensolver_tpu_torch.utils.paranoid import b_identity_check, reportin
 
 def _identity_apply(X):
     """apply_b for an identity mass matrix (``b_identity=True``)."""
+    return X
+
+
+def _identity_prec(_aux, X):
+    """The preconditioner of ``precond=False``."""
     return X
 
 
@@ -158,6 +163,9 @@ def lobpcg_generalized(
     ortho_block: Optional[Union[int, str]] = None,
     b_identity: bool = False,
     precond=None,
+    apply_a: Optional[Callable] = None,
+    apply_b: Optional[Callable] = None,
+    gram_reduce: Optional[Callable] = None,
     q0: Optional[torch.Tensor] = None,
     eval_shift: Optional[float] = None,
     dtype=None,
@@ -179,55 +187,75 @@ def lobpcg_generalized(
     ``factorize.default_inverse_factory``, the engine the shift-invert
     solvers use (a direct solve for 2D stencils, narrow 3D ones, ELL and
     BSR: an exact inverse as the preconditioner, as in the reference).
-    ``q0``: (n, m) start block; default a ``torch.Generator`` draw from
-    ``seed`` on A's device, in ``dtype`` (default A's).
+
+    ``apply_a``/``apply_b``/``gram_reduce`` (the JAX package's hooks, on
+    the transposed (m, n_local) layout): the caller's A' and B products
+    and the reduction of every Gram and row dot (a psum over row shards).
+    With both ``apply_a`` and ``apply_b`` the solve is matrix-free: no
+    operand setup runs and the setup memo is untouched, ``precond(None)``
+    gives the preconditioner, which then runs on the transposed layout as
+    it is, and ``precond=False`` is the identity. Any other subset of
+    hooks replaces only the products it names; the rest run through the
+    operand's ``spmm_t``. A caller that folded the shift into ``apply_a``
+    passes ``shift=0`` and the shift as ``eval_shift``.
+
+    ``q0``: the start block; default a ``torch.Generator`` draw from
+    ``seed`` on A's device, in ``dtype`` (default A's). Its layout is the
+    column layout (n, m) without hooks, and the transposed internal layout
+    (m, n_local) when ``gram_reduce`` is given or the solve is matrix-free,
+    as in the JAX package.
     ``eval_shift``: the shift the eigenvalues are un-shifted by (default
     ``shift``), for a caller that folded the shift into A itself.
-
-    The distributed layer's hooks live on ``_lobpcg_core`` (``dist/
-    sharded.py::sharded_lobpcg_generalized`` and ``dist/windowed.py::
-    sharded_lobpcg_general`` drive it).
     """
-    if precond is None:
-        from dune_eigensolver_tpu_torch.factorize import default_inverse_factory
-
-        precond = default_inverse_factory
     dtype = dtype or A.dtype
     m = padded_width(nev, block)
-    n = A.shape[0]
-
-    def _build():
-        A_sh = shifted_operand(A, B, shift, reg)
-        A_int, B_int = make_engine(A_sh, B)
+    matrix_free = apply_a is not None and apply_b is not None
+    if matrix_free:
         if precond is False:
-            aux, fn = None, (lambda _aux, X: X)
+            prec_aux, prec_fn = None, _identity_prec
         else:
-            aux, fn = adapt_inverse(*normalize_inverse(precond(A_int)))
-        return A_int, B_int, aux, fn
+            prec_aux, prec_fn = normalize_inverse(precond(None))
+    else:
+        if precond is None:
+            from dune_eigensolver_tpu_torch.factorize import default_inverse_factory
 
-    # setup memoized on operand identities: repeated solves on one pencil
-    # pay the shift fold and preconditioner setup once
-    objs = (A,) if precond is False else (A, precond)
-    A_int, B_int, prec_aux, prec_fn = memoized_setup(
-        objs if B is None else objs + (B,),
-        ("lobpcg", float(shift), float(reg), 3 * m),
-        _build,
-    )
+            precond = default_inverse_factory
+
+        def _build():
+            A_sh = shifted_operand(A, B, shift, reg)
+            A_int, B_int = make_engine(A_sh, B)
+            if precond is False:
+                aux, fn = None, _identity_prec
+            else:
+                aux, fn = adapt_inverse(*normalize_inverse(precond(A_int)))
+            return A_int, B_int, aux, fn
+
+        # setup memoized on operand identities: repeated solves on one pencil
+        # pay the shift fold and preconditioner setup once
+        objs = (A,) if precond is False else (A, precond)
+        A_int, B_int, prec_aux, prec_fn = memoized_setup(
+            objs if B is None else objs + (B,),
+            ("lobpcg", float(shift), float(reg), 3 * m),
+            _build,
+        )
+        if apply_a is None:
+            apply_a = lambda X: spmm_t(A_int, X)  # noqa: E731
+        if b_identity and apply_b is None:
+            b_identity_check(B)  # paranoid mode only; a no-op otherwise
+            apply_b = _identity_apply
+        elif apply_b is None:
+            apply_b = lambda X: spmm_t(B_int, X)  # noqa: E731
     if q0 is not None:
-        Q0 = to_internal(q0.T)
+        Q0 = to_internal(q0 if matrix_free or gram_reduce is not None else q0.T)
     else:
         gen = torch.Generator(device=A.device).manual_seed(seed)
-        Q0 = to_internal(random_multivector_t(gen, n, m, dtype, A.device))
-    if b_identity:
-        b_identity_check(B)  # paranoid mode only; a no-op otherwise
-        apply_b = _identity_apply
-    else:
-        apply_b = lambda X: spmm_t(B_int, X)  # noqa: E731
+        Q0 = to_internal(random_multivector_t(gen, A.shape[0], m, dtype, A.device))
     with torch.no_grad():
         return _lobpcg_core(
-            lambda X: spmm_t(A_int, X), apply_b, prec_aux, prec_fn, Q0,
+            apply_a, apply_b, prec_aux, prec_fn, Q0,
             nev, float(tol), int(maxiter),
             float(shift if eval_shift is None else eval_shift), int(min_iter),
             float(ortho_eps), int(ortho_iterations),
             "full" if ortho_block == "full" else int(ortho_block or block),
+            gram_reduce=gram_reduce,
         )

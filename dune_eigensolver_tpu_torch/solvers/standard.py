@@ -15,7 +15,8 @@ ascending for smallest).
 ``_core`` takes the distributed layer's hooks (JAX ``_largest_core``,
 ``standard.py:118``, and ``_sharded_inverse_core``, ``dist/sharded.py:658``):
 ``apply_a``/``step`` on the rank's local rows and ``gram_reduce`` on every
-Gram and dot (``dist/sharded.py`` drives it). ``force_padded`` has no
+Gram and dot (``dist/sharded.py`` drives it); the public entry points pass
+the JAX package's hook keywords through to it. ``force_padded`` has no
 counterpart (no guarded layout here).
 """
 
@@ -144,11 +145,12 @@ def _core(step, apply_a, Q0, nev, tol, maxiter, shift, block, ortho_iterations,
     )
 
 
-def _start_block(A, q0, seed, m, dtype):
-    """The (m, n) start block: ``q0.T``, or a ``torch.Generator`` draw from
-    ``seed`` on A's device."""
+def _start_block(A, q0, seed, m, dtype, hooked=False):
+    """The (m, n) start block: ``q0`` as it is when a hook is set (the
+    transposed (m, n_local) layout), else ``q0.T``; or a
+    ``torch.Generator`` draw from ``seed`` on A's device."""
     if q0 is not None:
-        return to_internal(q0.T)
+        return to_internal(q0 if hooked else q0.T)
     gen = torch.Generator(device=A.device).manual_seed(seed)
     return to_internal(random_multivector_t(gen, A.shape[0], m, dtype, A.device))
 
@@ -164,6 +166,8 @@ def standard_largest(
     seed: int = 123,
     ortho_iterations: int = 1,
     rayleigh_ritz: bool = False,
+    apply_a: Optional[Callable] = None,
+    gram_reduce: Optional[Callable] = None,
     q0: Optional[torch.Tensor] = None,
     dtype=None,
 ) -> EigenResult:
@@ -174,26 +178,36 @@ def standard_largest(
     second SpMM + per-vector dots; stop when max |lambda^k - lambda^{k-1}|
     < tol (after at least 2 iterations), where A' = A + shift*I.
 
-    ``q0``: (n, m) start block, m = nev rounded up to ``block``; default a
+    ``apply_a``/``gram_reduce`` (the JAX package's hooks, on the transposed
+    (m, n_local) layout): the caller's product in place of A' (no operand
+    setup runs; ``shift`` is then only subtracted from the Ritz values)
+    and the reduction of every Gram and dot.
+
+    ``q0``: the start block, m = nev rounded up to ``block``; default a
     ``torch.Generator`` draw from ``seed`` on A's device in ``dtype``
-    (default A's).
+    (default A's). Its layout is the column layout (n, m) without hooks,
+    and the transposed internal layout (m, n_local) when either hook is
+    given, as in the JAX package.
     """
     dtype = dtype or A.dtype
     m = padded_width(nev, block)
+    hooked = apply_a is not None or gram_reduce is not None
+    if apply_a is None:
 
-    def _build():
-        return make_engine(shifted_operand(A, None, shift, 0.0))[0]
+        def _build():
+            return make_engine(shifted_operand(A, None, shift, 0.0))[0]
 
-    # engine routing and the shift fold memoized on operand identity
-    A_int = memoized_setup((A,), ("std_large", float(shift)), _build)
-    Q0 = _start_block(A, q0, seed, m, dtype)
+        # engine routing and the shift fold memoized on operand identity
+        A_int = memoized_setup((A,), ("std_large", float(shift)), _build)
 
-    def apply_a(X):
-        return spmm_t(A_int, X)
+        def apply_a(X):
+            return spmm_t(A_int, X)
 
+    Q0 = _start_block(A, q0, seed, m, dtype, hooked)
     with torch.no_grad():
         return _core(apply_a, apply_a, Q0, nev, float(tol), int(maxiter), float(shift),
-                     int(block), int(ortho_iterations), bool(rayleigh_ritz), descending=True)
+                     int(block), int(ortho_iterations), bool(rayleigh_ritz), descending=True,
+                     gram_reduce=gram_reduce)
 
 
 @reporting
@@ -208,6 +222,7 @@ def standard_inverse(
     ortho_iterations: int = 1,
     rayleigh_ritz: bool = False,
     inverse: Optional[Callable] = None,
+    gram_reduce: Optional[Callable] = None,
     q0: Optional[torch.Tensor] = None,
     dtype=None,
 ) -> EigenResult:
@@ -221,6 +236,10 @@ def standard_inverse(
     are. Defaults to ``factorize.default_inverse_factory``, which picks the
     engine by the operand (the block-banded direct engine for bands up to
     2048, V-cycle-CG or Chebyshev-CG for wider DIA, RCM-banded for ELL/BSR).
+
+    ``gram_reduce`` (the JAX package's hook): the reduction of every Gram
+    and dot; ``q0`` is then in the transposed (m, n_local) layout, else in
+    the column layout (n, m).
     """
     dtype = dtype or A.dtype
     m = padded_width(nev, block)
@@ -236,8 +255,9 @@ def standard_inverse(
 
     # setup memoized on operand identity (see generalized_inverse)
     A_int, inv_aux, inv_fn = memoized_setup((A, inverse), ("std_inv", float(shift)), _build)
-    Q0 = _start_block(A, q0, seed, m, dtype)
+    Q0 = _start_block(A, q0, seed, m, dtype, gram_reduce is not None)
     with torch.no_grad():
         return _core(lambda X: inv_fn(inv_aux, X), lambda X: spmm_t(A_int, X), Q0, nev,
                      float(tol), int(maxiter), float(shift), int(block),
-                     int(ortho_iterations), bool(rayleigh_ritz), descending=False)
+                     int(ortho_iterations), bool(rayleigh_ritz), descending=False,
+                     gram_reduce=gram_reduce)

@@ -46,6 +46,10 @@ class DIAMatrix:
     shape: Tuple[int, int]
 
     @property
+    def n(self) -> int:
+        return self.shape[0]
+
+    @property
     def nnz(self) -> int:
         """Stored entries (incl. structural zeros inside the band)."""
         n = self.shape[0]
@@ -154,6 +158,10 @@ class ELLMatrix:
     cols: torch.Tensor  # (n, k) int32
     shape: Tuple[int, int]
     nnz: int  # true nonzeros before padding
+
+    @property
+    def n(self) -> int:
+        return self.shape[0]
 
     @property
     def k(self) -> int:

@@ -2,7 +2,8 @@
 (A @ X)^T``, and the column-layout ``spmm``, ``Y (n, m) = A @ X``, over it.
 
 Counterpart of ``spmm_t`` and ``spmm`` (with ``dia_spmm``, ``ell_spmm``,
-``bsr_spmm``) in the JAX package's ``sparse/spmm.py``. The
+``bsr_spmm``, ``ell_spmm_t``, ``bsr_spmm_t``) in the JAX package's
+``sparse/spmm.py``. The
 solver state is the transposed multivector (m, n), the layout the kernels
 stream. Each container type has a hand-written CUDA kernel and its plain
 PyTorch version: a CUDA tensor launches the kernel (which raises on what it
@@ -60,6 +61,18 @@ def spmm(A, X: torch.Tensor) -> torch.Tensor:
     if X.ndim != 2 or A.shape[1] != X.shape[0]:
         raise ValueError(f"spmm: shape mismatch {A.shape} @ {tuple(X.shape)}")
     return spmm_t(A, X.T.contiguous()).T
+
+
+def ell_spmm_t(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
+    """Yt = (A @ Xt.T).T with A in ELL format. Xt: (m, n_cols). K2 on a
+    CUDA tensor, its plain version on the CPU (``spmm_t``'s route)."""
+    return spmm_t(_expect(A, ELLMatrix, "ell_spmm_t"), Xt)
+
+
+def bsr_spmm_t(A: BSRMatrix, Xt: torch.Tensor) -> torch.Tensor:
+    """Yt = (A @ Xt.T).T with A in block-ELL format. Xt: (m, n_cols). K3 on
+    a CUDA tensor, its plain version on the CPU (``spmm_t``'s route)."""
+    return spmm_t(_expect(A, BSRMatrix, "bsr_spmm_t"), Xt)
 
 
 def dia_spmm(A: DIAMatrix, X: torch.Tensor) -> torch.Tensor:

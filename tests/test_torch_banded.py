@@ -68,17 +68,38 @@ def _port_arrays(F):
     return [t.numpy() for t in (F.fwd.dinv, F.fwd.sub, F.bwd.dinv, F.bwd.sub)]
 
 
+@pytest.fixture
+def jax_native_helper(monkeypatch):
+    """Point the JAX package's bridge (its ``utils/native.py``) at the
+    port's g++ build of the same host helper source, so that both packages
+    run the no-pivot band LU in it, as the JAX package does once its
+    ``native/`` library is built. The bridge's state is restored after the
+    test."""
+    from dune_eigensolver_tpu.utils import native as jnative
+
+    from dune_eigensolver_tpu_torch.utils import native as tnative
+
+    path = tnative.build_host()[0]
+    monkeypatch.setattr(jnative, "_lib_path", lambda: path)
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_TRIED", False)
+    assert jnative.available()
+
+
 @pytest.mark.parametrize("N,C,shift,kind", [
     (16, 128, 0.1, "cholesky"), (40, 128, 0.1, "cholesky"), (40, 256, 0.1, "cholesky"),
     (33, 128, 0.1, "cholesky"), (30, 128, -0.5, "lu"), (150, 128, 0.05, "cholesky"),
 ])
-def test_host_factorization_matches_jax(N, C, shift, kind):
-    """``factorize_banded`` (numpy f64 on the host, as the reference's):
-    Cholesky for the SPD operators, the no-pivot LU for the indefinite one
-    (shift -0.5), k = 2 block columns where the band (150) exceeds C = 128.
-    The same factor blocks as the JAX package's to 1e-12 of their largest,
-    and a solve within 1e-11 of scipy's (1e-8 for the indefinite LU, the
-    reference's bound)."""
+def test_host_factorization_matches_jax(N, C, shift, kind, jax_native_helper):
+    """``factorize_banded`` (f64 on the host, as the reference's): scipy's
+    Cholesky for the SPD operators, the no-pivot LU of the host helper for
+    the indefinite one (shift -0.5), in both packages, k = 2 block columns
+    where the band (150) exceeds C = 128. The same factor blocks as the
+    JAX package's to 1e-12 of their largest, and a solve within 1e-11 of
+    scipy's (1e-8 for the indefinite LU, the reference's bound). The
+    helper and the numpy LU differ in rounding, which this LU's pivot
+    growth (|U| up to 481 at shift -0.5) lifts to ~2e-9 of max|band|:
+    ``test_torch_native_host.py`` holds them to each other."""
     Aj, At = _laplacian(N, shift)
     Fj = jbanded.factorize_banded(Aj, C=C, dtype=np.float64)
     Ft = factorize.factorize_banded(At, C=C)

@@ -1163,3 +1163,64 @@ def test_dist_local_applies_split_p_ways(cuda, P):
     with pytest.raises(ValueError, match="bandwidth"):
         sharded.dia_local_apply_t(sharded.local_operand(A.data[:, :40].contiguous(), A.offsets),
                                   X[:, :40].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's public hooks and transposed gather products
+# ---------------------------------------------------------------------------
+
+
+def test_hooked_lobpcg_runs_the_dia_kernel(cuda):
+    """``lobpcg_generalized`` on a CUDA DIA operand, matrix-free (K1 through
+    ``apply_a``, identity ``apply_b`` and ``gram_reduce``, the V-cycle handed
+    out by ``precond(None)``, q0 transposed): K1 launches, and the result
+    is the unhooked solve's bits."""
+    from dune_eigensolver_tpu_torch.factorize import mg_inverse_factory
+    from dune_eigensolver_tpu_torch.solvers import lobpcg_generalized
+
+    A = problems.laplacian_dirichlet_3d(24, dtype=torch.float32, device=cuda)
+    n = A.shape[0]
+    B = DIAMatrix(data=torch.ones((1, n), device=cuda), offsets=(0,), shape=A.shape)
+    prec = mg_inverse_factory(nu1=1, nu2=1)
+    pair = prec(A)
+    q0 = torch.randn((n, 8), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    kw = dict(nev=8, tol=2e-3, maxiter=100, ortho_iterations=1, ortho_block=8)
+    plain = lobpcg_generalized(A, B, precond=lambda _A: pair, b_identity=True, q0=q0, **kw)
+    before = kd.dia_spmm_t_cuda.launches
+    hooked = lobpcg_generalized(A, B, apply_a=lambda X: spmm_t(A, X), apply_b=lambda X: X,
+                                gram_reduce=lambda g: g, precond=lambda _none: pair,
+                                q0=q0.T.contiguous(), **kw)
+    assert kd.dia_spmm_t_cuda.launches > before
+    assert int(hooked.iterations) == int(plain.iterations)
+    assert torch.equal(hooked.eigenvalues, plain.eigenvalues)
+    assert torch.equal(hooked.eigenvectors, plain.eigenvectors)
+
+
+@pytest.mark.parametrize("kind", ["ell", "bsr"])
+def test_transposed_gather_products_run_their_kernels(cuda, kind):
+    """``ell_spmm_t`` / ``bsr_spmm_t`` on CUDA tensors launch K2 / K3 (the
+    counters move by one) and give ``spmm_t``'s bits; the plain version
+    agrees to 1e-5 of the row's |A|.|X| (the kernels' own tolerance)."""
+    import dataclasses
+
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+    from dune_eigensolver_tpu_torch.sparse.spmm import bsr_spmm_t, ell_spmm_t
+
+    if kind == "ell":
+        S = problems.unstructured_laplacian(5000, extra_edges=300, seed=5, fmt="scipy")
+        A = ell_from_scipy(S, dtype=torch.float32, device=cuda)
+        fn, wrapper, plain = ell_spmm_t, kg.ell_spmm_t_cuda, kg.ell_spmm_t_reference
+    else:
+        A, _ = problems.elasticity_2d(24, dtype=torch.float32, device=cuda)
+        fn, wrapper, plain = bsr_spmm_t, kg.bsr_spmm_t_cuda, kg.bsr_spmm_t_reference
+    X = torch.randn((8, A.shape[1]), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    before = wrapper.launches
+    Y = fn(A, X)
+    assert wrapper.launches == before + 1
+    assert torch.equal(Y, spmm_t(A, X))
+    field = "bdata" if kind == "bsr" else "data"
+    absA = dataclasses.replace(A, **{field: getattr(A, field).abs()})
+    bound = 1e-5 * plain(absA, X.abs()).max().item()
+    assert (Y - plain(A, X)).abs().max().item() <= bound
