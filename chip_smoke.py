@@ -83,9 +83,11 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               K2's share of it, each way); the same recipe at n = 20,000
               within 2e-2 of the oracle.
 
-10. copy    — the copy probe's three kernels (csrc/copy_probe.cu) against
-              their plain versions (exact), at an odd width and at the
-              multivector's shape.
+10. copy    — the copy probe's three kernels (csrc/copy_probe.cu) and the
+              first versions of ``ident``/``ident_alias`` against their
+              plain versions (exact), at an odd width (where the wrappers
+              take the first version) and at the multivector's shape (the
+              bulk copies, asserted).
 11. variants — the DIA staging variants (csrc/dia_variants.cu: C, B at
               (2,1), (3,2), (4,3), D, D in place) against the plain DIA
               product at two n that are no multiple of the tile (one of
@@ -96,16 +98,21 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               ``--test mgs`` (n = 2^20, m = 16), then the tables the two
               experiment modules' ``main`` print: ``copy_table`` (the
               library's 1-D and 2-D copies, the hand-written copy over its
-              tile sweep, copy + coefficient stream, in place) as ``COPY``
-              lines and one ``ROOFLINE`` line with ``copy_gbps``, the best
-              out-of-place rate; ``variant_table`` (2D N=2048 m=8 f32, each
+              tile sweep in turns with its first version, copy +
+              coefficient stream, in place in turns with its first version)
+              as ``COPY`` lines and one ``ROOFLINE`` line with
+              ``copy_gbps``, the best out-of-place rate; ``variant_table`` (2D N=2048 m=8 f32, each
               variant held to the plain product at 1e-5 of max|R| over one
               application and the 2-chain, then timed) as ``VARIANT`` lines
               with ms, GB/s under ``bytes_spmm_dia`` and the share of
               ``copy_gbps``, the shipped kernel and the plain version
               beside them. Every ``RESULT`` number must be finite and every
               kernel's counter must have moved. Then the copy kernels'
-              rows of the kernel table, at the sweep's best tile.
+              rows of the kernel table: ``ident`` and ``ident_alias`` at
+              the tile the bulk body does best at in the sweep
+              (``best_ident_tile``) in turns with their first versions at
+              the first version's own best (``best_first_tile``; both in
+              ``ROOFLINE``), ``identd`` at its own best tile.
 13. library — one PyTorch call computing the same function, where there is
               one: ``torch.sparse.mm`` on a CSR tensor for the DIA and ELL
               operands and on a BSR tensor for the BSR operand, at the
@@ -131,12 +138,15 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               (KC, threads) sweep; K2's launches counted per operand),
               ``gather_probe.form_table`` at
               (8, 4,194,304) (``FORM`` lines), where ``lane_slice`` and
-              ``block_select``, one row-copy kernel, are timed in turns
-              with their first versions and must have taken float4 moves
-              (``REDESIGN`` lines: both times, the library call's, the
-              shares of the table's ``x + 1.0`` rate). These tables are the
-              only timing of the new kernels; every one must have been
-              launched.
+              ``block_select``, one row-copy kernel, and
+              ``block_select_scratch`` are timed in turns with their first
+              versions and must have taken float4 moves or, the scratch
+              form, its bulk copies (``REDESIGN`` lines: both times, the
+              library call's, the shares of the table's ``x + 1.0`` rate;
+              device times by CUDA-graph replay, the kernel's and the
+              library call's eager times beside).
+              These tables are the only timing of the new kernels; every
+              one must have been launched.
 17. standard — ``standard_largest`` on laplacian_dirichlet_2d(2048)
               (n = 4,194,304), nev=8, tol 2e-3, twice, timing the second
               (``LARGEST``: seconds, iterations, max_err against the closed
@@ -245,9 +255,17 @@ so do the four ELL rows: the 2^20 graph at m=8 (the graph solve's
 launches), the CLI ``matvec`` operand at m=8 (its launches),
 elasticity_2d(512) scalar at m=8 (the launches of ``ablate_table`` on that
 operand, scaled) and at m=24 (no path launches it: 0)); the
-``lane_slice`` and ``block_select`` rows carry ``first_version_ms``, their
-first versions' time in turns (phase 16),
-then the card's name and
+gather-probe rows' ``ms`` is the device time by CUDA-graph replay (their
+kernels take less time than the host's launch through a wrapper),
+``eager_ms`` and ``library_eager_ms`` beside it (their ``launches``
+count the wrapper's calls: a graph replay re-runs the launches it
+captured without a call, uncounted); the ``lane_slice``, ``block_select`` and
+``block_select_scratch`` rows carry ``first_version_ms``, their first
+versions' time in turns, by replay too (phase 16), and
+so do the ``ident`` and ``ident_alias`` rows (phase 12; with
+``device_ms``, ``first_version_device_ms`` and ``library_device_ms`` by
+replay, in turns; each body at its own best tile, ``tile`` and
+``first_version_tile``), then the card's name and
 power limit as nvidia-smi reports them, then the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -805,29 +823,41 @@ def exact_or_raise(name, Y, R):
 
 
 def phase_copy_check(torch, pp):
-    """Phase 10: the copy kernels against their plain versions. Returns the
-    operands of the multivector's shape and each kernel's max_abs_err there."""
+    """Phase 10: the copy kernels and the first versions of ``ident`` and
+    ``ident_alias`` against their plain versions. Returns the operands of
+    the multivector's shape and each kernel's max_abs_err there."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    # an odd width (4-byte accesses) first, then the multivector's shape
-    for rows, width, tile in ((3, 100_003, 1000), (8, pp.WIDTH, 32768)):
+    # an odd width (4-byte accesses: the wrappers take the first version)
+    # first, then the multivector's shape (the bulk copies)
+    for rows, width, tile, body in ((3, 100_003, 1000, "first"), (8, pp.WIDTH, 32768, "bulk")):
+        wrappers = (pp.ident, pp.identd, pp.ident_alias, *pp.FIRST_VERSIONS.values())
         x = torch.randn((rows, width), generator=gen, device="cuda")
         d = torch.randn((5, width), generator=gen, device="cuda")
-        before = (pp.ident.launches, pp.identd.launches, pp.ident_alias.launches)
+        before = [fn.launches for fn in wrappers]
         # one f32 add per element in kernel and plain version alike: 0 ulp
+        want = pp.ident_reference(x)
         errs = dict(
-            ident=exact_or_raise("ident", pp.ident(tile, x), pp.ident_reference(x)),
+            ident=exact_or_raise("ident", pp.ident(tile, x), want),
             identd=exact_or_raise("identd", pp.identd(tile, d, x), pp.identd_reference(d, x)),
+            ident_first=exact_or_raise("ident_first", pp.ident_first(tile, x), want),
         )
-        xa = x.clone()
-        if pp.ident_alias(tile, xa) is not xa:
-            raise RuntimeError("ident_alias did not return its argument")
-        errs["ident_alias"] = exact_or_raise("ident_alias", xa, pp.ident_reference(x))
+        for name, fn in (("ident_alias", pp.ident_alias),
+                         ("ident_alias_first", pp.ident_alias_first)):
+            xa = x.clone()
+            if fn(tile, xa) is not xa:
+                raise RuntimeError(f"{name} did not return its argument")
+            errs[name] = exact_or_raise(name, xa, want)
+            del xa
         torch.cuda.synchronize()
-        after = (pp.ident.launches, pp.identd.launches, pp.ident_alias.launches)
-        if after != tuple(b + 1 for b in before):
+        after = [fn.launches for fn in wrappers]
+        if after != [b + 1 for b in before]:
             raise RuntimeError(f"copy kernels: launch counters {before} -> {after}")
-        log(f"copy check ({rows}, {width}) tile {tile}: exact")
-        del xa
+        if (pp.ident.body, pp.ident_alias.body) != (body, body):
+            raise RuntimeError(f"copy kernels ({rows}, {width}): bodies "
+                               f"{pp.ident.body}/{pp.ident_alias.body}, expected {body}")
+        log(f"copy check ({rows}, {width}) tile {tile}: exact, body {body}, first versions "
+            "exact")
+        del want
     return x, d, errs
 
 
@@ -891,10 +921,17 @@ def phase_measure(torch, kernels, pp, kv):
         log("COPY " + json.dumps(dict(case=label, kind=kind, us=t * 1e6, gbps=gbps)))
         copy_rows.append((label, t, gbps, kind))
     copy_gbps = max(g for label, _, g, _ in copy_rows if "ALIASED" not in label)
-    best_tile = max((g, label) for label, _, g, kind in copy_rows
-                    if kind == "kernel" and label.startswith("ident T="))[1]
-    best_tile = int(best_tile.split("=")[1])
-    log("ROOFLINE " + json.dumps(dict(copy_gbps=copy_gbps, best_ident_tile=best_tile)))
+    # the kernel table's copy rows hold each body at its own best tile in
+    # the sweep (both timed in turns at every tile there); identd, which
+    # the sweep does not time, finds its own in copy_kernel_rows
+    def best(kind):
+        return int(max((g, label) for label, _, g, k in copy_rows
+                       if k == kind and label.startswith(("ident T=", "ident first T=")))[1]
+                   .split("=")[1])
+
+    best_tile, best_ident_tile = best("first"), best("kernel")
+    log("ROOFLINE " + json.dumps(dict(copy_gbps=copy_gbps, best_ident_tile=best_ident_tile,
+                                      best_first_tile=best_tile)))
     variants = {}
     for label, t, gbps, err in kv.variant_table(None):
         rec = dict(ms=t * 1e3, gbps=gbps, share_of_copy=gbps / copy_gbps, max_abs_err=err)
@@ -921,30 +958,56 @@ def phase_measure(torch, kernels, pp, kv):
     if idle:
         raise RuntimeError(f"cli: kernels launched no time on the measurement path: {idle}")
     log("CLI " + json.dumps(dict(seconds=seconds, launches=launches, results=results)))
-    return launches, dict(copy_gbps=copy_gbps, best_tile=best_tile), variants
+    return launches, dict(copy_gbps=copy_gbps, best_tile=best_tile,
+                          best_ident_tile=best_ident_tile), variants
 
 
-def copy_kernel_rows(torch, pp, x, d, errs, tile):
+def copy_kernel_rows(torch, pp, x, d, errs, tile, first_tile):
     """The kernel table's rows of the three copy kernels at the
     multivector's shape, each beside its plain version (one PyTorch call,
-    so the library call too), by the probe's own timing helper."""
-    from dune_eigensolver_tpu_torch.bench.timing import bench_loop
+    so the library call too), by the probe's own timing helpers; ``ident``
+    and ``ident_alias`` at ``tile`` in turns with their first versions at
+    ``first_tile`` (``first_version_ms``: each body at its own best tile),
+    and by CUDA-graph replay, the kernel, its first version and the library
+    call in turns (``device_ms``, ``first_version_device_ms``,
+    ``library_device_ms``); ``identd`` at its own best of ``pp.TILES``."""
+    from dune_eigensolver_tpu_torch.bench.timing import bench_loop, in_turns, replay_ms
+
+    def identd_ms(T):
+        return bench_loop(lambda v: pp.identd(T, d, v), x.clone(), K=30)
 
     xbytes = 2 * x.numel() * 4
+    d_tile = min(pp.TILES, key=identd_ms)  # the sweep has no identd rows
     recs = {}
     for name, step, plain, nbytes, streamed in (
         ("ident", lambda v: pp.ident(tile, v), pp.ident_reference, xbytes, xbytes),
         # the function needs row 0 of d; the kernel streams all five rows
-        ("identd", lambda v: pp.identd(tile, d, v), lambda v: pp.identd_reference(d, v),
+        ("identd", lambda v: pp.identd(d_tile, d, v), lambda v: pp.identd_reference(d, v),
          xbytes + d.shape[1] * 4, xbytes + d.numel() * 4),
         ("ident_alias", lambda v: pp.ident_alias(tile, v), lambda v: v.add_(1.0), xbytes, xbytes),
     ):
-        ms = bench_loop(step, x.clone(), K=30) * 1e3
-        plain_ms = bench_loop(plain, x.clone(), K=30) * 1e3
-        recs[name] = dict(case=f"({x.shape[0]}, {x.shape[1]}) f32 tile {tile}",
+        def timed(fn):
+            return bench_loop(fn, x.clone(), K=30) * 1e3
+
+        more = {}
+        if name in pp.FIRST_VERSIONS:
+            first = pp.FIRST_VERSIONS[name]
+            ms, more["first_version_ms"] = in_turns([step, lambda v: first(first_tile, v)],
+                                                    timed)
+            more.update(body=getattr(pp, name).body, first_version_tile=first_tile)
+            # the device times, by replaying a CUDA graph of ten calls, in turns
+            xr = x.clone()
+            (more["device_ms"], more["first_version_device_ms"],
+             more["library_device_ms"]) = in_turns(
+                [lambda: step(xr), lambda: first(first_tile, xr), lambda: plain(xr)], replay_ms)
+        else:
+            ms = timed(step)
+        plain_ms = timed(plain)
+        at = d_tile if name == "identd" else tile
+        recs[name] = dict(case=f"({x.shape[0]}, {x.shape[1]}) f32 tile {at}", tile=at,
                           max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
                           nbytes=nbytes, flops=x.numel(),  # one add per element
-                          streamed_bytes=streamed, streamed_gbps=streamed / ms / 1e6)
+                          streamed_bytes=streamed, streamed_gbps=streamed / ms / 1e6, **more)
         log("COPYKERNEL " + json.dumps(dict(kernel=name, **recs[name])))
     return recs
 
@@ -1077,16 +1140,20 @@ def phase_study(torch, study_kernels, ga, gp):
     if not all(np.isfinite(x) and x > 0 for x in numbers):
         raise RuntimeError(f"study: non-finite or non-positive times {numbers}")
     for name in gp.FIRST_VERSIONS:
-        # the row copy, timed in turns with its first version; the timed
-        # shape lies on 16 bytes everywhere, so it must take float4 moves
-        row, width = forms[name], gp.KERNELS[name].width
-        if width != 4 or not row["first_us"] > 0:
-            raise RuntimeError(f"study: {name} width {width}, first version {row['first_us']} us")
+        # each selection, timed in turns with its first version; the timed
+        # shape lies on 16 bytes everywhere, so the row copy must take
+        # float4 moves and the scratch form its bulk copies
+        row, fn = forms[name], gp.KERNELS[name]
+        taken = fn.body if name == "block_select_scratch" else fn.width
+        if taken not in (4, "bulk") or not row["first_us"] > 0:
+            raise RuntimeError(f"study: {name} took {taken}, first version {row['first_us']} us")
         log("REDESIGN " + json.dumps(dict(
-            name=name, shape=row["shape"], width=width, us=row["us"], first_us=row["first_us"],
-            library_us=row["library_us"], plain_us=row["plain_us"], share=row["share"],
+            name=name, shape=row["shape"], taken=taken, us=row["us"], eager_us=row["eager_us"],
+            first_us=row["first_us"], library_us=row["library_us"],
+            library_eager_us=row["library_eager_us"], plain_us=row["plain_us"], share=row["share"],
             first_share=row["share"] * row["us"] / row["first_us"],
-            vs_library=row["us"] / row["library_us"])))
+            vs_library=row["us"] / row["library_us"],
+            eager_vs_library_eager=row["eager_us"] / row["library_eager_us"])))
     best = {}
     for r in sweep:
         if r["operand"] not in best or r["us"] < best[r["operand"]]["us"]:
@@ -2585,7 +2652,8 @@ def main():
     kernels = {"dia_spmm_t": kd.dia_spmm_t_cuda, "ell_spmm_t": kg.ell_spmm_t_cuda,
                "bsr_spmm_t": kg.bsr_spmm_t_cuda, "spmm_c": kv.spmm_c, "spmm_b": kv.spmm_b,
                "spmm_d": kv.spmm_d, "ident": pp.ident, "identd": pp.identd,
-               "ident_alias": pp.ident_alias}
+               "ident_alias": pp.ident_alias, "ident_first": pp.ident_first,
+               "ident_alias_first": pp.ident_alias_first}
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -2757,7 +2825,8 @@ def main():
     # --- phase 12: the measurement path through its entry points ---
     cli_launches, roofline, variants = phase_measure(torch, kernels, pp, kv)
     copy_gbps = roofline["copy_gbps"]
-    copies = copy_kernel_rows(torch, pp, x8, d5, copy_errs, roofline["best_tile"])
+    copies = copy_kernel_rows(torch, pp, x8, d5, copy_errs, roofline["best_ident_tile"],
+                              roofline["best_tile"])
     del x8, d5
     torch.cuda.empty_cache()
 
@@ -2778,7 +2847,8 @@ def main():
 
     study_kernels = {"ell_spmm_t": kg.ell_spmm_t_cuda, "ablate_full": ga.ablate_full,
                      "ablate_nogather": ga.ablate_nogather, "ablate_nodyn": ga.ablate_nodyn,
-                     "ablate_nofma": ga.ablate_nofma, **gp.KERNELS}
+                     "ablate_nofma": ga.ablate_nofma, **gp.KERNELS,
+                     **{name + "_first": fn for name, fn in gp.FIRST_VERSIONS.items()}}
     phase_study_check(torch, ga, gp)
     study_launches, k2_by_operand, ablate_ops, ablate_rows, forms = phase_study(
         torch, study_kernels, ga, gp)
@@ -2918,9 +2988,14 @@ def main():
                            library["2d N=2048 m=8 f32"]))
     for name, line in (("ident", 42), ("identd", 57), ("ident_alias", 113)):
         rec = copies[name]
+        more = {k: rec[k] for k in ("tile", "first_version_ms", "first_version_tile", "body",
+                                    "device_ms", "first_version_device_ms", "library_device_ms")
+                if k in rec}
+        if name in pp.FIRST_VERSIONS:
+            more["first_version_launches"] = cli_launches[name + "_first"]
         table.append(entry(name, csrc + "copy_probe.cu", f"experiments/pipeline_probe.py:{line}",
                            cli_launches[name], rec, rec["nbytes"], rec["flops"],
-                           rec["library_ms"]))
+                           rec["library_ms"], **more))
     for row in (r for r in ablate_rows if r["operand"] == "elasticity_512" and "variant" in r):
         v, k = row["variant"], row["k"]
         us = row["us"]
@@ -2940,20 +3015,28 @@ def main():
                            ablate_library if v == "full" else None))
     for name, lines in PROBE_LINES.items():
         row = forms[name]
+        # ms: the device time by replay (the host's launch of one of these
+        # kernels through its wrapper takes about as long); eager_ms beside
         rec = dict(max_abs_err=row["max_abs_err"], ms=row["us"] / 1e3,
                    plain_ms=row["plain_us"] / 1e3,
                    case="x".join(str(d) for d in row["shape"]) + " f32")
         flops = row["nbytes"] // 9 if name == "int8_widen" else 0  # one add per 9 bytes
         # nbytes: the function's (a block selection: one block in, one out);
-        # what the scratch form stages beyond that stands beside it
+        # what the scratch form's first version staged beyond that stands
+        # beside its time
+        more = {"eager_ms": row["eager_us"] / 1e3,
+                "library_eager_ms": row["library_eager_us"] / 1e3}
+        if row["first_us"] is not None:
+            more.update(first_version_ms=row["first_us"] / 1e3,
+                        first_version_launches=study_launches[name + "_first"])
+        if row["first_streamed_bytes"] is not None:
+            more["first_version_streamed_bytes"] = row["first_streamed_bytes"]
         table.append(entry(name, csrc + "gather_probe.cu",
                            "experiments/mosaic_gather_probe.py:" + lines,
                            study_launches[name], rec, row["nbytes"], flops,
                            row["library_us"] / 1e3, share_of_form_copy=row["share"],
                            streamed_bytes=row["streamed_bytes"],
-                           streamed_gbps=row["streamed_bytes"] / row["us"] / 1e3,
-                           **({} if row["first_us"] is None else
-                              {"first_version_ms": row["first_us"] / 1e3})))
+                           streamed_gbps=row["streamed_bytes"] / row["us"] / 1e3, **more))
     log(json.dumps({"kernels": table}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ CUDA events time the device directly, so it is not carried over.
 
 ``replay_ms`` has no counterpart there: it times one call of a function by
 replaying a CUDA graph of several calls, for kernels shorter than the
-host's launch interval.
+host's launch interval. ``in_turns`` times a kernel beside its first
+version (and others) in the order kernel, first, first, kernel.
 """
 
 from __future__ import annotations
@@ -88,3 +89,16 @@ def replay_ms(fn, reps: int = 9, inner: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return sorted(times)[len(times) // 2]
+
+
+def in_turns(fns, time_fn):
+    """The best of two times of each of ``fns`` (a kernel, then the
+    versions it is compared with), taken in turns forth and back (kernel,
+    first, first, kernel for two), so that a drift of the card's clocks
+    during the run falls on all alike. ``time_fn(fn)`` times one of them;
+    returns the times in the order of ``fns``."""
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for i in order + order[::-1]:
+        times[i].append(time_fn(fns[i]))
+    return [min(t) for t in times]

@@ -12,13 +12,33 @@
 //
 // What bounds them: device-memory bytes, one read and one write of X (plus
 // the coefficient stream); one add per 8 bytes is far below the card's
-// balance. What the design does about that: every thread moves 16 bytes per
-// load and store, neighbouring threads neighbouring addresses, and issues
-// four loads before its first store. The reference's "tile" (the columns
-// one grid step owns) is kept as a parameter: a block owns `tile` columns
-// of all rows per step and strides over the tiles, so the tile sweep of
-// the reference has a counterpart. Large tiles leave fewer blocks than the
-// card has SMs; that is what the sweep shows.
+// balance. The reference's "tile" (the columns one grid step owns) is kept
+// as a parameter everywhere, so the tile sweep of the reference has a
+// counterpart: in the first version and copy_add_row a block owns `tile`
+// columns of all rows per step and strides over the tiles (large tiles
+// leave fewer blocks than the card has SMs; that is what the sweep
+// shows); the bulk body cuts each tile into chunks, in tile order.
+//
+// copy_add1 has two bodies, chosen by the launcher's `body` flag:
+//   bulk  (copy_add1_bulk_kernel) each tile's rows x T block, taken
+//         row-major, is cut into chunks of 16 KB, one block of the grid a
+//         chunk, the grid sweeping the tiles in order. One producer thread
+//         brings the chunk's row segments into shared memory with bulk
+//         copies (cp.async.bulk, completed on an mbarrier), four consumer
+//         warps add 1 there as float4s, fence the generic proxy against
+//         the async one and arrive on a second barrier, and the producer
+//         writes the chunk back with one bulk store a segment. The copy
+//         engine computes the addresses, so no thread spends registers or
+//         instructions on them; the twelve blocks resident on an SM (16 KB
+//         each) overlap one block's store with the next blocks' loads.
+//         Needs width, tile and both pointers on 16 bytes. In place, each
+//         chunk's store follows its own load, so the same body serves
+//         X = X + 1. (A persistent grid walking its chunks through a ring
+//         of stages was no faster on the H100: PERF.md.)
+//   first (copy_add1_kernel, float4 where aligned, else scalar) the first
+//         version, kept to be timed in turns with the bulk body, and the
+//         body off the 16-byte grid: every thread moves 16 bytes per load
+//         and store and issues four loads before its first store.
 //
 // The coefficient stream: the TPU kernel is handed the whole (nd, tile)
 // block of d by its BlockSpec though it adds row 0 only, and the probe's
@@ -33,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 #define CP_THREADS 256
 #define CP_MAX_BLOCKS_PER_SM 8
@@ -155,6 +177,71 @@ copy_add_row_kernel(const float* __restrict__ d, const float* __restrict__ x,
   }
 }
 
+// --- the bulk-copy body ----------------------------------------------------
+
+#define ID_CHUNK_FLOATS 4096  // 16 KB a chunk
+#define ID_CONSUMER_WARPS 4
+#define ID_THREADS (32 * (1 + ID_CONSUMER_WARPS))
+
+// chunks a tile: its rows x tile floats, row-major, in chunks of
+// ID_CHUNK_FLOATS (the last tile, narrower, may fill fewer)
+__host__ __device__ __forceinline__ long long id_chunks_per_tile(int rows, int tile) {
+  return ((long long)rows * tile + ID_CHUNK_FLOATS - 1) / ID_CHUNK_FLOATS;
+}
+
+// the floats [lo, lo + n) of the rows x w block at column c0, global <->
+// chunk: one bulk copy a row segment (one division a segment, none an
+// element)
+template <bool LOAD>
+__device__ __forceinline__ void chunk_copy(float* g, long long width, long long c0, int w,
+                                           int lo, int n, float* chunk, uint64_t* full) {
+  if (LOAD) mbar_arrive_expect_tx(full, (uint32_t)n * 4);
+  for (int f = lo; f < lo + n;) {
+    const int r = f / w, c = f - r * w, seg = min(w - c, lo + n - f);
+    float* at = g + (size_t)r * width + c0 + c;
+    if (LOAD)
+      bulk_load(chunk + (f - lo), at, (uint32_t)seg * 4, full);
+    else
+      bulk_store(at, chunk + (f - lo), (uint32_t)seg * 4);
+    f += seg;
+  }
+}
+
+// Y = X + 1 by bulk copies through shared memory (the head of this file),
+// block g the chunk g % cpt of tile g / cpt; y may be x.
+__global__ void __launch_bounds__(ID_THREADS)
+copy_add1_bulk_kernel(const float* x, float* y, int rows, long long width, int tile) {
+  __shared__ __align__(128) float chunk[ID_CHUNK_FLOATS];
+  __shared__ uint64_t full, done;  // the loads landed; the consumers' +1 is in shared memory
+  const long long cpt = id_chunks_per_tile(rows, tile);
+  const long long t = blockIdx.x / cpt;
+  const long long c0 = t * tile;
+  const int w = (int)min((long long)tile, width - c0);
+  const int lo = (int)(blockIdx.x - t * cpt) * ID_CHUNK_FLOATS;
+  const int n = min(ID_CHUNK_FLOATS, rows * w - lo);
+  if (n <= 0) return;  // a slot past the narrow last tile's chunks: the whole block
+  if (threadIdx.x == 0) {
+    mbar_init(&full, 1);
+    mbar_init(&done, ID_CONSUMER_WARPS * 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x != 0) return;
+    chunk_copy<true>(const_cast<float*>(x), width, c0, w, lo, n, chunk, &full);
+    mbar_wait(&done, 0);
+    chunk_copy<false>(y, width, c0, w, lo, n, chunk, nullptr);
+    bulk_commit();
+    bulk_wait<0>();  // the stores have landed before the block's memory goes
+    return;
+  }
+  mbar_wait(&full, 0);
+  float4* v = reinterpret_cast<float4*>(chunk);
+  for (int i = threadIdx.x - 32; i < (n >> 2); i += ID_CONSUMER_WARPS * 32) v[i] = add1(v[i]);
+  fence_proxy_async();
+  mbar_arrive(&done);
+}
+
 static int probe_grid(long long width, int tile, unsigned* grid) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -177,36 +264,41 @@ static bool bad_shape(int rows, long long width, int tile) {
 
 extern "C" {
 
-int copy_add1_launch(const void* x, void* y, int rows, long long width,
-                     int tile, void* stream) {
-  if (bad_shape(rows, width, tile) || x == y) return (int)cudaErrorInvalidValue;
+// body: 0 the first version (float4 where width, tile and the pointers
+// allow, else scalar), 1 bulk copies one chunk a block (refused off the
+// 16-byte grid; the wrappers choose with pipeline_probe.copy_body)
+static int launch_add1(int body, const void* x, void* y, int rows, long long width, int tile,
+                       cudaStream_t s) {
+  if (bad_shape(rows, width, tile) || body < 0 || body > 1) return (int)cudaErrorInvalidValue;
+  const bool vec = width % 4 == 0 && tile % 4 == 0 && aligned16(x) && aligned16(y);
   unsigned grid;
+  if (body == 1) {
+    const long long slots = (width + tile - 1) / tile * id_chunks_per_tile(rows, tile);
+    if (!vec || slots > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    copy_add1_bulk_kernel<<<(unsigned)slots, ID_THREADS, 0, s>>>((const float*)x, (float*)y,
+                                                                  rows, width, tile);
+    return (int)cudaGetLastError();
+  }
   int e = probe_grid(width, tile, &grid);
   if (e) return e;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (width % 4 == 0 && tile % 4 == 0 && aligned16(x) && aligned16(y))
-    copy_add1_kernel<true><<<grid, CP_THREADS, 0, s>>>(
-        (const float*)x, (float*)y, rows, width, tile);
+  if (vec)
+    copy_add1_kernel<true><<<grid, CP_THREADS, 0, s>>>((const float*)x, (float*)y, rows, width,
+                                                       tile);
   else
-    copy_add1_kernel<false><<<grid, CP_THREADS, 0, s>>>(
-        (const float*)x, (float*)y, rows, width, tile);
+    copy_add1_kernel<false><<<grid, CP_THREADS, 0, s>>>((const float*)x, (float*)y, rows, width,
+                                                        tile);
   return (int)cudaGetLastError();
 }
 
-int copy_add1_inplace_launch(void* x, int rows, long long width, int tile,
+int copy_add1_launch(int body, const void* x, void* y, int rows, long long width, int tile,
+                     void* stream) {
+  if (x == y) return (int)cudaErrorInvalidValue;
+  return launch_add1(body, x, y, rows, width, tile, (cudaStream_t)stream);
+}
+
+int copy_add1_inplace_launch(int body, void* x, int rows, long long width, int tile,
                              void* stream) {
-  if (bad_shape(rows, width, tile)) return (int)cudaErrorInvalidValue;
-  unsigned grid;
-  int e = probe_grid(width, tile, &grid);
-  if (e) return e;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (width % 4 == 0 && tile % 4 == 0 && aligned16(x))
-    copy_add1_kernel<true><<<grid, CP_THREADS, 0, s>>>(
-        (const float*)x, (float*)x, rows, width, tile);
-  else
-    copy_add1_kernel<false><<<grid, CP_THREADS, 0, s>>>(
-        (const float*)x, (float*)x, rows, width, tile);
-  return (int)cudaGetLastError();
+  return launch_add1(body, x, x, rows, width, tile, (cudaStream_t)stream);
 }
 
 int copy_add_row_launch(const void* d, const void* x, void* y, int rows,

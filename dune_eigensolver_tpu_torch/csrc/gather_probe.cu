@@ -25,16 +25,31 @@
 //                  gather_2lane_8x256, int8_gather_idx)
 //   block_select   out = block p of x, p read from device memory by the
 //                  kernel (__ldg): either through a shared-memory scratch
-//                  that holds all nb blocks (dyn_scratch_load_3d), or
-//                  straight from device memory at the run-time offset
-//                  (dyn_input_load_3d, dyn_lane_slice_aligned,
-//                  vmem_scalar_index: the strides say which). The straight
+//                  (dyn_scratch_load_3d), or straight from device memory at
+//                  the run-time offset (dyn_input_load_3d,
+//                  dyn_lane_slice_aligned, vmem_scalar_index: the strides
+//                  say which). The scratch form stages block p alone: the
+//                  TPU kernel stages all nb blocks only because its
+//                  BlockSpec fixes at trace time which block lands in VMEM,
+//                  while Hopper's bulk copy takes a source address computed
+//                  at run time, so the index lives in the copy itself
+//                  (block_select_bulk_kernel: a persistent grid sized by
+//                  occupancy that sweeps the output in chunks of 16 KB,
+//                  each block's chunks moved through a ring of BS_STAGES
+//                  stages by one thread: bulk loads of block p's row
+//                  segments completed on the stage's mbarrier, one bulk
+//                  store a stage, a stage refilled once its store has read
+//                  it, so one stage's store overlaps the next stages'
+//                  loads). Off the 16-byte grid the wrapper takes the
+//                  straight form's row copy instead. The first version, which stages all nb blocks a chunk at a
+//                  time, stays for timing in turns (block_select_launch,
+//                  form 1). The straight
 //                  form is a copy of `rows` runs of bw floats: one block of
 //                  the grid a (chunk of a row, row), float4 moves where the
 //                  addresses and strides allow, four moves in flight a
 //                  thread (slice_rows_launch). Its first version, one
 //                  float a thread with a division an element, stays for
-//                  timing in turns (block_select_launch, via_smem = 0).
+//                  timing in turns (block_select_launch, form 0).
 //   roll_lanes     out[r, c] = x[r, seg(c) + (c + s) mod seg], s read from
 //                  device memory; through shared memory (dyn_roll_lane).
 //   gather_axis0   out[r, c] = x[idx[r, c], c]: a gather across rows,
@@ -51,6 +66,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 #define GP_THREADS 256
 #define GP_CHUNK 2048        // columns a block of the shared-memory forms stages
@@ -136,6 +153,64 @@ block_select_smem_kernel(const float* __restrict__ x, const int* __restrict__ p_
   const int p = clampi(__ldg(p_ptr), nb - 1);
   for (int c = threadIdx.x; c < w; c += GP_THREADS)
     out[(size_t)blockIdx.y * bw + c0 + c] = sm[p * chunk + c];
+}
+
+#define BS_STAGES 8
+#define BS_STAGE_FLOATS 4096  // 16 KB a stage
+#define BS_SMEM (BS_STAGES * (BS_STAGE_FLOATS * 4 + 8))
+
+// Block p of x (rows, nb * bw) by bulk copies (the head of this file). The
+// flat output, total = rows * bw floats, is cut into chunks of
+// BS_STAGE_FLOATS; block b of the persistent grid moves chunks b,
+// b + gridDim.x, ..., so the grid sweeps the output in order, each chunk
+// loaded as the row segments of block p it covers (one bulk load each) and
+// stored as one run. bw and x on 16 bytes (the launcher checks it), so
+// every segment starts and ends on 16 bytes.
+__global__ void __launch_bounds__(32)
+block_select_bulk_kernel(const float* __restrict__ x, const int* __restrict__ p_ptr,
+                         float* __restrict__ out, int bw, int nb, long long total) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  if (threadIdx.x != 0) return;
+  float* stages = reinterpret_cast<float*>(ring_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_smem + BS_STAGES * BS_STAGE_FLOATS * 4);
+  for (int s = 0; s < BS_STAGES; ++s) mbar_init(full + s, 1);
+  mbar_init_fence();
+  const float* src = x + (size_t)clampi(__ldg(p_ptr), nb - 1) * bw;
+  const long long nch = (total + BS_STAGE_FLOATS - 1) / BS_STAGE_FLOATS;
+  const int nk = (int)((nch - blockIdx.x + gridDim.x - 1) / gridDim.x);  // this block's chunks
+  // the output offset and the length of this block's k-th chunk
+  auto chunk = [&](int k, long long* f0) {
+    *f0 = (blockIdx.x + (long long)k * gridDim.x) * BS_STAGE_FLOATS;
+    return (int)min((long long)BS_STAGE_FLOATS, total - *f0);
+  };
+  auto load = [&](int k, int s) {
+    long long f0;
+    const int n = chunk(k, &f0);
+    float* stage = stages + s * BS_STAGE_FLOATS;
+    mbar_arrive_expect_tx(full + s, (uint32_t)n * 4);
+    for (long long f = f0; f < f0 + n;) {
+      const long long r = f / bw;
+      const int c = (int)(f - r * bw), seg = (int)min((long long)(bw - c), f0 + n - f);
+      bulk_load(stage + (f - f0), src + (size_t)r * nb * bw + c, (uint32_t)seg * 4, full + s);
+      f += seg;
+    }
+  };
+  for (int k = 0; k < nk && k < BS_STAGES; ++k) load(k, k);
+  for (int k = 0; k < nk; ++k) {
+    const int s = k % BS_STAGES;
+    mbar_wait(full + s, (k / BS_STAGES) & 1);
+    long long f0;
+    const int n = chunk(k, &f0);
+    bulk_store(out + f0, stages + s * BS_STAGE_FLOATS, (uint32_t)n * 4);
+    bulk_commit();
+    // refill the stage stored one step ago once its store has read it;
+    // this step's store may still be reading
+    if (k > 0 && k - 1 + BS_STAGES < nk) {
+      bulk_wait_read<1>();
+      load(k - 1 + BS_STAGES, (k - 1) % BS_STAGES);
+    }
+  }
+  bulk_wait<0>();  // the stores have landed before the block's memory goes
 }
 
 // out[r, c] = x[p * block_stride + r * row_stride + c]; the first version:
@@ -248,6 +323,30 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // columns a block stages: a multiple of seg, GP_CHUNK unless seg is larger
 int chunk_for(int seg) { return seg > GP_CHUNK ? seg : GP_CHUNK; }
 
+// the bulk selection's grid: as many blocks as fit on the card at once
+// (occupancy with BS_SMEM of shared memory), at most one a chunk
+int bulk_select_grid(long long total, unsigned* grid) {
+  static int dev_seen = -1, per_sm = 0, sms = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev != dev_seen) {
+    e = cudaFuncSetAttribute(block_select_bulk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, BS_SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_select_bulk_kernel, 32,
+                                                        BS_SMEM);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    dev_seen = dev;
+  }
+  const long long chunks = (total + BS_STAGE_FLOATS - 1) / BS_STAGE_FLOATS;
+  const long long cap = (long long)sms * per_sm;
+  *grid = (unsigned)(chunks < cap ? chunks : cap);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -289,15 +388,21 @@ int gather_lanes_launch(int form, int idx_bytes, const void* x, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// via_smem: x is (rows, nb * bw) and the strides are ignored; else block p
-// starts at p * block_stride and its rows are row_stride apart (the first
-// version of slice_rows_launch). p is read from p_ptr[0].
-int block_select_launch(int via_smem, const void* x, const void* p_ptr, void* out, int rows,
+// form 0: block p at p * block_stride, its rows row_stride apart, one
+// float a thread over the flat output (the first version of
+// slice_rows_launch). Forms 1 and 2 take x (rows, nb * bw) and ignore the
+// strides: 1 stages all nb blocks (the scratch selection's first
+// version), 2 moves block p alone by bulk copies (refused unless bw is a
+// multiple of 4 and x and out lie on 16 bytes; the wrapper chooses it with
+// gather_probe.scratch_body, and slice_rows_launch elsewhere). p is read
+// from p_ptr[0].
+int block_select_launch(int form, const void* x, const void* p_ptr, void* out, int rows,
                         int bw, int nb, long long row_stride, long long block_stride,
                         void* stream) {
-  if (rows < 1 || rows > 65535 || bw < 1 || nb < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || rows > 65535 || bw < 1 || nb < 1 || form < 0 || form > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (via_smem) {
+  if (form == 1) {
     const int chunk = bw < GP_CHUNK ? bw : GP_CHUNK;
     const size_t smem = (size_t)nb * chunk * sizeof(float);
     if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -310,6 +415,14 @@ int block_select_launch(int via_smem, const void* x, const void* p_ptr, void* ou
     const dim3 grid((unsigned)((bw + chunk - 1) / chunk), (unsigned)rows);
     block_select_smem_kernel<<<grid, GP_THREADS, smem, s>>>(
         (const float*)x, (const int*)p_ptr, (float*)out, bw, nb, chunk);
+  } else if (form == 2) {
+    if (bw % 4 || !aligned16(x) || !aligned16(out)) return (int)cudaErrorInvalidValue;
+    const long long total = (long long)rows * bw;
+    unsigned grid;
+    int e = bulk_select_grid(total, &grid);
+    if (e) return e;
+    block_select_bulk_kernel<<<grid, 32, BS_SMEM, s>>>((const float*)x, (const int*)p_ptr,
+                                                       (float*)out, bw, nb, total);
   } else {
     block_select_global_kernel<<<stride_grid((long long)rows * bw), GP_THREADS, 0, s>>>(
         (const float*)x, (const int*)p_ptr, (float*)out, rows, bw, nb, row_stride,

@@ -12,8 +12,11 @@ reference's names, inputs and functions:
       ``gather_lanes_smem``: out[r, c] = x[r, seg(c) + idx[r, c]] through
       shared memory; gather_1vreg_8x128 also through warp shuffles
       (``gather_lanes_shfl``); ``gather_lanes_global`` is the L1/L2 form
-  dyn_scratch_load_3d       ``block_select_scratch``: block p of a
-                            shared-memory scratch, p read by the kernel
+  dyn_scratch_load_3d       ``block_select_scratch``: block p through a
+                            shared-memory scratch, p read by the kernel and
+                            put in the bulk copies' source address (where
+                            ``scratch_body`` says "bulk"; its first version,
+                            which stages all blocks, is timed beside)
   dyn_input_load_3d, vmem_scalar_index   ``block_select``: x[p]
   dyn_lane_slice_aligned    ``lane_slice``: x[:, p*bw:(p+1)*bw]
                             (both one row-copy kernel, float4 moves where
@@ -46,7 +49,7 @@ import argparse
 import numpy as np
 import torch
 
-from dune_eigensolver_tpu_torch.bench.timing import bench_loop
+from dune_eigensolver_tpu_torch.bench.timing import bench_loop, in_turns, replay_ms
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 FORMS = ("smem", "shfl", "global")  # how the row gather brings x to the thread
@@ -186,21 +189,60 @@ def _index_ok(what: str, x: torch.Tensor, p: torch.Tensor):
         raise TypeError(f"{what}: the index must be a non-empty int32 tensor")
 
 
-def block_select_scratch(x: torch.Tensor, p: torch.Tensor, bw: int = 128) -> torch.Tensor:
-    """x[:, p*bw:(p+1)*bw] for x (rows, nb*bw): the kernel stages all nb
-    blocks in a shared-memory scratch and copies out block p, which it
-    reads from ``p`` (int32, on the card) itself."""
-    _index_ok("block_select_scratch", x, p)
+#: ``block_select_launch``'s form of each body that takes x (rows, nb*bw)
+SCRATCH_FORMS = {"first": 1, "bulk": 2}
+
+
+def scratch_body(bw: int, align: int = 16) -> str:
+    """Which body of the scratch selection runs: "bulk" (block p's row
+    segments through a ring of shared-memory stages by bulk copies) where
+    every segment starts and ends on 16 bytes, that is ``bw`` is a multiple
+    of 4 and both tensors' addresses are multiples of ``align`` with 16
+    dividing it (the row stride nb*bw then is one too); "rows" (the row
+    copy of ``lane_slice``, one float a thread) else, which has no
+    condition. A dispatch between two bodies that give the same bits; the
+    launcher refuses "bulk" elsewhere."""
+    if align % 16 == 0 and bw % 4 == 0:
+        return "bulk"
+    return "rows"
+
+
+def _scratch(fn, x: torch.Tensor, p: torch.Tensor, bw: int, first: bool) -> torch.Tensor:
+    what = fn.__name__
+    _index_ok(what, x, p)
     if x.ndim != 2 or bw < 1 or x.shape[1] % bw:
-        raise ValueError(f"block_select_scratch: x {tuple(x.shape)} is not (rows, nb * {bw})")
+        raise ValueError(f"{what}: x {tuple(x.shape)} is not (rows, nb * {bw})")
     nb = x.shape[1] // bw
-    if nb * min(bw, 2048) * 4 > 227 * 1024:
-        raise ValueError(f"block_select_scratch: {nb} blocks exceed a block's shared memory")
+    if first and nb * min(bw, 2048) * 4 > 227 * 1024:
+        raise ValueError(f"{what}: {nb} blocks exceed a block's shared memory")
     out = torch.empty((x.shape[0], bw), dtype=x.dtype, device=x.device)
-    _run("block_select_launch", x, 1, x.data_ptr(), p.data_ptr(), out.data_ptr(), x.shape[0],
-         bw, nb, 0, 0)
-    block_select_scratch.launches += 1
+    ptrs = x.data_ptr() | out.data_ptr() | 16
+    fn.body = "first" if first else scratch_body(bw, align=ptrs & -ptrs)
+    if fn.body == "rows":
+        _run("slice_rows_launch", x, 1, x.data_ptr(), p.data_ptr(), out.data_ptr(), x.shape[0],
+             bw, nb, nb * bw, bw)
+    else:
+        _run("block_select_launch", x, SCRATCH_FORMS[fn.body], x.data_ptr(), p.data_ptr(),
+             out.data_ptr(), x.shape[0], bw, nb, 0, 0)
+    fn.launches += 1
     return out
+
+
+def block_select_scratch(x: torch.Tensor, p: torch.Tensor, bw: int = 128) -> torch.Tensor:
+    """x[:, p*bw:(p+1)*bw] for x (rows, nb*bw) through a shared-memory
+    scratch that holds block p alone: the kernel reads p from ``p`` (int32,
+    on the card) and puts it in the source address of the bulk copies that
+    fill the scratch (the body ``scratch_body`` chooses, in
+    ``block_select_scratch.body``)."""
+    return _scratch(block_select_scratch, x, p, bw, first=False)
+
+
+def block_select_scratch_first(x: torch.Tensor, p: torch.Tensor, bw: int = 128
+                               ) -> torch.Tensor:
+    """``block_select_scratch`` by its first version, which stages a chunk
+    of all nb blocks in shared memory and copies out block p; kept to be
+    timed in turns with the bulk copy."""
+    return _scratch(block_select_scratch_first, x, p, bw, first=True)
 
 
 def slice_vector_width(bw: int, row_stride: int, block_stride: int, align: int = 16) -> int:
@@ -318,12 +360,14 @@ def int8_widen(x: torch.Tensor, i8: torch.Tensor) -> torch.Tensor:
 KERNELS = {fn.__name__: fn for fn in (
     gather_lanes_smem, gather_lanes_shfl, gather_lanes_global, gather_lanes_int8,
     block_select_scratch, lane_slice, block_select, roll_lanes, gather_axis0, int8_widen)}
-#: the first versions of the row copy, by the name of the kernel they
+#: the first versions of the selections, by the name of the kernel they
 #: preceded; no probe runs them, only ``form_table``'s timing in turns
-FIRST_VERSIONS = {"lane_slice": lane_slice_first, "block_select": block_select_first}
+FIRST_VERSIONS = {"lane_slice": lane_slice_first, "block_select": block_select_first,
+                  "block_select_scratch": block_select_scratch_first}
 for _fn in (*KERNELS.values(), *FIRST_VERSIONS.values()):
     _fn.launches = 0
 lane_slice.width = block_select.width = None  # the vector width of the last launch
+block_select_scratch.body = block_select_scratch_first.body = None  # the body of the last launch
 
 
 # ---------------------------------------------------------------------------
@@ -500,22 +544,32 @@ def form_table(device, width: int = 4_194_304):
     the row in segments of 128 by shuffles, through shared memory, through
     L1/L2 and with int8 indices, the gather across rows, the roll, the int8
     widen-add, and the three selections of one of four blocks.
-    ``us``/``plain_us``: best chain of 30 of the kernel and of its plain
-    version; ``library_us``: the same of one PyTorch call that computes the
-    function on arguments prepared outside the timing (indices already
-    int64, block index and shift already on the host); ``nbytes``: the bytes
+    ``us``: the kernel's device time, by replaying a CUDA graph of ten
+    calls (``bench.timing.replay_ms``: these kernels take less time than the
+    host needs to launch one through its wrapper); ``eager_us``: best chain
+    of 30 launched from the host, which that host time can bound;
+    ``plain_us``: best chain of 30 of the plain version (the selections'
+    and the roll's read the index on the host, which no graph can hold);
+    ``library_us``: the device time, by
+    replay, of one PyTorch call that computes the function on arguments
+    prepared outside the timing (indices already int64, block index and
+    shift already on the host); the copy's row is ``x + 1.0`` by replay;
+    ``library_eager_us``: the library call's best chain of 30, to stand
+    beside ``eager_us``. On the CPU every time is the best chain of 30 (and
+    the eager keys are None). ``nbytes``: the bytes
     the function must move (inputs read once, output written once; for a
     block selection one block in, one out), ``gbps`` those over the time and
     ``share`` that over the copy's; ``streamed_bytes``: what the kernel
-    moves by design where that is more (the scratch form stages all four
-    blocks). On the card each kernel is first held to its plain version
-    (``max_abs_err``, which must be 0: these kernels only move values, and
-    the widen-add is one f32 add); ``lane_slice`` and ``block_select`` are
-    timed in turns with their first versions (``FIRST_VERSIONS``, held to
-    the same bits): kernel, first, first, kernel, the best of each, the
-    first's in ``first_us`` (None on every other row). On the CPU only the
-    plain versions run and ``us`` is None. Prints each row as a ``FORM``
-    line."""
+    moves by design (here the function's bytes for every form);
+    ``first_streamed_bytes``: what a first version moves beyond them (the
+    scratch form's stages all four blocks; None on the other rows). On the
+    card each kernel is first held to its plain version (``max_abs_err``,
+    which must be 0: these kernels only move values, and the widen-add is
+    one f32 add); the three selections are timed in turns with their first
+    versions (``FIRST_VERSIONS``, held to the same bits): kernel, first,
+    first, kernel, the best of each, the first's in ``first_us`` (None on
+    every other row), by replay too. On the CPU only the plain versions run
+    and ``us`` is None. Prints each row as a ``FORM`` line."""
     device = resolve(device)
     on_card = device.type == "cuda"
     rng = np.random.default_rng(0)
@@ -542,7 +596,8 @@ def form_table(device, width: int = 4_194_304):
         return v[:, blk * bw:(blk + 1) * bw].clone()
 
     firsts = {"lane_slice": lambda v, q: lane_slice_first(v, q, bw),
-              "block_select": block_select_first}
+              "block_select": block_select_first,
+              "block_select_scratch": lambda v, q: block_select_scratch_first(v, q, bw)}
 
     # name, kernel, plain version, the one library call, x0, further
     # arguments, bytes the function moves, bytes the kernel streams
@@ -563,10 +618,11 @@ def form_table(device, width: int = 4_194_304):
          2 * f4, 2 * f4),
         ("int8_widen", int8_widen, int8_widen_reference, int8_widen_reference, x, (i8,),
          2 * f4 + f4 // 4, 2 * f4 + f4 // 4),
-        # the function is one block in, one out; the scratch form stages all four
+        # the function is one block in, one out, and the scratch form moves
+        # just that; its first version stages all four blocks
         ("block_select_scratch", lambda v, q: block_select_scratch(v, q, bw),
          lambda v, q: lane_slice_reference(v, q, bw), slice_library, x, (p,),
-         2 * (f4 // 4), f4 + f4 // 4),
+         2 * (f4 // 4), 2 * (f4 // 4)),
         ("lane_slice", lambda v, q: lane_slice(v, q, bw),
          lambda v, q: lane_slice_reference(v, q, bw), slice_library, x, (p,),
          2 * (f4 // 4), 2 * (f4 // 4)),
@@ -580,18 +636,29 @@ def form_table(device, width: int = 4_194_304):
             return v
         return step
 
-    t_copy = bench_loop(lambda v: v + 1.0, x, K=30)
+    def device_s(fn, *a):  # one call's device time, seconds
+        return replay_ms(lambda: fn(*a)) * 1e-3
+
+    def eager_us(fn, x0, args):  # best chain of 30 launched from the host, µs
+        return bench_loop(keep(fn), x0, K=30, op_args=args) * 1e6
+
+    def copy(v):
+        return v + 1.0
+
+    t_copy = device_s(copy, x) if on_card else bench_loop(copy, x, K=30)
     copy_gbps = 2 * f4 / t_copy / 1e9
     row = dict(name="copy", shape=(ROWS, width), us=t_copy * 1e6 if on_card else None,
-               plain_us=t_copy * 1e6, library_us=t_copy * 1e6, first_us=None, max_abs_err=None,
-               nbytes=2 * f4, streamed_bytes=2 * f4, gbps=copy_gbps, share=1.0)
+               eager_us=None, plain_us=t_copy * 1e6, library_us=t_copy * 1e6,
+               library_eager_us=eager_us(copy, x, ()) if on_card else None, first_us=None,
+               max_abs_err=None, nbytes=2 * f4, streamed_bytes=2 * f4, first_streamed_bytes=None,
+               gbps=copy_gbps, share=1.0)
     _print_form(row)
     yield row
     for name, kernel, plain, library, x0, args, nbytes, streamed in forms:
         want = plain(x0, *args)
         if not torch.equal(library(x0, *args).view(want.shape), want):
             raise RuntimeError(f"form {name}: library call and plain version differ")
-        t = err = t_first = None
+        t = err = t_first = t_eager = t_library_eager = None
         if on_card:
             err = (kernel(x0, *args) - want).abs().max().item()
             if err != 0.0:
@@ -599,20 +666,24 @@ def form_table(device, width: int = 4_194_304):
             if name in firsts:
                 if not torch.equal(firsts[name](x0, *args), want):
                     raise RuntimeError(f"form {name}: first version and plain version differ")
-                turns = {kernel: [], firsts[name]: []}
-                for fn in (kernel, firsts[name], firsts[name], kernel):
-                    turns[fn].append(bench_loop(keep(fn), x0, K=30, op_args=args))
-                t, t_first = min(turns[kernel]), min(turns[firsts[name]])
+                t, t_first = in_turns([kernel, firsts[name]], lambda fn: device_s(fn, x0, *args))
             else:
-                t = bench_loop(keep(kernel), x0, K=30, op_args=args)
+                t = device_s(kernel, x0, *args)
+            t_eager, t_library_eager = (eager_us(fn, x0, args) for fn in (kernel, library))
         del want
         t_plain = bench_loop(keep(plain), x0, K=30, op_args=args)
-        t_library = bench_loop(keep(library), x0, K=30, op_args=args)
+        if on_card:
+            t_library = device_s(library, x0, *args)
+        else:
+            t_library = bench_loop(keep(library), x0, K=30, op_args=args)
         best = t if on_card else t_plain
         row = dict(name=name, shape=tuple(x0.shape), us=None if t is None else t * 1e6,
-                   plain_us=t_plain * 1e6, library_us=t_library * 1e6,
+                   eager_us=t_eager, plain_us=t_plain * 1e6, library_us=t_library * 1e6,
+                   library_eager_us=t_library_eager,
                    first_us=None if t_first is None else t_first * 1e6, max_abs_err=err,
-                   nbytes=nbytes, streamed_bytes=streamed, gbps=nbytes / best / 1e9,
+                   nbytes=nbytes, streamed_bytes=streamed,
+                   first_streamed_bytes=f4 + f4 // 4 if name == "block_select_scratch" else None,
+                   gbps=nbytes / best / 1e9,
                    share=nbytes / best / 1e9 / copy_gbps)
         _print_form(row)
         yield row
@@ -622,8 +693,9 @@ def _print_form(row) -> None:
     us = "plain-only" if row["us"] is None else f"{row['us']:.1f}"
     shape = "x".join(str(d) for d in row["shape"])
     print(f"FORM name={row['name']} shape={shape} us={us} plain_us={row['plain_us']:.1f} "
-          f"library_us={row['library_us']:.1f} gbps={row['gbps']:.1f} share={row['share']:.3f}",
-          flush=True)
+          f"library_us={row['library_us']:.1f} gbps={row['gbps']:.1f} share={row['share']:.3f}"
+          + "".join(f" {k}={row[k]:.1f}" for k in ("eager_us", "library_eager_us")
+                    if row[k] is not None), flush=True)
 
 
 def main(argv=None) -> int:

@@ -14,7 +14,14 @@ Counterpart of ``experiments/pipeline_probe.py``. Phases, as there:
 ``csrc/copy_probe.cu`` (they replace ``pallas_ident``, ``pallas_identd``
 and ``pallas_ident_alias``), count their launches and have no fallback: a
 CPU tensor raises. ``ident_reference``/``identd_reference`` are their plain
-versions; ``main`` takes those, and only for ``--device cpu``.
+versions; ``main`` takes those, and only for ``--device cpu``. ``ident``
+and ``ident_alias`` move 16 KB chunks through shared memory by bulk copies,
+one chunk a block, where ``copy_body`` says "bulk" (width, tile and
+pointers on 16 bytes); elsewhere they run their first version ("first"),
+four float4s in flight a thread where aligned, else one float; the body
+taken is in ``<wrapper>.body``. The first versions, ``ident_first`` and
+``ident_alias_first`` (``FIRST_VERSIONS``), are timed in turns with them in
+phases 4 and 6.
 
     python -m dune_eigensolver_tpu_torch.experiments.pipeline_probe [T]
         [--device cpu] [--width W] [--mb MB]
@@ -29,7 +36,7 @@ import argparse
 
 import torch
 
-from dune_eigensolver_tpu_torch.bench.timing import bench_loop
+from dune_eigensolver_tpu_torch.bench.timing import bench_loop, in_turns
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 WIDTH = 4259840  # the reference's multivector width (a padded 2D N=2048)
@@ -70,20 +77,65 @@ def _run(name: str, x: torch.Tensor, *args) -> None:
     native.check(err, name)
 
 
+#: the launcher's ``body`` flag of each body of Y = X + 1
+BODIES = {"first": 0, "bulk": 1}
+
+
+def copy_body(width: int, tile: int, align: int = 16) -> str:
+    """Which body of Y = X + 1 runs: "bulk" (bulk copies through shared
+    memory, one 16 KB chunk a block) where every row segment of every tile
+    starts and ends on 16 bytes, that is ``width`` and ``tile`` are
+    multiples of 4 floats and both tensors' addresses are multiples of
+    ``align`` with 16 dividing it; "first" (the first version, which has no
+    condition) else. A dispatch between two bodies that give the same bits;
+    the launcher refuses "bulk" elsewhere."""
+    if align % 16 == 0 and width % 4 == 0 and tile % 4 == 0:
+        return "bulk"
+    return "first"
+
+
+def _add1(fn, T: int, x: torch.Tensor, y: torch.Tensor, body=None) -> None:
+    """X + 1 into y (which may be x) by the body ``copy_body`` chooses or by
+    ``body``; recorded in ``fn.body`` and counted on ``fn``."""
+    ptrs = x.data_ptr() | y.data_ptr() | 16
+    fn.body = body or copy_body(x.shape[1], T, align=ptrs & -ptrs)
+    if y is x:
+        _run("copy_add1_inplace_launch", x, BODIES[fn.body], x.data_ptr(), x.shape[0],
+             x.shape[1], T)
+    else:
+        _run("copy_add1_launch", x, BODIES[fn.body], x.data_ptr(), y.data_ptr(), x.shape[0],
+             x.shape[1], T)
+    fn.launches += 1
+
+
 def ident(T: int, x: torch.Tensor) -> torch.Tensor:
     """Y = X + 1 by the CUDA copy kernel; a block owns T columns per step."""
     _check("ident", T, x)
     y = torch.empty_like(x)
-    _run("copy_add1_launch", x, x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1], T)
-    ident.launches += 1
+    _add1(ident, T, x, y)
     return y
 
 
 def ident_alias(T: int, x: torch.Tensor) -> torch.Tensor:
     """X += 1 in place by the CUDA kernel; returns ``x`` itself."""
     _check("ident_alias", T, x)
-    _run("copy_add1_inplace_launch", x, x.data_ptr(), x.shape[0], x.shape[1], T)
-    ident_alias.launches += 1
+    _add1(ident_alias, T, x, x)
+    return x
+
+
+def ident_first(T: int, x: torch.Tensor) -> torch.Tensor:
+    """``ident`` by its first version (four float4 loads in flight a thread,
+    where aligned), kept to be timed in turns with the bulk copies."""
+    _check("ident_first", T, x)
+    y = torch.empty_like(x)
+    _add1(ident_first, T, x, y, body="first")
+    return y
+
+
+def ident_alias_first(T: int, x: torch.Tensor) -> torch.Tensor:
+    """``ident_alias`` by its first version."""
+    _check("ident_alias_first", T, x)
+    _add1(ident_alias_first, T, x, x, body="first")
     return x
 
 
@@ -99,15 +151,22 @@ def identd(T: int, d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-ident.launches = 0
-ident_alias.launches = 0
-identd.launches = 0
+#: the first versions of the two Y = X + 1 launches, by the name of the
+#: wrapper they preceded; only the timing in turns runs them
+FIRST_VERSIONS = {"ident": ident_first, "ident_alias": ident_alias_first}
+for _fn in (ident, ident_alias, identd, *FIRST_VERSIONS.values()):
+    _fn.launches = 0
+for _fn in (ident, ident_alias, *FIRST_VERSIONS.values()):
+    _fn.body = None  # the body of the last launch
 
 
 def copy_table(device, T: int = 32768, width: int = WIDTH, mb: int = 256):
     """Run the probe's phases; yield ``(label, seconds, GB/s, kind)`` as each
-    ends, with kind ``library`` (one PyTorch call), ``kernel`` or ``plain``
-    (the kernel's plain version, taken on the CPU only)."""
+    ends, with kind ``library`` (one PyTorch call), ``kernel``, ``first``
+    (the kernel's first version, ``ident first T=..`` and ``ident ALIASED
+    first T=..``, each timed in turns with the kernel's row before it:
+    kernel, first, first, kernel) or ``plain`` (the kernel's plain version,
+    taken on the CPU only, where neither runs)."""
     device = resolve(device)
     on_cpu = device.type == "cpu"
     kind = "plain" if on_cpu else "kernel"
@@ -142,13 +201,21 @@ def copy_table(device, T: int = 32768, width: int = WIDTH, mb: int = 256):
         t_d = bench_loop(lambda v, dd: identd_reference(dd, v), x, K=K, op_args=(d,))
         t_a = bench_loop(lambda v: v.add_(1.0), x, K=K)
     else:
+        def timed(fn):
+            return bench_loop(fn, x, K=K)
+
         for TT in (T, *(t for t in TILES if t != T)):
-            yield row(f"ident T={TT}", bench_loop(lambda v, TT=TT: ident(TT, v), x, K=K),
-                      xbytes, kind)
+            t_k, t_f = in_turns([lambda v, TT=TT: ident(TT, v),
+                                 lambda v, TT=TT: ident_first(TT, v)], timed)
+            yield row(f"ident T={TT}", t_k, xbytes, kind)
+            yield row(f"ident first T={TT}", t_f, xbytes, "first")
         t_d = bench_loop(lambda v, dd: identd(T, dd, v), x, K=K, op_args=(d,))
-        t_a = bench_loop(lambda v: ident_alias(T, v), x, K=K)
+        t_a, t_af = in_turns([lambda v: ident_alias(T, v), lambda v: ident_alias_first(T, v)],
+                             timed)
     yield row(f"ident+d T={T}", t_d, xbytes + d.numel() * 4, kind)
     yield row(f"ident ALIASED T={T}", t_a, xbytes, kind)
+    if not on_cpu:
+        yield row(f"ident ALIASED first T={T}", t_af, xbytes, "first")
 
 
 def main(argv=None) -> int:

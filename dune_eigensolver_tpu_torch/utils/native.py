@@ -6,8 +6,9 @@ The CUDA sources under ``csrc/`` are compiled with ``nvcc`` for sm_90a, one
 ``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, at first use, into the package's
 ``_build/`` directory (ignored by git), and loaded with ctypes. The
-library's file name carries a hash of the sources and flags, so an edited
-kernel is rebuilt and a stale one is never loaded. Nothing is built or
+library's file name carries a hash of the sources, the headers they
+include (``csrc/*.cuh``) and the flags, so an edited kernel or header is
+rebuilt and a stale one is never loaded. Nothing is built or
 loaded when the module is imported.
 
 The host helper, ``csrc/host/dunetpu.cpp`` (a copy of the JAX package's
@@ -49,10 +50,15 @@ _LIB = None
 _HOST_LIB = None
 
 
-def _sources():
-    return sorted(
-        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu")
-    )
+def _sources(csrc: str = CSRC):
+    """The CUDA sources, one ``nvcc`` each."""
+    return sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cu"))
+
+
+def _headers(csrc: str = CSRC):
+    """The headers the sources include (``bulk_copy.cuh``): not compiled on
+    their own, but part of the library's hash."""
+    return sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh"))
 
 
 def _nvcc() -> str:
@@ -66,9 +72,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _lib_path(sources) -> str:
+def _lib_path(sources, headers=()) -> str:
+    """The library's file name: a hash of the flags, the sources and the
+    headers they include, so an edited header is rebuilt too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode() + fh.read())
     return os.path.join(BUILD_DIR, f"libdune_kernels_{h.hexdigest()[:16]}.so")
@@ -90,11 +98,12 @@ def _run_all(cmds, tool="nvcc"):
 
 
 def build():
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    """Compile ``csrc/*.cu`` unless the library for these sources and
+    headers exists.
     Returns ``(library path, nvcc's output)``, the output empty when the
     library was already built. Raises with nvcc's output on failure."""
     sources = _sources()
-    path = _lib_path(sources)
+    path = _lib_path(sources, _headers())
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -128,12 +137,12 @@ def load() -> ctypes.CDLL:
     # (value_bytes, b, bdata_t, bcols_t, nbr, k, ncols, x, y, m, stream)
     lib.bsr_spmm_t_launch.restype = i32
     lib.bsr_spmm_t_launch.argtypes = [i32, i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
-    # copy probe: (x, y, rows, width, tile, stream), (x, rows, width, tile,
-    # stream), (d, x, y, rows, width, nd, tile, stream)
+    # copy probe: (body, x, y, rows, width, tile, stream), (body, x, rows,
+    # width, tile, stream), (d, x, y, rows, width, nd, tile, stream)
     lib.copy_add1_launch.restype = i32
-    lib.copy_add1_launch.argtypes = [vp, vp, i32, i64, i32, vp]
+    lib.copy_add1_launch.argtypes = [i32, vp, vp, i32, i64, i32, vp]
     lib.copy_add1_inplace_launch.restype = i32
-    lib.copy_add1_inplace_launch.argtypes = [vp, i32, i64, i32, vp]
+    lib.copy_add1_inplace_launch.argtypes = [i32, vp, i32, i64, i32, vp]
     lib.copy_add_row_launch.restype = i32
     lib.copy_add_row_launch.argtypes = [vp, vp, vp, i32, i64, i32, i32, vp]
     # DIA staging variants, each (data, x, y, [side,] n, m, ndiag, offsets, ...)
@@ -153,7 +162,7 @@ def load() -> ctypes.CDLL:
     lib.ell_ablate_launch.restype = i32
     lib.ell_ablate_launch.argtypes = [i32, i32, i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
     # gather probes: (form, idx_bytes, x, idx, out, rows, width, seg, stream),
-    # (via_smem, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
+    # (form, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
     # (vec, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
     # (x, s, out, rows, width, seg, stream), (x, idx, out, rows, width, stream),
     # (x, i8, out, total, stream)

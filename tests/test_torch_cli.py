@@ -18,10 +18,15 @@ import numpy as np
 import pytest
 import torch
 
+import scipy.linalg
+from scipy.sparse.linalg import eigsh as _eigsh
+
 import dune_eigensolver_tpu.bench.models as jmodels
 import dune_eigensolver_tpu.config as jconfig
+import dune_eigensolver_tpu.oracle.scipy_oracle as joracle
 import dune_eigensolver_tpu_torch.bench.models as tmodels
 import dune_eigensolver_tpu_torch.config as tconfig
+import dune_eigensolver_tpu_torch.oracle.scipy_oracle as toracle
 from dune_eigensolver_tpu_torch import cli
 from dune_eigensolver_tpu_torch.bench.timing import bench_loop
 from dune_eigensolver_tpu_torch.utils.device import resolve
@@ -29,6 +34,27 @@ from dune_eigensolver_tpu_torch.utils.device import resolve
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INI = os.path.join(REPO, "dune-eigensolver.ini")
 FLOAT = r"\d+\.\d+"
+ARPACK_SEED = 0
+
+
+@pytest.fixture(autouse=True)
+def _arpack_start_pinned(monkeypatch):
+    """Every ARPACK call of these tests, in both packages' oracles, starts
+    from one seeded random vector. Given no ``rng`` and no ``v0``, scipy
+    draws the start from the operating system's entropy, and about one start
+    in 1,500 (2 of seeds 0-2,999 on the 3D pencil of ``3d-mgcg``) lets
+    shift-invert Lanczos at k = 8 miss one copy of the triple eigenvalue
+    1.05644: the 1e-14 "truth" then holds 1.24123 twice, and a solve's error
+    against it reads 0.1795 whatever the solve did. Both oracles call
+    ``eigsh`` by their module's name; ``test_smallest_protocol_cpu`` holds
+    the pinned oracle to a dense solve."""
+    def eigsh(*args, **kw):
+        if kw.get("v0") is None and kw.get("rng") is None:
+            kw["rng"] = np.random.default_rng(ARPACK_SEED)
+        return _eigsh(*args, **kw)
+
+    for mod in (toracle, joracle):
+        monkeypatch.setattr(mod, "eigsh", eigsh)
 
 
 def _flat(tree):
@@ -286,6 +312,15 @@ def test_largest_protocol_cpu(capsys):
     assert 0.25 <= rt["err_vs_oracle"] / rj["err_vs_oracle"] <= 4.0
 
 
+def _dense_smallest(A, B, shift, k):
+    """The k smallest eigenvalues of A x = lambda B x from a dense solve of
+    B x = mu (A + shift B) x in f64 (B may be semidefinite): lambda =
+    1/mu - shift over the k largest mu."""
+    Ad, Bd = (toracle._to_scipy(M).toarray().astype(np.float64) for M in (A, B))
+    mu = scipy.linalg.eigh(Bd, Ad + shift * Bd, eigvals_only=True)[::-1][:k]
+    return np.sort(1.0 / mu - shift)
+
+
 @pytest.mark.parametrize("overrides", [
     ["ev.N=12", "ev.inverse=cg", "ev.dtype=float64"],
     ["ev.N=8", "ev.dim=3", "ev.inverse=mgcg"],
@@ -299,7 +334,10 @@ def test_smallest_protocol_cpu(overrides, capsys):
     of 8, whose trailing values a change-based stop at 2e-3 leaves least
     converged: held to 5e-2 of the largest of them, and the two packages'
     errors (different random start blocks) within a factor 4 of each
-    other."""
+    other. The truth itself is held to a dense solve (1e-8 of its largest
+    value), so an oracle that misses a copy of a multiple eigenvalue fails
+    here and not as a solver's error. Every assertion prints both packages'
+    numbers."""
     import dune_eigensolver_tpu.cli as jcli
     from dune_eigensolver_tpu_torch.oracle import smallest_generalized
 
@@ -310,12 +348,21 @@ def test_smallest_protocol_cpu(overrides, capsys):
                         rf"{FLOAT}", line), line
     rj = jcli.smallest_eigenvalues_convergence_test(j)
     capsys.readouterr()
-    assert set(rt) == set(rj)
-    assert rt["converged"] and rj["converged"]
-    truth, _ = smallest_generalized(*cli._problem_pair(t), 8, sigma=-float(t["ev.shift"]))
-    assert rt["err_vs_truth"] <= 5e-2 * truth.max() and rj["err_vs_truth"] <= 5e-2 * truth.max()
-    assert 0.25 <= rt["err_vs_truth"] / rj["err_vs_truth"] <= 4.0
-    assert abs(rt["iterations"] - rj["iterations"]) <= 8  # ~11-16 each, by the start block
+    A, B = cli._problem_pair(t)
+    shift = float(t["ev.shift"])
+    truth, _ = smallest_generalized(A, B, 8, sigma=-shift)
+    dense = _dense_smallest(A, B, shift, 8)
+    keys = ("err_vs_truth", "oracle_err", "iterations", "converged")
+    numbers = (f"port {({k: rt.get(k) for k in keys})}, jax {({k: rj.get(k) for k in keys})}, "
+               f"truth {truth}, dense {dense}")
+    assert set(rt) == set(rj), numbers
+    assert np.abs(truth - dense).max() <= 1e-8 * dense.max(), numbers
+    assert rt["converged"] and rj["converged"], numbers
+    assert rt["err_vs_truth"] <= 5e-2 * truth.max(), numbers
+    assert rj["err_vs_truth"] <= 5e-2 * truth.max(), numbers
+    assert 0.25 <= rt["err_vs_truth"] / rj["err_vs_truth"] <= 4.0, numbers
+    # ~11-16 each, by the start block
+    assert abs(rt["iterations"] - rj["iterations"]) <= 8, numbers
 
 
 @pytest.mark.parametrize("overrides", [

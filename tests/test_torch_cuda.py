@@ -402,6 +402,69 @@ def test_copy_kernels_match_plain(cuda, shape, tile):
         b + 1 for b in before)
 
 
+# (rows, width, tile, floats x's first element lies past an allocation):
+# rows 1, 3 and 8; tiles that divide the width and tiles that do not; a
+# last tile narrower than a chunk; an odd width and views 4 and 8 bytes off
+# 16 (the first version's scalar path); the timed shape
+COPY_BODY_CASES = [
+    (1, 4096, 1024, 0),
+    (3, 40960, 32768, 0),
+    (8, 40960, 4096, 0),
+    (3, 4100, 1000, 0),
+    (5, 2052, 512, 0),
+    (8, 1000, 4, 0),
+    (3, 100_003, 1000, 0),
+    (8, 4096, 1024, 1),
+    (2, 4096, 1024, 2),
+    (8, 4_259_840, 16384, 0),
+]
+
+
+@pytest.mark.parametrize("rows,width,tile,off", COPY_BODY_CASES)
+def test_copy_bodies_match_plain(cuda, rows, width, tile, off):
+    """``ident`` and ``ident_alias`` (the bulk copies where ``copy_body``
+    says so, else their first version) and their first versions against
+    the plain version bit for bit, out of place and in place; every launch
+    counted once."""
+    from dune_eigensolver_tpu_torch.experiments import pipeline_probe as pp
+
+    gen = torch.Generator(device="cuda").manual_seed(rows * width + tile + off)
+    flat = torch.randn(rows * width + off, generator=gen, device=cuda)
+    x = flat[off:].view(rows, width)
+    ptrs = x.data_ptr() | 16
+    body = pp.copy_body(width, tile, align=ptrs & -ptrs)
+    assert body == ("bulk" if width % 4 == 0 and tile % 4 == 0 and off % 4 == 0 else "first")
+    want = pp.ident_reference(x)
+    wrappers = (pp.ident, pp.ident_alias, pp.ident_first, pp.ident_alias_first)
+    counts = {fn: fn.launches for fn in wrappers}
+    assert torch.equal(pp.ident(tile, x), want) and pp.ident.body == body
+    assert torch.equal(pp.ident_first(tile, x), want) and pp.ident_first.body == "first"
+    for fn in (pp.ident_alias, pp.ident_alias_first):
+        xa = flat.clone()[off:].view(rows, width)  # the same alignment as x
+        assert fn(tile, xa) is xa and torch.equal(xa, want)
+    assert pp.ident_alias.body == body
+    torch.cuda.synchronize()
+    assert all(fn.launches == counts[fn] + 1 for fn in wrappers)
+
+
+def test_copy_launchers_refuse_bulk_off_grid(cuda):
+    """The launcher checks what ``copy_body`` checks: the bulk body (flag 1)
+    on a width, tile or address off 16 bytes is refused before any
+    launch."""
+    from dune_eigensolver_tpu_torch.experiments import pipeline_probe as pp
+
+    flat = torch.zeros(4 * 1024 + 1, device=cuda)
+    y = torch.empty((4, 1024), device=cuda)
+    body = pp.BODIES["bulk"]
+    for x_ptr, width, tile in ((flat[1:].data_ptr(), 1024, 256),
+                               (flat.data_ptr(), 1022, 256),
+                               (flat.data_ptr(), 1024, 254)):
+        with pytest.raises(RuntimeError, match="copy_add1_launch"):
+            pp._run("copy_add1_launch", flat, body, x_ptr, y.data_ptr(), 4, width, tile)
+        with pytest.raises(RuntimeError, match="copy_add1_inplace_launch"):
+            pp._run("copy_add1_inplace_launch", flat, body, x_ptr, 4, width, tile)
+
+
 def _variant_calls(kv, tile, rows):
     calls = [("c", lambda A, X: kv.spmm_c(A, X, tile=tile, rows=rows), kv.spmm_c)]
     for s, q in kv.B_RINGS:
@@ -501,7 +564,8 @@ def test_cli_and_experiments_on_card(cuda, capsys):
                     "ell_cuda"):
         assert f"RESULT {variant} " in out
     assert "P_n_m_i_perfn_perfb: 1 4096 16 15 " in out
-    for label in ("ident T=1024", "ident+d", "ALIASED", "A shipped", "D rolling", "D in-place",
+    for label in ("ident T=1024", "ident first T=1024", "ident+d",
+                  "ALIASED", "ident ALIASED first", "A shipped", "D rolling", "D in-place",
                   "B s=4 d=3", "C r1-style"):
         assert label in out
 
@@ -646,7 +710,8 @@ def test_row_copy_selections_match_plain(cuda, rows, nb, bw, off, p):
     x2, x3 = flat.view(rows, nb * bw), flat.view(nb, rows, bw)
     pt = torch.tensor([p], dtype=torch.int32, device=cuda)
     width = 4 if bw % 4 == 0 and off % 4 == 0 else 1
-    counts = {f: f.launches for f in (gp.lane_slice, gp.block_select, *gp.FIRST_VERSIONS.values())}
+    counts = {f: f.launches for f in (gp.lane_slice, gp.block_select, gp.lane_slice_first,
+                                      gp.block_select_first)}
     want2, want3 = gp.lane_slice_reference(x2, pt, bw), gp.block_select_reference(x3, pt)
     assert torch.equal(gp.lane_slice(x2, pt, bw), want2) and gp.lane_slice.width == width
     assert torch.equal(gp.block_select(x3, pt), want3) and gp.block_select.width == width
@@ -654,6 +719,76 @@ def test_row_copy_selections_match_plain(cuda, rows, nb, bw, off, p):
     assert torch.equal(gp.block_select_first(x3, pt), want3)
     torch.cuda.synchronize()
     assert all(f.launches == c + 1 for f, c in counts.items())
+
+
+# (rows, nb, bw, floats x's first element lies past an allocation, p):
+# rows 1, 3 and 8; bw no multiple of 4 (the row copy); one float4 a row;
+# chunks that straddle rows (bw 1,000, 4,100) and rows of several chunks; a
+# view 4 and 8 bytes off 16 (the row copy); p below and above [0, nb - 1]
+# (clamped); nb = 1; 64 blocks of 8 KB (beyond the first version's shared
+# memory); the timed shape
+SCRATCH_CASES = [
+    (1, 4, 1024, 0, 2),
+    (3, 3, 1000, 0, 1),
+    (8, 4, 4100, 0, 3),
+    (3, 5, 127, 0, 4),
+    (3, 4, 4, 0, 3),
+    (8, 2, 8196, 0, 1),
+    (2, 3, 4096, 1, 2),
+    (4, 3, 256, 2, 0),
+    (4, 6, 64, 0, -7),
+    (4, 6, 64, 0, 99),
+    (1, 1, 1000, 0, 0),
+    (2, 64, 2048, 0, 63),
+    (8, 4, 1_048_576, 0, 2),
+]
+
+
+@pytest.mark.parametrize("rows,nb,bw,off,p", SCRATCH_CASES)
+def test_scratch_bodies_match_plain(cuda, rows, nb, bw, off, p):
+    """``block_select_scratch`` (bulk copies of block p alone where
+    ``scratch_body`` says so, else the row copy of ``lane_slice``) and its
+    first version (all nb blocks staged, where a block's shared memory
+    holds them) against the plain version bit for bit; each launch counted
+    once."""
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    gen = torch.Generator(device="cuda").manual_seed(rows * nb * bw + off)
+    flat = torch.randn(rows * nb * bw + off, generator=gen, device=cuda)
+    x = flat[off:].view(rows, nb * bw)
+    pt = torch.tensor([p], dtype=torch.int32, device=cuda)
+    want = gp.lane_slice_reference(x, pt, bw)
+    body = "bulk" if bw % 4 == 0 and off % 4 == 0 else "rows"
+    fns = (gp.block_select_scratch, gp.block_select_scratch_first)
+    counts = {fn: fn.launches for fn in fns}
+    assert torch.equal(gp.block_select_scratch(x, pt, bw), want)
+    assert gp.block_select_scratch.body == body
+    staged = nb * min(bw, 2048) * 4 <= 227 * 1024
+    if staged:
+        assert torch.equal(gp.block_select_scratch_first(x, pt, bw), want)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            gp.block_select_scratch_first(x, pt, bw)
+    torch.cuda.synchronize()
+    assert gp.block_select_scratch.launches == counts[gp.block_select_scratch] + 1
+    assert gp.block_select_scratch_first.launches == (
+        counts[gp.block_select_scratch_first] + staged)
+
+
+def test_scratch_launcher_refuses_bulk_off_grid(cuda):
+    """``block_select_launch`` refuses the bulk body (form 2) where a
+    segment would leave the 16-byte grid: x off 16 bytes, bw no multiple of
+    4, the output off 16 bytes."""
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    flat = torch.zeros(4 * 512 + 4, device=cuda)
+    out = torch.empty(4 * 128 + 1, device=cuda)
+    p = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for x_ptr, bw, o_ptr in ((flat[1:].data_ptr(), 128, out.data_ptr()),
+                             (flat.data_ptr(), 126, out.data_ptr()),
+                             (flat.data_ptr(), 128, out[1:].data_ptr())):
+        with pytest.raises(RuntimeError, match="block_select_launch"):
+            gp._run("block_select_launch", flat, 2, x_ptr, p.data_ptr(), o_ptr, 4, bw, 4, 0, 0)
 
 
 def test_row_copy_launcher_refuses_float4_off_grid(cuda):
@@ -700,9 +835,15 @@ def test_probe_kernels_clamp_and_refuse(cuda):
         gp.gather_lanes_int8(x, wild, 128)
     with pytest.raises(TypeError, match="float32"):
         gp.roll_lanes(x.double(), torch.zeros(1, dtype=torch.int32, device=cuda), 64)
+    # the first version stages all 64 blocks of 8 KB: beyond a block's
+    # shared memory, refused before any launch; the bulk body stages chunks
+    # of block p alone and takes it
+    wide = torch.randn((1, 64 * 2048), device=cuda)
+    p0 = torch.tensor([63], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        gp.block_select_scratch(torch.zeros((1, 64 * 2048), device=cuda),
-                                torch.zeros(1, dtype=torch.int32, device=cuda), 2048)
+        gp.block_select_scratch_first(wide, p0, 2048)
+    assert torch.equal(gp.block_select_scratch(wide, p0, 2048),
+                       gp.lane_slice_reference(wide, p0, 2048))
 
 
 def test_standard_entry_points_on_card(cuda):

@@ -147,6 +147,7 @@ def test_probe_wrappers_refuse_cpu_tensors():
         lambda: gp.int8_widen(x, i32.to(torch.int8)),
         lambda: gp.lane_slice_first(x, p, 32),
         lambda: gp.block_select_first(x.reshape(4, 8, 32), p),
+        lambda: gp.block_select_scratch_first(x, p, 32),
     ]
     assert len(calls) == len(gp.KERNELS) + len(gp.FIRST_VERSIONS)
     for call in calls:
@@ -199,7 +200,8 @@ def test_probe_main_on_cpu(capsys):
 def test_form_table_rows_on_cpu():
     """The table's rows on the CPU (plain versions only): the bytes are those
     of the function, so the three block selections count one block in and
-    one out, and the scratch form's staging of all four is listed apart."""
+    one out; the scratch form now moves just that, and its first version's
+    staging of all four is listed apart."""
     rows = list(gp.form_table("cpu", width=1024))
     names = [r["name"] for r in rows]
     assert names[0] == "copy" and sorted(names[1:]) == sorted(gp.KERNELS)
@@ -209,9 +211,34 @@ def test_form_table_rows_on_cpu():
     assert by["int8_widen"]["nbytes"] == 2 * f4 + f4 // 4
     assert by["lane_slice"]["nbytes"] == f4 // 2 and by["block_select"]["shape"] == (4, 8, 256)
     assert by["block_select_scratch"]["nbytes"] == by["lane_slice"]["nbytes"]
-    assert by["block_select_scratch"]["streamed_bytes"] == f4 + f4 // 4
-    assert all(r["streamed_bytes"] == r["nbytes"] for r in rows
+    assert all(r["streamed_bytes"] == r["nbytes"] for r in rows)
+    assert by["block_select_scratch"]["first_streamed_bytes"] == f4 + f4 // 4
+    assert all(r["first_streamed_bytes"] is None for r in rows
                if r["name"] != "block_select_scratch")
     assert all(r["us"] is None and r["max_abs_err"] is None and r["plain_us"] > 0
                and r["library_us"] > 0 and r["gbps"] > 0 for r in rows)
     assert all(r["first_us"] is None for r in rows)  # first versions are timed on the card
+    # so are the kernels, eager and by replay, and the library's eager chain
+    assert all(r["eager_us"] is None and r["library_eager_us"] is None for r in rows)
+
+
+# (bw, align, body): the scratch selection's choice between its bulk copies
+# and the row copy of ``lane_slice``, one float a thread
+SCRATCH_CASES = [
+    (1048576, 16, "bulk"),   # form_table's block, aligned
+    (128, 16, "bulk"),       # the probe's blocks
+    (4, 64, "bulk"),         # one float4 a row; more than 16 bytes of alignment is 16
+    (128, 8, "rows"),        # a view 8 bytes off
+    (128, 4, "rows"),        # a view one float off
+    (127, 16, "rows"),       # bw not a multiple of 4
+    (4097, 16, "rows"),      # nor here, with several chunks a row
+    (6, 16, "rows"),         # bw even, but rows of 6 floats break the 16-byte grid
+]
+
+
+@pytest.mark.parametrize("bw,align,body", SCRATCH_CASES)
+def test_scratch_body(bw, align, body):
+    """The scratch selection's chooser, from the block width and the
+    alignment alone (the launcher refuses the bulk body elsewhere)."""
+    assert gp.scratch_body(bw, align) == body
+

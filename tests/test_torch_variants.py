@@ -14,6 +14,7 @@ kernels themselves are held to those plain versions on the card
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -144,6 +145,103 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tpp.identd(256, Xt[:5].contiguous(), Xt)
     assert tpp.ident.launches == tpp.identd.launches == tpp.ident_alias.launches == 0
+
+
+def test_first_wrappers_refuse_cpu_tensors():
+    """The first versions of the two Y = X + 1 launches are kernel wrappers
+    too: on a CPU tensor each raises before anything is built, and nothing
+    is counted."""
+    Xt = torch.from_numpy(np.ones((8, 256), np.float32))
+    for fn in (tpp.ident_first, tpp.ident_alias_first):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(256, Xt)
+        assert fn.launches == 0 and fn.body is None
+    assert tpp.FIRST_VERSIONS == {"ident": tpp.ident_first, "ident_alias": tpp.ident_alias_first}
+
+
+# (width, tile, align, body): the copy kernel's choice between its bulk
+# copies and its first version, which takes any shape
+COPY_BODY_CASES = [
+    (4259840, 16384, 16, "bulk"),   # the timed multivector, aligned
+    (4259840, 1024, 256, "bulk"),   # more than 16 bytes of alignment is 16
+    (4100, 1000, 16, "bulk"),       # a tile that does not divide the width
+    (2052, 512, 16, "bulk"),        # a last tile that is not full
+    (100003, 1000, 16, "first"),    # an odd width
+    (4096, 1022, 16, "first"),      # a tile off the 16-byte grid
+    (4096, 1024, 8, "first"),       # a view 8 bytes off
+    (4096, 1024, 4, "first"),       # a view one float off
+]
+
+
+@pytest.mark.parametrize("width,tile,align,body", COPY_BODY_CASES)
+def test_copy_body(width, tile, align, body):
+    """The copy kernel's chooser, from shape, tile and alignment alone (the
+    launcher refuses the bulk body elsewhere)."""
+    assert tpp.copy_body(width, tile, align) == body
+
+
+def test_copy_bodies_are_the_launchers_flags():
+    """Each body of Y = X + 1 has its own flag of ``copy_add1_launch``, and
+    the chooser picks each of them at some shape."""
+    assert tpp.BODIES == {"first": 0, "bulk": 1}
+    picked = {tpp.copy_body(w, t, a) for w, t, a, _ in COPY_BODY_CASES}
+    assert picked == set(tpp.BODIES)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_in_turns_times_forth_and_back(n):
+    """``in_turns`` times each function twice, in the order given and then
+    reversed (kernel, first, first, kernel for two), and returns the best
+    of each in the order given."""
+    from dune_eigensolver_tpu_torch.bench.timing import in_turns
+
+    fns = [f"f{i}" for i in range(n)]
+    calls = []
+    clock = iter([5.0, 7.0, 9.0, 4.0, 6.0, 8.0][: 2 * n])
+
+    def time_fn(fn):
+        calls.append(fn)
+        return next(clock)
+
+    times = in_turns(fns, time_fn)
+    assert calls == fns + fns[::-1]
+    stamps = [5.0, 7.0, 9.0, 4.0, 6.0, 8.0][: 2 * n]
+    want = [min(stamps[i], stamps[2 * n - 1 - i]) for i in range(n)]
+    assert times == want
+
+
+def test_copy_table_rows_on_cpu():
+    """On the CPU the copy table times the library's copies and the plain
+    versions only: no first-version row, whose turns run on the card."""
+    rows = list(tpp.copy_table("cpu", T=1024, width=8192, mb=1))
+    kinds = {label: kind for label, _, _, kind in rows}
+    assert set(kinds.values()) == {"library", "plain"}
+    assert [label for label, kind in kinds.items() if kind == "plain"] == [
+        "ident", "ident+d T=1024", "ident ALIASED T=1024"]
+    assert all(t > 0 and g > 0 for _, t, g, _ in rows)
+
+
+def test_lib_path_hashes_headers(tmp_path):
+    """The library's name changes when a header the sources include
+    changes, not only when a source does, so an edited ``bulk_copy.cuh`` is
+    never served from a stale build."""
+    from dune_eigensolver_tpu_torch.utils import native
+
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    (tmp_path / "notes.txt").write_text("not a source\n")
+    sources, headers = native._sources(str(tmp_path)), native._headers(str(tmp_path))
+    assert [os.path.basename(f) for f in sources] == ["a.cu"]
+    assert [os.path.basename(f) for f in headers] == ["h.cuh"]
+    before = native._lib_path(sources, headers)
+    assert native._lib_path(sources, headers) == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    after = native._lib_path(sources, headers)
+    assert after != before and os.path.dirname(after) == native.BUILD_DIR
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert native._lib_path(sources, headers) not in (before, after)
+    # the package's own headers are hashed
+    assert "bulk_copy.cuh" in [os.path.basename(f) for f in native._headers()]
 
 
 def test_experiment_mains_on_cpu(capsys):
