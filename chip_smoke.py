@@ -7,7 +7,10 @@ Phases (any failure raises and exits non-zero; there is no fallback):
 
 1. device   — requires ``torch.cuda.is_available()``; prints the card.
 2. build    — compiles ``dune_eigensolver_tpu_torch/csrc/*.cu`` with nvcc
-              into the package's ``_build/`` and prints ptxas' report;
+              into the package's ``_build/`` and prints ptxas' report, and
+              one ``REGISTERS`` line: the registers and spill stores of
+              every instantiation of the ELL body (``csrc/ell_body.cuh``),
+              K2's four (f32 and f64, int32 and int16 indices) apart;
               then the host-setup helper (``csrc/host/dunetpu.cpp``) with
               g++.
 3. kernel   — the CUDA DIA SpMM against its plain PyTorch version on the
@@ -52,7 +55,7 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               (``ELLMatrix.warp_slots``; the graph's mean count is logged,
               4.00 against k = 7) and must give, on every ELL case, the
               bits of its first version, which the ablation source keeps
-              (``gather_ablate.ablate_full`` at KC from k, 256 threads),
+              (``gather_ablate.ablate_first``: KC from k, 256 threads),
               whose device time is taken in turns with K2's
               (``first_version_device_ms``, ``in_turns_device_ms``);
               it reads int32 columns on the graph and int16 offsets on
@@ -78,7 +81,7 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               and an identity ELL mass, twice, timing the second; every
               Ritz pair's relative residual within 0.1; then under
               torch.profiler twice, as it stands and with K2's first
-              version (``gather_ablate.ablate_full``, the same bits) in
+              version (``gather_ablate.ablate_first``, the same bits) in
               K2's place (``PROFILE graph``: the solve's device time and
               K2's share of it, each way); the same recipe at n = 20,000
               within 2e-2 of the oracle.
@@ -91,7 +94,11 @@ Phases (any failure raises and exits non-zero; there is no fallback):
 11. variants — the DIA staging variants (csrc/dia_variants.cu: C, B at
               (2,1), (3,2), (4,3), D, D in place) against the plain DIA
               product at two n that are no multiple of the tile (one of
-              them odd), one application and the 2-chain (1e-5 of max|R|).
+              them odd), one application and the 2-chain (1e-5 of max|R|);
+              then B at every setting of its sweep that fits (tile 2048 to
+              16384, one or two rows), with random coefficients on every
+              diagonal, at both n: n = 2116 takes the bulk copies, the odd
+              n = 2025 B's first version (the route asserted).
 12. measure — the measurement path through its entry points, every launch
               counter zeroed just before and read just after:
               ``cli.main`` with ``--test matvec ev.N=2048 mv.m=8`` and
@@ -106,7 +113,12 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               application and the 2-chain, then timed) as ``VARIANT`` lines
               with ms, GB/s under ``bytes_spmm_dia`` and the share of
               ``copy_gbps``, the shipped kernel and the plain version
-              beside them. Every ``RESULT`` number must be finite and every
+              beside them; B's rows name the route taken (bulk copies,
+              asserted at n = 2048^2), the threads a block and W / T, and
+              carry B's first version timed in turns with them
+              (``first_seconds``; B's rows by CUDA-graph replay); its
+              sweep (``kernel_variants.ring_settings``) and each ring's
+              best setting follow. Every ``RESULT`` number must be finite and every
               kernel's counter must have moved. Then the copy kernels'
               rows of the kernel table: ``ident`` and ``ident_alias`` at
               the tile the bulk body does best at in the sweep
@@ -122,20 +134,24 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               printed in the row (the only exception caught here, around
               the library's constructor and first product alone).
 
-15. study check — every ablation variant of the ELL kernel
-              (csrc/ell_ablate.cu) against its plain version at odd sizes (n
-              no multiple of a block; k = 17, 33, 51 from requested 7, 18,
-              33 plus the diagonal; m = 1, 8, 24): the ablation source's
-              full body must give ``ell_spmm_t_cuda``'s bits at every
-              (KC, threads), ``nogather``/``nodyn`` stay within 1e-5 of the
-              row's |data|.|X|, ``nofma`` is exact; then the eleven gather
+15. study check — every ablation variant of the ELL kernel (K2's body,
+              csrc/ell_body.cuh, instantiated by csrc/ell_ablate.cu and
+              ell_sweep_r{1,4,8}.cu) against its plain version at odd sizes
+              (n no multiple of a block; k = 17, 33, 51 from requested 7,
+              18, 33 plus the diagonal; m = 1, 8, 24): K2's first version
+              (``ablate_first``) and K2's body at every (rows, kc) of
+              ``gather_ablate.SWEEP`` must give ``ell_spmm_t_cuda``'s bits,
+              ``nogather``/``nodyn`` stay within 1e-5 of the row's
+              |data|.|X|, ``nofma`` is exact; then the eleven gather
               probes (csrc/gather_probe.cu) and the shuffle form of the
               first, none of which may print anything but OK.
 16. study   — the gather-kernel study path through its entry points, every
               launch counter of its kernels zeroed just before and read just
               after: ``gather_ablate.ablate_table`` at Nel=512 m=8 and on
-              the 2^20 graph (``ABLATE`` lines: the four variants, then the
-              (KC, threads) sweep; K2's launches counted per operand),
+              the 2^20 graph (``ABLATE`` lines: the four variants with their
+              shares of K2's time and of the copy bound over phase 12's
+              ``copy_gbps``, K2's first version, then the (rows, kc) sweep;
+              K2's launches counted per operand),
               ``gather_probe.form_table`` at
               (8, 4,194,304) (``FORM`` lines), where ``lane_slice`` and
               ``block_select``, one row-copy kernel, and
@@ -265,8 +281,17 @@ versions' time in turns, by replay too (phase 16), and
 so do the ``ident`` and ``ident_alias`` rows (phase 12; with
 ``device_ms``, ``first_version_device_ms`` and ``library_device_ms`` by
 replay, in turns; each body at its own best tile, ``tile`` and
-``first_version_tile``), then the card's name and
-power limit as nvidia-smi reports them, then the last line
+``first_version_tile``); the ``spmm_b`` row (tile 2048, two rows, ring
+(2,1)) carries its ``body`` (bulk), W / T, the three rings' times there
+beside the first version's in turns (``first_version_ms``), and each
+ring's best setting of the sweep with its copy share; the
+ablation rows (``ablate_full``: K2's body at K2's setting from the
+ablation source, with the whole sweep in ``sweep_ms``; ``ablate_first``:
+K2's first version; the three degraded variants) take ``ms`` by
+CUDA-graph replay, ``eager_ms`` (a chain of launches) beside, and carry
+K2's time and their share of it, the graph operand's numbers beside; then
+the card's
+name and power limit as nvidia-smi reports them, then the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -518,6 +543,31 @@ def profile_solve(torch, name, run, t_solve, rows=25):
     return busy_s, kernels
 
 
+def ell_registers(build_log):
+    """ptxas' registers and spill stores of every instantiation of the ELL
+    body (csrc/ell_body.cuh), keyed "v=<variant> rows=<R> kc=<KC>
+    cap=<blocks> <f32|f64> <int16|int32>" from the mangled names."""
+    import re
+
+    pat = re.compile(r"ell_spmm_t_kernelILi(\d)ELi(\d+)ELi(\d+)ELi(\d+)E([fd])([si])E")
+    out, key = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = pat.search(m.group(1))
+            key = None if k is None else (
+                f"v={k[1]} rows={k[2]} kc={k[3]} cap={k[4]} {dict(f='f32', d='f64')[k[5]]} "
+                f"{dict(s='int16', i='int32')[k[6]]}")
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if key and m:
+            out.setdefault(key, {})["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if key and m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
 def kernel_device_s(events, name):
     """Seconds of device time of the kernels whose name holds ``name``."""
     return sum(e.self_device_time_total for e in events if name in e.key) / 1e6
@@ -639,7 +689,7 @@ def phase_gather(torch, kg, cases):
         elif kernel is kg.ell_spmm_t_cuda:
             # K2's first version, kept by the ablation source: the same bits
             # on finite X (the slots a warp skips are padding, zero products)
-            if not torch.equal(Y, ga.ablate_full(A, X, 0, 256)):
+            if not torch.equal(Y, ga.ablate_first(A, X)):
                 raise RuntimeError(f"{name}: differs from K2's first version")
             more = dict(bits_of_first_version=True, mean_warp_slots=A.warp_slots.float().mean().item(),
                         k=A.k, index_bytes=A.kernel_streams[1].element_size())
@@ -649,8 +699,8 @@ def phase_gather(torch, kg, cases):
         if kernel is kg.ell_spmm_t_cuda and f32:
             # K2 against its first version, device times in turns: first,
             # current, current, first
-            turns = [replay_ms(lambda: ga.ablate_full(A, X, 0, 256)), replay_ms(lambda: kernel(A, X)),
-                     replay_ms(lambda: kernel(A, X)), replay_ms(lambda: ga.ablate_full(A, X, 0, 256))]
+            turns = [replay_ms(lambda: ga.ablate_first(A, X)), replay_ms(lambda: kernel(A, X)),
+                     replay_ms(lambda: kernel(A, X)), replay_ms(lambda: ga.ablate_first(A, X))]
             more.update(first_version_device_ms=[turns[0], turns[3]],
                         in_turns_device_ms=[turns[1], turns[2]])
         plain_ms = median_ms(lambda: plain(A, X), reps=5, inner=2)
@@ -775,7 +825,7 @@ def phase_graph(torch, kernels, Au, small):
     # solve); that version's unprofiled wall time is one warm run's
     busy, events = profile_solve(torch, "graph", run, rec["seconds"], rows=10)
     route = spmm_mod._ROUTES[ELLMatrix]
-    spmm_mod._ROUTES[ELLMatrix] = (lambda A_, X_: ga.ablate_full(A_, X_, 0, 256), route[1])
+    spmm_mod._ROUTES[ELLMatrix] = (lambda A_, X_: ga.ablate_first(A_, X_), route[1])
     try:
         run().eigenvalues.cpu()  # makes the int32 columns the first version reads
         torch.cuda.synchronize()
@@ -790,7 +840,7 @@ def phase_graph(torch, kernels, Au, small):
                            f"{rec['iterations']} with K2")
     rec.update(device_s=busy, k2_device_s=kernel_device_s(events, "ell_spmm_t_kernel"),
                first_version_seconds=t_first, first_version_device_s=busy0,
-               first_version_k2_device_s=kernel_device_s(events0, "ell_ablate_kernel"))
+               first_version_k2_device_s=kernel_device_s(events0, "ell_first_kernel"))
     S, A20 = small
     res = recipe(A20)()
     ev20 = check_solve(torch, "graph n=20000", res, A20.shape[0], 4)
@@ -863,27 +913,52 @@ def phase_copy_check(torch, pp):
 
 def phase_variant_check(torch, kv, kd, problems, DIAMatrix):
     """Phase 11: the staging variants against the plain DIA product where n
-    is no multiple of the tile (the full-size check is the table's own)."""
+    is no multiple of the tile (the full-size check is the table's own),
+    then variant B at every setting of its sweep that fits, on both routes
+    (bulk copies where n % 4 == 0, the first version's cp.async elsewhere),
+    with random coefficients at the positions whose neighbour lies outside
+    [0, n), which stale shared memory would reach."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    # 45^2 = 2025 is odd (4-byte copies), 46^2 = 2116 a multiple of 4
-    # (16-byte copies); the tile of 256 holds the halo
+    # 45^2 = 2025 is odd (4-byte copies; B's first version), 46^2 = 2116 a
+    # multiple of 4 (16-byte copies; B's bulk body); the tile of 256 holds
+    # the halo
     for N in (45, 46):
         A = problems.laplacian_dirichlet_2d(N, dtype=torch.float32, device="cuda")
         A = DIAMatrix(data=A.data / 8.0, offsets=A.offsets, shape=A.shape)
         X = torch.randn((8, N * N), generator=gen, device="cuda")
-        R = kd.dia_spmm_t_reference(A, X)
-        R2 = kd.dia_spmm_t_reference(A, R)
-        # the same sum as the plain version, FMA-contracted: 1e-5 of max|R|
-        # (as phase 3), for one application and for the 2-chain
-        tol = 1e-5 * R.abs().max().item()
-        for name, step in kv.variant_steps(tile=256)[1:]:
+        route = "bulk" if N * N % 4 == 0 else "first"
+
+        def check(name, step, A, X):
+            R = kd.dia_spmm_t_reference(A, X)
+            R2 = kd.dia_spmm_t_reference(A, R)
+            # the same sum as the plain version, FMA-contracted: 1e-5 of
+            # max|R| (as phase 3), for one application and for the 2-chain
+            tol = 1e-5 * R.abs().max().item()
+            taken = kv.spmm_b.taken[route]
             Y = step(X.clone(), A)  # on clones: the in-place form overwrites
             Y2 = step(Y.clone(), A)
             torch.cuda.synchronize()
             err = max((Y - R).abs().max().item(), (Y2 - R2).abs().max().item())
             if not err <= tol:  # a NaN fails too
                 raise RuntimeError(f"{name} N={N}: max_abs_err {err:.3e} > tol {tol:.3e}")
+            if name.startswith("B ") and kv.spmm_b.taken[route] != taken + 2:
+                raise RuntimeError(f"{name} N={N}: did not take the {route} route")
+            return err
+
+        for name, step in kv.variant_steps(tile=256)[1:]:
+            err = check(name, step, A, X)
             log(f"variant check {name} n={N * N} tile 256: max_abs_err {err:.3e}")
+        Ar = DIAMatrix(data=torch.randn(A.data.shape, generator=gen, device="cuda"),
+                       offsets=A.offsets, shape=A.shape)
+        errs = {}
+        for (sl, q, T, r), g in kv.ring_settings(Ar.offsets, N * N):
+            if g.fits:
+                errs[f"s={sl} d={q} T={T} rows={r}"] = check(
+                    f"B s={sl} d={q} T={T} rows={r}",
+                    lambda x, A_, sl=sl, q=q, T=T, r=r: kv.spmm_b(A_, x, sl, q, tile=T, rows=r),
+                    Ar, X[:5].contiguous())
+        log(f"variant check B sweep n={N * N} route {route}, random diagonals, m=5: "
+            f"{len(errs)} settings, max_abs_err {max(errs.values()):.3e}")
 
 
 class Tee(io.StringIO):
@@ -932,11 +1007,24 @@ def phase_measure(torch, kernels, pp, kv):
     best_tile, best_ident_tile = best("first"), best("kernel")
     log("ROOFLINE " + json.dumps(dict(copy_gbps=copy_gbps, best_ident_tile=best_ident_tile,
                                       best_first_tile=best_tile)))
-    variants = {}
-    for label, t, gbps, err in kv.variant_table(None):
-        rec = dict(ms=t * 1e3, gbps=gbps, share_of_copy=gbps / copy_gbps, max_abs_err=err)
-        log("VARIANT " + json.dumps(dict(variant=label, **rec)))
-        variants[label.split(" T=")[0]] = rec
+    variants, ring_sweep, ring_best = {}, [], {}
+    for row in kv.variant_table(None):
+        rec = {k: v for k, v in row.items() if k not in ("label", "seconds")}
+        if row["seconds"] is not None:
+            rec.update(ms=row["seconds"] * 1e3, share_of_copy=row["gbps"] / copy_gbps)
+        log("VARIANT " + json.dumps(dict(variant=row["label"], **rec)))
+        if row.get("sweep"):
+            ring_sweep.append(dict(rec, label=row["label"]))
+        elif row.get("best"):
+            ring_best[row["label"].split(" best")[0]] = dict(rec, label=row["label"])
+        else:
+            variants[row["label"].split(" T=")[0]] = rec
+    # n = 2048^2 lies on 16 bytes: every B row took the bulk copies
+    routes = {r.get("route") for r in [*variants.values(), *ring_sweep] if "route" in r}
+    if routes != {"bulk"}:
+        raise RuntimeError(f"variant_table: B took the routes {routes}, expected bulk")
+    variants["B sweep"] = ring_sweep
+    variants["B best"] = ring_best
     torch.cuda.synchronize()
     launches = read_counts(kernels)
     seconds = time.perf_counter() - t0
@@ -1101,8 +1189,9 @@ def phase_study_check(torch, ga, gp):
             X = torch.randn((m, n), generator=gen, device="cuda")
             errs = ga.check_variants(A, X)  # raises on a mismatch; full: bit for bit
             torch.cuda.synchronize()
-            log(f"ablate check n={n} k={A.k} m={m}: full body == ell_spmm_t_cuda at "
-                f"{len(ga.KCS) + 1}x{len(ga.THREADS)} settings; max_abs_err " + json.dumps(errs))
+            log(f"ablate check n={n} k={A.k} m={m} index {A.kernel_streams[1].element_size()} "
+                f"bytes: K2's first version and the full body at {len(ga.SWEEP)} (rows, kc) "
+                "settings == ell_spmm_t_cuda; max_abs_err " + json.dumps(errs))
     verdicts = gp.run_probes(None)
     torch.cuda.synchronize()
     bad = {name: v for name, v in verdicts.items() if v != "OK"}
@@ -1110,10 +1199,11 @@ def phase_study_check(torch, ga, gp):
         raise RuntimeError(f"gather probes: {len(verdicts)} verdicts, not OK: {bad}")
 
 
-def phase_study(torch, study_kernels, ga, gp):
+def phase_study(torch, study_kernels, ga, gp, copy_gbps):
     """Phase 16: the study path through its entry points, inside one counted
-    window. Returns (launches, K2's launches by ablation operand, operands,
-    ablation rows, form rows by name)."""
+    window; the ablation's copy shares over phase 12's ``copy_gbps``.
+    Returns (launches, K2's launches by ablation operand, operands, ablation
+    rows, form rows by name)."""
     t0 = time.perf_counter()
     operands = ga.ablate_operands(None, 512)
     log(f"ablate operands: {time.perf_counter() - t0:.1f} s host setup; " + ", ".join(
@@ -1124,7 +1214,7 @@ def phase_study(torch, study_kernels, ga, gp):
     ablate_rows, k2_by_operand = [], {}
     for name, A in operands:  # one table per operand, to count K2's launches on each
         before = study_kernels["ell_spmm_t"].launches
-        ablate_rows += ga.ablate_table(None, 512, 8, operands=[(name, A)])
+        ablate_rows += ga.ablate_table(None, 512, 8, operands=[(name, A)], copy_gbps=copy_gbps)
         k2_by_operand[name] = study_kernels["ell_spmm_t"].launches - before
     forms = {row["name"]: row for row in gp.form_table(None)}
     torch.cuda.synchronize()
@@ -1134,8 +1224,11 @@ def phase_study(torch, study_kernels, ga, gp):
         raise RuntimeError(f"study: kernels launched no time on the study path: {idle}")
     variants = [r for r in ablate_rows if "variant" in r]
     sweep = [r for r in ablate_rows if "kc" in r]
-    if len(variants) != 2 * len(ga.VARIANTS) or len(sweep) != 2 * len(ga.KCS) * len(ga.THREADS):
-        raise RuntimeError(f"study: {len(variants)} variant rows, {len(sweep)} sweep rows")
+    firsts = [r for r in ablate_rows if r.get("first")]
+    if (len(variants) != 2 * len(ga.VARIANTS) or len(sweep) != 2 * len(ga.SWEEP)
+            or len(firsts) != 2):
+        raise RuntimeError(f"study: {len(variants)} variant rows, {len(sweep)} sweep rows, "
+                           f"{len(firsts)} first-version rows")
     numbers = [r["us"] for r in ablate_rows] + [r["us"] for r in forms.values()]
     if not all(np.isfinite(x) and x > 0 for x in numbers):
         raise RuntimeError(f"study: non-finite or non-positive times {numbers}")
@@ -1160,7 +1253,11 @@ def phase_study(torch, study_kernels, ga, gp):
             best[r["operand"]] = r
     log("STUDY " + json.dumps(dict(
         seconds=time.perf_counter() - t0, launches=launches, ell_spmm_t_by_operand=k2_by_operand,
-        best_sweep={k: dict(kc=r["kc"], threads=r["threads"], us=r["us"]) for k, r in best.items()},
+        best_sweep={k: dict(rows=r["rows"], kc=r["kc"], us=r["us"], share=r["share"])
+                    for k, r in best.items()},
+        k2_shares={r["operand"]: {v["variant"]: dict(share=v["share"], copy_share=v["copy_share"])
+                                  for v in variants if v["operand"] == r["operand"]}
+                   for r in firsts},
     )))
     return launches, k2_by_operand, operands, ablate_rows, forms
 
@@ -2651,7 +2748,8 @@ def main():
 
     kernels = {"dia_spmm_t": kd.dia_spmm_t_cuda, "ell_spmm_t": kg.ell_spmm_t_cuda,
                "bsr_spmm_t": kg.bsr_spmm_t_cuda, "spmm_c": kv.spmm_c, "spmm_b": kv.spmm_b,
-               "spmm_d": kv.spmm_d, "ident": pp.ident, "identd": pp.identd,
+               "spmm_b_first": kv.spmm_b_first, "spmm_d": kv.spmm_d, "ident": pp.ident,
+               "identd": pp.identd,
                "ident_alias": pp.ident_alias, "ident_first": pp.ident_first,
                "ident_alias_first": pp.ident_alias_first}
 
@@ -2674,6 +2772,11 @@ def main():
         if ("registers" in line or "spill" in line or "error" in line.lower()
                 or "dia_spmm_t" in line or "bsr_spmm_t" in line or "ell_spmm_t" in line):
             log("  ptxas: " + line.strip())
+
+    regs = ell_registers(build_log)
+    k2 = {k: v for k, v in regs.items() if k.startswith("v=0 rows=8 kc=9 cap=6 f32 int32")
+          or k.startswith(("v=0 rows=8 kc=9 cap=5 f32 int16", "v=0 rows=4 kc=9 cap=3 f64"))}
+    log("REGISTERS " + json.dumps(dict(k2=k2, ell_body=regs)))
 
     # --- phase 3: kernel against plain version ---
     records = phase_kernel(torch, kd, problems)
@@ -2847,11 +2950,12 @@ def main():
 
     study_kernels = {"ell_spmm_t": kg.ell_spmm_t_cuda, "ablate_full": ga.ablate_full,
                      "ablate_nogather": ga.ablate_nogather, "ablate_nodyn": ga.ablate_nodyn,
-                     "ablate_nofma": ga.ablate_nofma, **gp.KERNELS,
+                     "ablate_nofma": ga.ablate_nofma, "ablate_first": ga.ablate_first,
+                     **gp.KERNELS,
                      **{name + "_first": fn for name, fn in gp.FIRST_VERSIONS.items()}}
     phase_study_check(torch, ga, gp)
     study_launches, k2_by_operand, ablate_ops, ablate_rows, forms = phase_study(
-        torch, study_kernels, ga, gp)
+        torch, study_kernels, ga, gp, copy_gbps)
     e512 = next(A for name, A in ablate_ops if name == "elasticity_512")
     ablate_library = phase_library(torch, [
         ("ell elasticity N=512 scalar scaled m=8", e512,
@@ -2983,9 +3087,25 @@ def main():
                                 ("spmm_d", "D rolling", 175)):
         rec = dict(variants[variant], plain_ms=variants["plain"]["ms"],
                    case=f"2d N=2048 m=8 f32 tile 2048 rows 2 ({variant})")
+        more = {}
+        if name == "spmm_b":
+            # the bulk body: its route and W / T at the table's tile, the three
+            # rings there, and each ring's fastest setting of the sweep
+            more = dict(body=rec["route"], staged_per_consumed=rec["staged_per_consumed"],
+                        rings_ms={f"B s={s} d={q}": variants[f"B s={s} d={q}"]["ms"]
+                                  for s, q in kv.B_RINGS},
+                        first_version_ms={f"B s={s} d={q}": variants[f"B s={s} d={q}"][
+                            "first_seconds"] * 1e3 for s, q in kv.B_RINGS},
+                        first_version_launches=cli_launches["spmm_b_first"],
+                        best={ring: dict(tile=b["tile"], rows=b["rows"], ms=b["ms"], body=b["route"],
+                                         staged_per_consumed=b["staged_per_consumed"],
+                                         max_abs_err=b["max_abs_err"])
+                              for ring, b in variants["B best"].items()},
+                        best_copy_share={ring: v_bytes / copy_gbps / 1e6 / b["ms"]
+                                         for ring, b in variants["B best"].items()})
         table.append(entry(name, csrc + "dia_variants.cu", f"experiments/kernel_variants.py:{line}",
                            cli_launches[name], rec, v_bytes, v_flops,
-                           library["2d N=2048 m=8 f32"]))
+                           library["2d N=2048 m=8 f32"], **more))
     for name, line in (("ident", 42), ("identd", 57), ("ident_alias", 113)):
         rec = copies[name]
         more = {k: rec[k] for k in ("tile", "first_version_ms", "first_version_tile", "body",
@@ -2996,23 +3116,47 @@ def main():
         table.append(entry(name, csrc + "copy_probe.cu", f"experiments/pipeline_probe.py:{line}",
                            cli_launches[name], rec, rec["nbytes"], rec["flops"],
                            rec["library_ms"], **more))
-    for row in (r for r in ablate_rows if r["operand"] == "elasticity_512" and "variant" in r):
-        v, k = row["variant"], row["k"]
-        us = row["us"]
-        if v == "full":
-            # the table's `full` row times K2 itself; the ablation source's
-            # own full body, K2's first version, is timed by the
-            # sweep, here at that version's setting (KC from k, 256 threads)
-            kc = 8 if k <= 8 else 16 if k <= 16 else 24 if k <= 24 else 32
-            us = next(r["us"] for r in ablate_rows if r["operand"] == "elasticity_512"
-                      and r.get("kc") == kc and r.get("threads") == 256)
-        rec = dict(max_abs_err=row["max_abs_err"], ms=us / 1e3, plain_ms=row["plain_us"] / 1e3,
-                   case=f"ell elasticity N=512 scalar scaled k={k} m={row['m']} f32 "
-                   f"({v}; {row['share']:.3f} of K2's time)")
+    # the ablation on the reference's operand (elasticity_2d(512) scaled,
+    # int16 offsets); the graph's numbers beside. ``full``'s row in ABLATE
+    # times K2 itself; the ablation source's full body is timed by the
+    # sweep, here at K2's setting, and K2's first version on its own
+    e_rows = {r["variant"]: r for r in ablate_rows
+              if r["operand"] == "elasticity_512" and "variant" in r}
+    sweep_ms = {}
+    for r in (r for r in ablate_rows if "kc" in r):
+        sweep_ms.setdefault(r["operand"], {})[f"rows={r['rows']} kc={r['kc']}"] = r["us"] / 1e3
+    first_ms = {r["operand"]: r["us"] / 1e3 for r in ablate_rows if r.get("first")}
+    first_eager_ms = {r["operand"]: r["eager_us"] / 1e3 for r in ablate_rows if r.get("first")}
+    graph_rows = {r["variant"]: r for r in ablate_rows
+                  if r["operand"] != "elasticity_512" and "variant" in r}
+    full = e_rows["full"]
+    k2_key = "rows={} kc={}".format(*ga.K2_SETTING)
+    for v in ("full", "nogather", "nodyn", "nofma", "first"):
+        row = full if v == "first" else e_rows[v]
+        ms = {"full": sweep_ms["elasticity_512"][k2_key],
+              "first": first_ms["elasticity_512"]}.get(v, row["us"] / 1e3)
+        what = {"full": f"K2's body at rows {ga.K2_SETTING[0]} kc {ga.K2_SETTING[1]}",
+                "first": "K2's first version"}.get(v, v)
+        rec = dict(max_abs_err=row["max_abs_err"], ms=ms, plain_ms=row["plain_us"] / 1e3,
+                   case=f"ell elasticity N=512 scalar scaled k={row['k']} m={row['m']} f32 "
+                   f"({what}; {ms / (full['us'] / 1e3):.3f} of K2's time)")
         flops = row["n"] * row["m"] if v == "nofma" else 2.0 * row["nnz"] * row["m"]
+        # ms: device time by replay; eager_ms: the reference's chain of
+        # launches (K2's own for ``full``)
+        more = dict(k2_ms=full["us"] / 1e3, share_of_k2=ms / (full["us"] / 1e3),
+                    index_bytes=row["index_bytes"],
+                    eager_ms=first_eager_ms["elasticity_512"] if v == "first"
+                    else row["eager_us"] / 1e3)
+        if v == "full":
+            more["sweep_ms"] = sweep_ms
+        elif v == "first":
+            more["graph_ms"] = first_ms[graph_rows["full"]["operand"]]
+        else:
+            more.update(graph_ms=graph_rows[v]["us"] / 1e3, graph_share_of_k2=graph_rows[v]["share"],
+                        graph_copy_share=graph_rows[v]["copy_share"])
         table.append(entry(f"ablate_{v}", csrc + "ell_ablate.cu", "experiments/gather_ablate.py:35",
                            study_launches[f"ablate_{v}"], rec, row["nbytes"], flops,
-                           ablate_library if v == "full" else None))
+                           ablate_library if v in ("full", "first") else None, **more))
     for name, lines in PROBE_LINES.items():
         row = forms[name]
         # ms: the device time by replay (the host's launch of one of these

@@ -59,6 +59,14 @@ def bench_loop(step, x0, K: int = 50, reps: int = 4, op_args=()):
     return max(best / K, 1e-9)
 
 
+def copy_rate(device, mb: int = 256) -> float:
+    """GB/s of ``v + 1.0`` over an ``mb`` MB f32 buffer (one read and one
+    write per element): the copy rate the experiments take shares of."""
+    buf = torch.ones((mb * 1024 * 1024 // 4,), dtype=torch.float32, device=device)
+    t = bench_loop(lambda v: v + 1.0, buf, K=30)
+    return 2 * buf.numel() * 4 / t / 1e9
+
+
 def replay_ms(fn, reps: int = 9, inner: int = 10) -> float:
     """Median device time of one call of ``fn()`` in ms: ``inner`` calls
     captured into a CUDA graph and the graph replayed between two events,

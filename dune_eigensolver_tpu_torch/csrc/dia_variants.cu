@@ -16,8 +16,25 @@
 //      its two halos.
 //   B  the same through a ring of `nslots` windows of width T + span + 256
 //      starting at fl_base = floor(min offset / 128) * 128, with `depth`
-//      copies in flight (cp.async commit groups; wait_group(depth) hands
-//      over the oldest). A persistent block walks consecutive tiles.
+//      windows in flight. A persistent block walks consecutive tiles. The
+//      reference runs this ring on the DMA engine (make_async_copy and DMA
+//      semaphores); its Hopper counterpart is the bulk copy (TMA without a
+//      tensor map, csrc/bulk_copy.cuh): one thread arms the slot's
+//      mbarrier with the window's bytes and issues one bulk copy per row of
+//      the window's part inside [0, n); the compute threads wait on the
+//      slot's phase parity and release the slot with a block barrier at the
+//      end of the step, before it is refilled; no compute thread issues a
+//      copy. Bulk copies do not zero-fill, so in a window that reaches
+//      outside [0, n) the compute threads write zeros over those columns
+//      with ordinary stores (the data of a DIA operand may be non-zero
+//      there, and the function reads X as zero), then fence them to the
+//      async proxy before the slot's next bulk copy. Bulk copies need
+//      16-byte addresses and sizes, so this body needs n % 4 == 0; off that
+//      grid the launcher takes E2's first version (`body` 0), whose every
+//      thread stages 16- or 4-byte pieces with cp.async (zero-filling) and
+//      hands the oldest commit group over with wait_group(depth). With the
+//      staging off the compute warps, the tile is no longer held to 2048:
+//      the caller sweeps it (experiments/kernel_variants.py).
 //   D  a persistent block walks a contiguous chunk of tiles and keeps a
 //      rolling cache of X tiles (left, centre, right, and those being
 //      fetched ahead): each step asks for one new right-hand tile, so X
@@ -31,12 +48,15 @@
 // has 227 KB of shared memory, so the m rows are split over blocks (`rows`
 // per block, blocks of one tile range adjacent in the grid so that the
 // coefficient tile they share is read from device memory once and from L2
-// after that) and T is 2048, where the halo re-read of C and B is a
-// multiple of the tile instead of 12%: those re-reads are meant to hit in
-// L2. The tiles are dealt out to exactly as many blocks as the card holds
-// at once (dia_variant_blocks_per_sm), since a persistent block that waits
-// for a second wave costs a whole share of the run. The pre-padded (m, n + 2H) buffer is gone: cp.async zero-fills
-// columns outside [0, n), so X stays a plain (m, n) tensor. In place (D):
+// after that) and T is 2048 for C, D and B's first version, where the halo
+// re-read of C and B is a multiple of the tile instead of 12%: those
+// re-reads are meant to hit in L2 (B's bulk body takes tiles up to 16384,
+// as shared memory allows). The tiles are dealt out to exactly as many
+// blocks as the card holds at once (dia_variant_blocks_per_sm), since a
+// persistent block that waits for a second wave costs a whole share of the
+// run. The pre-padded (m, n + 2H) buffer is gone: cp.async zero-fills
+// columns outside [0, n), and B's bulk body writes those zeros itself, so X
+// stays a plain (m, n) tensor. In place (D):
 // on the TPU tile j-1 is written after tile j was read because the grid is
 // sequential; here the tile next to a chunk is overwritten by the
 // neighbouring block while this one still needs its old values, so a
@@ -45,13 +65,16 @@
 //
 // What bounds them: device-memory bytes, (ndiag*n + 2*m*n) * 4 at least,
 // as for csrc/dia_spmm.cu. Copies are 16 bytes per cp.async when n, the
-// window starts and the pointers allow it, else 4 bytes (any n works).
+// window starts and the pointers allow it, else 4 bytes (any n works); B's
+// bulk body moves a window row in one bulk copy.
 //
 // Interface: plain C for ctypes; launches go on the caller's stream and
 // return cudaGetLastError() (or the error of the shared-memory opt-in).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 #define DV_MAX_DIAG 16
 #define DV_THREADS 256
@@ -116,7 +139,8 @@ __device__ __forceinline__ void stage(float* dst, const float* src, long long st
 
 extern __shared__ __align__(16) float dv_smem[];
 
-// One output tile: column tile0 + c of Y for every row of the block.
+// One output tile: column tile0 + c of Y for every row of the block, by a
+// block of THREADS threads.
 // `where(c, off)` is the index in dv_smem of X[row0, tile0 + c + off], and
 // row r of the block lies r * stride further. A thread takes COLS columns at
 // a time, a block stride apart; for each it loads its coefficients (ND = 8
@@ -124,19 +148,19 @@ extern __shared__ __align__(16) float dv_smem[];
 // the first product, so that COLS * ndiag loads are in flight per thread and
 // the row loop is one shared-memory load and one multiply-add per term. The
 // coefficients come straight from device memory, once per row group.
-template <int ND, typename Where>
+template <int ND, int THREADS = DV_THREADS, typename Where>
 __device__ __forceinline__ void compute_tile(Where where, int stride,
                                              const float* __restrict__ data, float* y,
                                              int n, int m, int row0, int rows,
                                              long long tile0, int T, const DvOffsets& offs) {
   constexpr int COLS = ND <= 8 ? 4 : 2;
   const int ncol = (int)min((long long)T, n - tile0);
-  for (int c0 = threadIdx.x; c0 < ncol; c0 += COLS * DV_THREADS) {
+  for (int c0 = threadIdx.x; c0 < ncol; c0 += COLS * THREADS) {
     float coef[COLS][ND];
     int at[COLS][ND];
 #pragma unroll
     for (int u = 0; u < COLS; ++u) {
-      const int c = c0 + u * DV_THREADS;
+      const int c = c0 + u * THREADS;
 #pragma unroll
       for (int d = 0; d < ND; ++d) {
         const bool live = d < offs.count && c < ncol;
@@ -148,7 +172,7 @@ __device__ __forceinline__ void compute_tile(Where where, int stride,
       const float* xr = dv_smem + r * stride;
 #pragma unroll
       for (int u = 0; u < COLS; ++u) {
-        const int c = c0 + u * DV_THREADS;
+        const int c = c0 + u * THREADS;
         if (c < ncol) {
           float acc = 0.f;
 #pragma unroll
@@ -199,11 +223,81 @@ dia_c_kernel(const float* __restrict__ data, const float* __restrict__ x,
   }
 }
 
-// --- variant B: ring of nslots windows, depth copies in flight ---
+// --- variant B: ring of nslots windows fed by bulk copies, depth in flight ---
+// Block b: row group b % G, chunk b / G of tpc consecutive tiles. Window k
+// of the chunk holds columns g0 .. g0 + W - 1 of X, g0 = (t0 + k) * T + lo,
+// in slot k % nslots, whose barrier completes its (k / nslots)-th phase when
+// the window's bytes have landed. Every thread computes, so where the ring's
+// shared memory leaves one block an SM the block takes THREADS = 512, else
+// 256 (experiments/kernel_variants.py::ring_geometry chooses).
+template <int ND, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+dia_b_kernel(const float* __restrict__ data, const float* __restrict__ x,
+             float* __restrict__ y, int n, int m, int T, int lo, int W, int rows,
+             int G, int tpc, int ntiles, int nslots, int depth, DvOffsets offs) {
+  __shared__ __align__(8) uint64_t full[DV_MAX_SLOTS];
+  const int row0 = (blockIdx.x % G) * rows;
+  const int t0 = (blockIdx.x / G) * tpc;
+  const int cnt = min(tpc, ntiles - t0);
+  const int nrows = min(rows, m - row0);
+  const int slot = rows * W;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nslots; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // the columns [a, b) of window k that lie inside [0, n)
+  auto inside = [&](int k, int& a, int& b) {
+    const long long g0 = (long long)(t0 + k) * T + lo;
+    a = (int)min(max(-g0, 0LL), (long long)W);
+    b = (int)max(min((long long)n - g0, (long long)W), (long long)a);
+  };
+  // thread 0 alone: arm the slot's barrier, one bulk copy per row
+  auto fill = [&](int k) {
+    int a, b;
+    inside(k, a, b);
+    uint64_t* bar = &full[k % nslots];
+    if (b > a) {
+      const uint32_t bytes = (uint32_t)(b - a) * sizeof(float);
+      const float* src = x + (size_t)row0 * n + ((long long)(t0 + k) * T + lo + a);
+      float* dst = dv_smem + (k % nslots) * slot + a;
+      mbar_arrive_expect_tx(bar, bytes * nrows);
+      for (int r = 0; r < nrows; ++r) bulk_load(dst + r * W, src + (size_t)r * n, bytes, bar);
+    } else {
+      mbar_arrive(bar);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int k = 0; k < depth && k < cnt; ++k) fill(k);
+  for (int k = 0; k < cnt; ++k) {
+    // depth < nslots: the slot filled here was last read in step
+    // k + depth - nslots < k, released by that step's closing barrier
+    if (threadIdx.x == 0 && k + depth < cnt) fill(k + depth);
+    mbar_wait(&full[k % nslots], (uint32_t)(k / nslots) & 1);
+    float* win = dv_smem + (k % nslots) * slot;
+    int a, b;
+    inside(k, a, b);
+    const bool edge = a > 0 || b < W;  // uniform across the block
+    if (edge) {
+      const int out = W - (b - a);  // columns outside [0, n), a row
+      for (int idx = threadIdx.x; idx < nrows * out; idx += THREADS) {
+        const int r = idx / out, c = idx - r * out;
+        win[r * W + (c < a ? c : c - a + b)] = 0.f;
+      }
+      __syncthreads();
+    }
+    compute_tile<ND, THREADS>(WindowAt{(k % nslots) * slot, lo}, W, data, y, n, m, row0, rows,
+                              (long long)(t0 + k) * T, T, offs);
+    if (edge) fence_proxy_async();  // the zeros before the slot's next bulk copy
+    __syncthreads();  // every thread has read the slot: it may be refilled
+  }
+}
+
+// --- variant B, first version: every thread stages with cp.async ---
 // Block b: row group b % G, chunk b / G of tpc consecutive tiles.
 template <int ND>
 __global__ void __launch_bounds__(DV_THREADS)
-dia_b_kernel(const float* __restrict__ data, const float* __restrict__ x,
+dia_b_first_kernel(const float* __restrict__ data, const float* __restrict__ x,
              float* __restrict__ y, int n, int m, int T, int lo, int W, int rows,
              int G, int tpc, int ntiles, int nslots, int depth, DvOffsets offs,
              int vec) {
@@ -318,13 +412,22 @@ static int opt_in_shared(K kernel, size_t bytes) {
   return (int)e;
 }
 
-// the kernel of variant 0 (C), 1 (B) or 2 (D) for this many diagonals
+// the kernel of variant 0 (C), 1 (B, bulk body, 256 threads), 2 (D), 3 (B,
+// first version) or 4 (B, bulk body, 512 threads) for this many diagonals
 static const void* variant_kernel(int variant, int ndiag) {
   const bool small = ndiag <= 8;
   switch (variant) {
     case 0: return small ? (const void*)dia_c_kernel<8> : (const void*)dia_c_kernel<DV_MAX_DIAG>;
-    case 1: return small ? (const void*)dia_b_kernel<8> : (const void*)dia_b_kernel<DV_MAX_DIAG>;
+    case 1:
+      return small ? (const void*)dia_b_kernel<8, 256>
+                   : (const void*)dia_b_kernel<DV_MAX_DIAG, 256>;
     case 2: return small ? (const void*)dia_d_kernel<8> : (const void*)dia_d_kernel<DV_MAX_DIAG>;
+    case 3:
+      return small ? (const void*)dia_b_first_kernel<8>
+                   : (const void*)dia_b_first_kernel<DV_MAX_DIAG>;
+    case 4:
+      return small ? (const void*)dia_b_kernel<8, 512>
+                   : (const void*)dia_b_kernel<DV_MAX_DIAG, 512>;
     default: return nullptr;
   }
 }
@@ -349,8 +452,8 @@ int dia_variant_blocks_per_sm(int variant, int ndiag, int slots, int rows, int w
     return 0;
   }
   int blocks = 0;
-  const cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, DV_THREADS, bytes);
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, variant == 4 ? 512 : DV_THREADS, bytes);
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
@@ -379,14 +482,18 @@ int dia_c_launch(const void* data, const void* x, void* y, long long n, int m,
 }
 
 // Variant B. lo: window start relative to the tile (fl_base <= min offset);
-// W: window width (>= T + max offset - lo); tpc: tiles per chunk.
+// W: window width (>= T + max offset - lo); tpc: tiles per chunk; body: 1
+// the bulk copies (n, T, lo, W multiples of 4 and x on 16 bytes, else
+// refused) with `threads` 256 or 512 a block, 0 the first version
+// (cp.async, any n, 256 threads).
 int dia_b_launch(const void* data, const void* x, void* y, long long n, int m,
                  int ndiag, const int* offsets, int T, int lo, int W, int rows,
-                 int tpc, int nslots, int depth, void* stream) {
+                 int tpc, int nslots, int depth, int body, int threads, void* stream) {
   DvOffsets offs;
   if (fill_offsets(&offs, ndiag, offsets) || n < 1 || n > 0x7fffffffLL || m < 1 ||
       T < 1 || W < 1 || rows < 1 || tpc < 1 || x == y || depth < 1 ||
-      depth >= nslots || nslots > DV_MAX_SLOTS)
+      depth >= nslots || nslots > DV_MAX_SLOTS || (body != 0 && body != 1) ||
+      !(threads == DV_THREADS || (body == 1 && threads == 512)))
     return (int)cudaErrorInvalidValue;
   for (int d = 0; d < ndiag; ++d)
     if (offsets[d] < lo || T + offsets[d] - lo > W) return (int)cudaErrorInvalidValue;
@@ -394,11 +501,24 @@ int dia_b_launch(const void* data, const void* x, void* y, long long n, int m,
   const int ntiles = (int)((n + T - 1) / T);
   const int nchunks = (ntiles + tpc - 1) / tpc;
   const size_t bytes = (size_t)nslots * rows * W * sizeof(float);
-  auto kernel = ndiag <= 8 ? dia_b_kernel<8> : dia_b_kernel<DV_MAX_DIAG>;
+  const bool small = ndiag <= 8;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (body == 1) {
+    if (n % 4 || T % 4 || lo % 4 || W % 4 || !aligned16(x)) return (int)cudaErrorInvalidValue;
+    auto kernel = threads == 512 ? (small ? dia_b_kernel<8, 512> : dia_b_kernel<DV_MAX_DIAG, 512>)
+                                 : (small ? dia_b_kernel<8, 256> : dia_b_kernel<DV_MAX_DIAG, 256>);
+    int e = opt_in_shared(kernel, bytes);
+    if (e) return e;
+    kernel<<<(unsigned)(G * nchunks), (unsigned)threads, bytes, s>>>(
+        (const float*)data, (const float*)x, (float*)y, (int)n, m, T, lo, W, rows, G, tpc,
+        ntiles, nslots, depth, offs);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = small ? dia_b_first_kernel<8> : dia_b_first_kernel<DV_MAX_DIAG>;
   int e = opt_in_shared(kernel, bytes);
   if (e) return e;
   const int vec = n % 4 == 0 && T % 4 == 0 && lo % 4 == 0 && W % 4 == 0 && aligned16(x);
-  kernel<<<(unsigned)(G * nchunks), DV_THREADS, bytes, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)(G * nchunks), DV_THREADS, bytes, s>>>(
       (const float*)data, (const float*)x, (float*)y, (int)n, m, T, lo, W, rows, G,
       tpc, ntiles, nslots, depth, offs, vec);
   return (int)cudaGetLastError();

@@ -1,87 +1,71 @@
-// Ablation of the first version of the ELL SpMM of csrc/ell_spmm.cu,
-// for Hopper (sm_90a): where did that kernel's microseconds go?
+// Ablation of the ELL SpMM K2 (csrc/ell_spmm.cu), for Hopper (sm_90a):
+// where do its microseconds go?
 //
 // Replaces experiments/gather_ablate.py::_variant_kernel (launched by
-// run_variant), the experiment that times the TPU gather kernel against
-// degraded copies of its body. The TPU body's mechanisms (a dynamic scratch
-// load, take_along_axis on one 128-lane vreg) do not exist on this card, so
-// what is ablated here is the port's own kernel as first written, whose
-// design is this experiment's definition: one thread per row i holds
-// KC (coefficient, column) pairs in registers and, for each of the m rows
-// of X, gathers X[r, col] through L1/L2 and accumulates. One mechanism is
-// removed at a time; each variant is still a defined function, so the card
-// can hold it to a plain version:
+// run_variant), the experiment that times the shipped TPU gather kernel
+// against degraded copies of its body. The TPU body's mechanisms (a dynamic
+// scratch load, take_along_axis on one 128-lane vreg) do not exist on this
+// card, so what is ablated here is the body K2 ships, csrc/ell_body.cuh,
+// one mechanism at a time. Each variant is still a defined function (the
+// header states them), so the card holds it to a plain version:
 //
-//   full      Y[r,i] = sum_j data[i,j] * X[r, cols[i,j]]      K2's first body
-//   nogather  Y[r,i] = sum_j data[i,j] * X[r, i']             i' = min(i, ncols-1)
-//             the irregular address is gone: every term still issues its own
-//             load of X (a volatile asm load, so the k loads per row of X
-//             are not merged into one), but all of a warp's loads are
-//             neighbours and hit in L1. The index stream is still loaded.
-//   nodyn     Y[r,i] = sum_j data[i,j] * X[r, (i' + j) mod ncols]
-//             the index stream is gone: the column is computed (a compare
-//             and a subtract, no `%` in the inner loop), not loaded.
-//   nofma     Y[r,i] = X[r, i'] + data[i,0]
-//             the inner loop is gone: coefficients and indices are streamed
-//             once (volatile asm loads, results dropped), X is read and Y
-//             written once.
+//   nogather  no irregular address: every term loads X at the row's own column
+//   nodyn     no index stream: the column is computed, not loaded
+//   nofma     no inner loop: the streams once, X read and Y written once
 //
-// The full body is a template over the register chunk KC and the threads of
-// a block, so that the sweep that stood where the TPU's tile sweep stood
-// (KC in {8, 16, 24, 32} x threads in {128, 256, 512}) has explicit
-// arguments. With K2's first choice (KC from k, 256 threads) the full body
-// here is K2's first version, statement for statement: every slot to k,
-// one row of X at a time. The redesigned K2 (csrc/ell_spmm.cu) gives the
-// same bits on finite X, so the full body is its bit check.
+// They are instantiated at K2's constants (ELL_ROWS, ELL_KC, its register
+// caps) and read K2's index stream (int16 offsets or int32 columns). Where
+// the TPU experiment swept its row tile, this one sweeps K2's two knobs,
+// the rows of X in flight (ROWS) and the register chunk (KC), on the same
+// body (ELL_FULL); every setting gives K2's bits, and K2's own (8, 9) is
+// one of them.
 //
-// What bounds them: the first version was held by its X gathers (one L1
-// request per multiply-add, few in flight), not by bytes. The variants say
-// which of the gather's irregular addresses, the index stream, or the
-// inner loop's instructions kept it from its byte bound.
+// K2's first version (its body before the redesign) stays here as
+// its bit check and as the baseline its time is taken in turns with:
+// ell_first_kernel, statement for statement that body at 256 threads and
+// KC from k (8, 16, 24 or 32), reading int32 columns. It holds one row of X
+// in flight and a chunk of KC gathers under a per-slot predicate; on finite
+// X it gives K2's bits.
+//
+// What bounds them: K2 is held by its X gathers (one L1 request per
+// multiply-add), not by bytes. The variants split the rest of K2's time
+// against its copy bound: the gathers' irregular addresses, the index
+// stream, the inner loop's instructions.
 //
 // Interface: plain C for ctypes; the launch goes on the caller's stream and
 // the function returns cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "ell_body.cuh"
 
-enum { EA_FULL = 0, EA_NOGATHER = 1, EA_NODYN = 2, EA_NOFMA = 3 };
+// threads the card should hold with the first version: 4 blocks of 256 on
+// each of 132 SMs, as that version aimed for
+#define EA_FIRST_TARGET_THREADS (528 * 256)
 
-// threads the card should hold: 4 blocks of 256 on each of 132 SMs, as
-// K2's first version aimed for
-#define EA_TARGET_THREADS (528 * 256)
-
-// loads the compiler must issue, one per call, whatever becomes of the value
-__device__ __forceinline__ float load_f32_kept(const float* p) {
-  float v;
-  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
-  return v;
+// The sweep's ELL_FULL instantiations live in ell_sweep_r{1,4,8}.cu, one
+// source (one nvcc, all built together) for each of ROWS 1, 4, 8, each
+// with KC 6, 8, 9 and 12 (csrc/ell_sweep.cuh); K2's own (8, 9) is one of
+// them. experiments/gather_ablate.py SWEEP lists the same settings.
+extern "C" {
+int ell_sweep_launch_r1(int kc, dim3 grid, cudaStream_t s, const void* data_t,
+                        const void* cols_t, int index_bytes, const int* slots, const void* x,
+                        void* y, int n, int ncols, int m, int rows_per_block);
+int ell_sweep_launch_r4(int kc, dim3 grid, cudaStream_t s, const void* data_t,
+                        const void* cols_t, int index_bytes, const int* slots, const void* x,
+                        void* y, int n, int ncols, int m, int rows_per_block);
+int ell_sweep_launch_r8(int kc, dim3 grid, cudaStream_t s, const void* data_t,
+                        const void* cols_t, int index_bytes, const int* slots, const void* x,
+                        void* y, int n, int ncols, int m, int rows_per_block);
 }
-__device__ __forceinline__ int load_s32_kept(const int* p) {
-  int v;
-  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
 
-template <int KC, int THREADS, int VARIANT>
-__global__ void __launch_bounds__(THREADS)
-ell_ablate_kernel(const float* __restrict__ data_t, const int* __restrict__ cols_t,
-                  const float* __restrict__ x, float* __restrict__ y, int n, int k,
-                  int ncols, int m, int rows_per_block) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
+template <int KC>
+__global__ void __launch_bounds__(256)
+ell_first_kernel(const float* __restrict__ data_t, const int* __restrict__ cols_t,
+                 const float* __restrict__ x, float* __restrict__ y, int n, int k,
+                 int ncols, int m, int rows_per_block) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
   const int r0 = blockIdx.y * rows_per_block;
   const int r1 = min(m, r0 + rows_per_block);
-  const int ic = min(i, ncols - 1);
-  if (VARIANT == EA_NOFMA) {
-    for (int j = 0; j < k; ++j) {
-      if (j) load_f32_kept(data_t + (size_t)j * n + i);
-      load_s32_kept(cols_t + (size_t)j * n + i);
-    }
-    const float d0 = __ldg(data_t + i);
-    for (int r = r0; r < r1; ++r)
-      y[(size_t)r * n + i] = __ldg(x + (size_t)r * ncols + ic) + d0;
-    return;
-  }
   for (int j0 = 0; j0 < k; j0 += KC) {
     float val[KC];
     int col[KC];
@@ -91,14 +75,7 @@ ell_ablate_kernel(const float* __restrict__ data_t, const int* __restrict__ cols
       col[j] = 0;
       if (j0 + j < k) {
         val[j] = __ldg(data_t + (size_t)(j0 + j) * n + i);
-        if (VARIANT == EA_FULL) {
-          col[j] = __ldg(cols_t + (size_t)(j0 + j) * n + i);
-        } else if (VARIANT == EA_NOGATHER) {
-          load_s32_kept(cols_t + (size_t)(j0 + j) * n + i);
-        } else {  // EA_NODYN: k <= ncols (checked by the launcher), so one subtract
-          const int c = ic + j0 + j;
-          col[j] = c >= ncols ? c - ncols : c;
-        }
+        col[j] = __ldg(cols_t + (size_t)(j0 + j) * n + i);
       }
     }
     for (int r = r0; r < r1; ++r) {
@@ -107,12 +84,7 @@ ell_ablate_kernel(const float* __restrict__ data_t, const int* __restrict__ cols
       float acc = j0 ? *yr : 0.f;
 #pragma unroll
       for (int j = 0; j < KC; ++j) {
-        if (j0 + j < k) {
-          if (VARIANT == EA_NOGATHER)
-            acc += val[j] * load_f32_kept(xr + ic);
-          else
-            acc += val[j] * __ldg(xr + col[j]);
-        }
+        if (j0 + j < k) acc += val[j] * __ldg(xr + col[j]);
       }
       *yr = acc;
     }
@@ -122,77 +94,88 @@ ell_ablate_kernel(const float* __restrict__ data_t, const int* __restrict__ cols
 namespace {
 
 struct Args {
-  const float* data_t;
-  const int* cols_t;
-  const float* x;
-  float* y;
-  int n, k, ncols, m;
+  const void* data_t;
+  const void* cols_t;
+  int index_bytes;
+  const int* slots;
+  const void* x;
+  void* y;
+  int n, ncols, m;
   cudaStream_t stream;
 };
 
-template <int KC, int THREADS, int VARIANT>
+template <int V, int ROWS, int KC>
 void launch(const Args& a) {
-  const unsigned gx = (unsigned)((a.n + THREADS - 1) / THREADS);
-  const unsigned target = EA_TARGET_THREADS / THREADS;
+  int rows_per_block;
+  const dim3 grid = ell_grid(a.n, a.m, &rows_per_block);
+  ell_body_launch<V, ROWS, KC, ELL_MIN_BLOCKS_I16, ELL_MIN_BLOCKS, float>(
+      grid, a.stream, a.data_t, a.cols_t, a.index_bytes, a.slots, a.x, a.y, a.n, a.ncols, a.m,
+      rows_per_block);
+}
+
+template <int KC>
+void launch_first(const float* data_t, const int* cols_t, const float* x, float* y, int n, int k,
+                  int ncols, int m, cudaStream_t s) {
+  const unsigned gx = (unsigned)((n + 255) / 256);
+  const unsigned target = EA_FIRST_TARGET_THREADS / 256;
   int split = (int)((target + gx - 1) / gx);
-  split = split < 1 ? 1 : (split > a.m ? a.m : split);
-  const int rows_per_block = (a.m + split - 1) / split;
-  const dim3 grid(gx, (unsigned)((a.m + rows_per_block - 1) / rows_per_block));
-  ell_ablate_kernel<KC, THREADS, VARIANT><<<grid, THREADS, 0, a.stream>>>(
-      a.data_t, a.cols_t, a.x, a.y, a.n, a.k, a.ncols, a.m, rows_per_block);
-}
-
-// the degraded variants exist at K2's first 256 threads only
-template <int KC, int THREADS>
-bool launch_variant(int variant, const Args& a) {
-  if (variant == EA_FULL) {
-    launch<KC, THREADS, EA_FULL>(a);
-    return true;
-  }
-  if constexpr (THREADS == 256) {
-    if (variant == EA_NOGATHER) {
-      launch<KC, 256, EA_NOGATHER>(a);
-    } else if (variant == EA_NODYN) {
-      launch<KC, 256, EA_NODYN>(a);
-    } else {
-      launch<KC, 256, EA_NOFMA>(a);
-    }
-    return true;
-  }
-  return false;
-}
-
-template <int THREADS>
-bool launch_kc(int kc, int variant, const Args& a) {
-  switch (kc) {
-    case 8: return launch_variant<8, THREADS>(variant, a);
-    case 16: return launch_variant<16, THREADS>(variant, a);
-    case 24: return launch_variant<24, THREADS>(variant, a);
-    case 32: return launch_variant<32, THREADS>(variant, a);
-  }
-  return false;
+  split = split < 1 ? 1 : (split > m ? m : split);
+  const int rows_per_block = (m + split - 1) / split;
+  const dim3 grid(gx, (unsigned)((m + rows_per_block - 1) / rows_per_block));
+  ell_first_kernel<KC><<<grid, 256, 0, s>>>(data_t, cols_t, x, y, n, k, ncols, m,
+                                            rows_per_block);
 }
 
 }  // namespace
 
 extern "C" {
 
-// kc = 0 takes K2's first version's chunk for this k. Returns a
-// cudaError_t as int.
-int ell_ablate_launch(int variant, int kc, int threads, const void* data_t,
-                      const void* cols_t, long long n, int k, long long ncols,
-                      const void* x, void* y, int m, void* stream) {
+// variant 0 (ELL_FULL) at the sweep setting (rows, kc); 1-3 the degraded
+// variants, which exist at K2's (ELL_ROWS, ELL_KC) alone. cols_t: K2's
+// index stream, (k, n) int16 offsets (index_bytes 2) or int32 columns (4);
+// warp_slots: K2's ceil(n / 32) counts. Returns a cudaError_t as int.
+int ell_ablate_launch(int variant, int rows, int kc, const void* data_t, const void* cols_t,
+                      int index_bytes, const void* warp_slots, long long n, int k,
+                      long long ncols, const void* x, void* y, int m, void* stream) {
   if (n < 1 || n > 0x7fffffffLL || ncols < 1 || ncols > 0x7fffffffLL || k < 1 || m < 1 ||
-      variant < EA_FULL || variant > EA_NOFMA || (variant == EA_NODYN && k > ncols))
+      (index_bytes != 2 && index_bytes != 4) || variant < ELL_FULL || variant > ELL_NOFMA ||
+      (variant == ELL_NODYN && k > ncols))
     return (int)cudaErrorInvalidValue;
-  if (kc == 0) kc = k <= 8 ? 8 : (k <= 16 ? 16 : (k <= 24 ? 24 : 32));
-  const Args a = {(const float*)data_t, (const int*)cols_t, (const float*)x, (float*)y,
-                  (int)n, k, (int)ncols, m, (cudaStream_t)stream};
-  bool ok = false;
-  if (threads == 128) ok = launch_kc<128>(kc, variant, a);
-  else if (threads == 256) ok = launch_kc<256>(kc, variant, a);
-  else if (threads == 512) ok = launch_kc<512>(kc, variant, a);
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const Args a = {data_t, cols_t, index_bytes, (const int*)warp_slots, x, y,
+                  (int)n, (int)ncols, m, (cudaStream_t)stream};
+  if (variant != ELL_FULL) {
+    if (rows != ELL_ROWS || kc != ELL_KC) return (int)cudaErrorInvalidValue;
+    if (variant == ELL_NOGATHER) launch<ELL_NOGATHER, ELL_ROWS, ELL_KC>(a);
+    else if (variant == ELL_NODYN) launch<ELL_NODYN, ELL_ROWS, ELL_KC>(a);
+    else launch<ELL_NOFMA, ELL_ROWS, ELL_KC>(a);
+    return (int)cudaGetLastError();
+  }
+  int rows_per_block;
+  const dim3 grid = ell_grid(a.n, a.m, &rows_per_block);
+  auto sweep = rows == 1 ? ell_sweep_launch_r1 : rows == 4 ? ell_sweep_launch_r4
+             : rows == 8 ? ell_sweep_launch_r8 : nullptr;
+  if (sweep == nullptr ||
+      sweep(kc, grid, a.stream, a.data_t, a.cols_t, a.index_bytes, a.slots, a.x, a.y, a.n,
+            a.ncols, a.m, rows_per_block))
+    return (int)cudaErrorInvalidValue;  // a setting that was not built
+  return (int)cudaGetLastError();
+}
+
+// K2's first version: int32 columns (k, n), KC from k, 256 threads.
+// Returns a cudaError_t as int.
+int ell_first_launch(const void* data_t, const void* cols_t, long long n, int k,
+                     long long ncols, const void* x, void* y, int m, void* stream) {
+  if (n < 1 || n > 0x7fffffffLL || ncols < 1 || ncols > 0x7fffffffLL || k < 1 || m < 1)
+    return (int)cudaErrorInvalidValue;
+  const float* d = (const float*)data_t;
+  const int* c = (const int*)cols_t;
+  const float* xx = (const float*)x;
+  float* yy = (float*)y;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 8) launch_first<8>(d, c, xx, yy, (int)n, k, (int)ncols, m, s);
+  else if (k <= 16) launch_first<16>(d, c, xx, yy, (int)n, k, (int)ncols, m, s);
+  else if (k <= 24) launch_first<24>(d, c, xx, yy, (int)n, k, (int)ncols, m, s);
+  else launch_first<32>(d, c, xx, yy, (int)n, k, (int)ncols, m, s);
   return (int)cudaGetLastError();
 }
 

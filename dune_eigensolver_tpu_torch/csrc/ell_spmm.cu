@@ -62,10 +62,14 @@
 // are split over blockIdx.y so that the card still gets enough threads.
 // Slots in stored order, one chain of fused multiply-adds per output from
 // +0: the first version's bits on finite X.
-// f64 is the same body with the value type a template parameter (EllCfg):
+// f64 is the same body with the value type a template parameter:
 // ELL_ROWS_F64 rows of X in flight, since each gathered value and each sum
 // takes two registers, and its own register cap; the index stream is the
 // same.
+// The body lives in csrc/ell_body.cuh, a template over the variant, the
+// rows of X in flight and the register chunk, which the ablation
+// (csrc/ell_ablate.cu) instantiates too; K2 is its ELL_FULL instantiation
+// at ELL_ROWS, ELL_KC and the caps below.
 // Registers (ptxas, sm_90a): see PERF.md section 6; the build log prints
 // them.
 //
@@ -73,191 +77,10 @@
 // stream and the function returns cudaGetLastError() so the wrapper can
 // raise on a refused launch.
 
-#include <cuda_runtime.h>
+#include "ell_body.cuh"
 
-#define ELL_THREADS 128
-#define ELL_MIN_BLOCKS 6      // blocks an SM holds, int32 columns: 80 registers
-#define ELL_MIN_BLOCKS_I16 5  // the same, int16 offsets: 96 registers
-#define ELL_ROWS 8    // rows of X a thread has in flight
-#define ELL_ROWS_F64 4        // the same in f64
+#define ELL_ROWS_F64 4        // rows of X in flight in f64
 #define ELL_MIN_BLOCKS_F64 3  // blocks an SM holds in f64: 168 registers
-#define ELL_KC 9      // (coefficient, column) pairs in registers at a time
-#define ELL_WARP 32   // rows that share a slot count (formats.py WARP_ROWS)
-#define ELL_TARGET_THREADS (528 * 256)  // half of what 132 SMs can hold
-
-// rows of X in flight and blocks an SM is held to, by value and index type
-template <typename T, typename IDX> struct EllCfg {
-  static constexpr int ROWS = ELL_ROWS;
-  static constexpr int MIN_BLOCKS = sizeof(IDX) == 2 ? ELL_MIN_BLOCKS_I16 : ELL_MIN_BLOCKS;
-};
-template <typename IDX> struct EllCfg<double, IDX> {
-  static constexpr int ROWS = ELL_ROWS_F64;
-  static constexpr int MIN_BLOCKS = ELL_MIN_BLOCKS_F64;
-};
-
-__device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
-
-// slots j0 .. j0 + KC - 1 of row i into registers; IDX is int (columns) or
-// short (offsets col - i)
-template <int KC, typename T, typename IDX>
-__device__ __forceinline__ void ell_load(const T* __restrict__ data_t,
-                                         const IDX* __restrict__ cols_t, size_t n, size_t i,
-                                         int j0, T (&v)[KC], int (&c)[KC]) {
-#pragma unroll
-  for (int j = 0; j < KC; ++j) {
-    v[j] = __ldg(data_t + (size_t)(j0 + j) * n + i);
-    const int s = __ldg(cols_t + (size_t)(j0 + j) * n + i);
-    c[j] = sizeof(IDX) == 2 ? (int)i + s : s;
-  }
-}
-
-// RR rows of X from row r on: KC pairs times their X values, onto acc
-template <int KC, int RR, typename T>
-__device__ __forceinline__ void ell_fma(const T* __restrict__ x, size_t ncols, int r,
-                                        const T (&v)[KC], const int (&c)[KC],
-                                        T (&acc)[RR]) {
-  T xv[RR][KC];
-#pragma unroll
-  for (int q = 0; q < RR; ++q) {
-    const T* xr = x + (size_t)(r + q) * ncols;
-#pragma unroll
-    for (int j = 0; j < KC; ++j) xv[q][j] = __ldg(xr + c[j]);
-  }
-#pragma unroll
-  for (int q = 0; q < RR; ++q) {
-#pragma unroll
-    for (int j = 0; j < KC; ++j) acc[q] = fma_acc(v[j], xv[q][j], acc[q]);
-  }
-}
-
-template <int RR, typename T>
-__device__ __forceinline__ void ell_store(T* __restrict__ y, size_t n, int r, size_t i,
-                                          const T (&acc)[RR]) {
-#pragma unroll
-  for (int q = 0; q < RR; ++q) y[(size_t)(r + q) * n + i] = acc[q];
-}
-
-// A warp whose rows hold at most ELL_KC slots: exactly KC pairs, loaded
-// once, kept in registers over the rows r0 .. r1 - 1 of X.
-template <int KC, typename T, typename IDX>
-__device__ __forceinline__ void ell_short(const T* __restrict__ data_t,
-                                          const IDX* __restrict__ cols_t,
-                                          const T* __restrict__ x, T* __restrict__ y,
-                                          size_t n, size_t ncols, size_t i, int r0, int r1) {
-  constexpr int ROWS = EllCfg<T, IDX>::ROWS;
-  T v[KC];
-  int c[KC];
-  ell_load<KC>(data_t, cols_t, n, i, 0, v, c);
-  int r = r0;
-  for (; r + ROWS <= r1; r += ROWS) {
-    T acc[ROWS] = {};
-    ell_fma<KC, ROWS>(x, ncols, r, v, c, acc);
-    ell_store<ROWS>(y, n, r, i, acc);
-  }
-  for (; r < r1; ++r) {
-    T acc[1] = {};
-    ell_fma<KC, 1>(x, ncols, r, v, c, acc);
-    ell_store<1>(y, n, r, i, acc);
-  }
-}
-
-// exactly ``kw`` slots, 1 <= kw <= K
-template <int K, typename T, typename IDX>
-__device__ __forceinline__ void ell_short_tail(int kw, const T* __restrict__ data_t,
-                                               const IDX* __restrict__ cols_t,
-                                               const T* __restrict__ x,
-                                               T* __restrict__ y, size_t n, size_t ncols,
-                                               size_t i, int r0, int r1) {
-  if constexpr (K > 0) {
-    if (kw == K) {
-      ell_short<K>(data_t, cols_t, x, y, n, ncols, i, r0, r1);
-    } else {
-      ell_short_tail<K - 1>(kw, data_t, cols_t, x, y, n, ncols, i, r0, r1);
-    }
-  }
-}
-
-// the last ``rem`` slots from j0 on, 0 <= rem <= K, onto acc
-template <int K, int RR, typename T, typename IDX>
-__device__ __forceinline__ void ell_long_tail(int rem, const T* __restrict__ data_t,
-                                              const IDX* __restrict__ cols_t,
-                                              const T* __restrict__ x, size_t n,
-                                              size_t ncols, size_t i, int j0, int r,
-                                              T (&acc)[RR]) {
-  if constexpr (K > 0) {
-    if (rem == K) {
-      T v[K];
-      int c[K];
-      ell_load<K>(data_t, cols_t, n, i, j0, v, c);
-      ell_fma<K, RR>(x, ncols, r, v, c, acc);
-    } else {
-      ell_long_tail<K - 1, RR>(rem, data_t, cols_t, x, n, ncols, i, j0, r, acc);
-    }
-  }
-}
-
-// A warp whose rows hold more than ELL_KC slots, RR rows of X from row r
-// on: chunks of ELL_KC pairs and an exact remainder, each loaded again for
-// every group of rows (the block's pairs stay in L1), the sums kept in
-// registers, so Y is written once.
-template <int RR, typename T, typename IDX>
-__device__ __forceinline__ void ell_long(int kw, const T* __restrict__ data_t,
-                                         const IDX* __restrict__ cols_t,
-                                         const T* __restrict__ x, T* __restrict__ y,
-                                         size_t n, size_t ncols, size_t i, int r) {
-  T acc[RR] = {};
-  int j0 = 0;
-  for (; j0 + ELL_KC <= kw; j0 += ELL_KC) {
-    T v[ELL_KC];
-    int c[ELL_KC];
-    ell_load<ELL_KC>(data_t, cols_t, n, i, j0, v, c);
-    ell_fma<ELL_KC, RR>(x, ncols, r, v, c, acc);
-  }
-  ell_long_tail<ELL_KC - 1, RR>(kw - j0, data_t, cols_t, x, n, ncols, i, j0, r, acc);
-  ell_store<RR>(y, n, r, i, acc);
-}
-
-// One thread per row i; its warp's rows run warp_slots[i / ELL_WARP] slots.
-template <typename T, typename IDX>
-__global__ void __launch_bounds__(ELL_THREADS, EllCfg<T, IDX>::MIN_BLOCKS)
-ell_spmm_t_kernel(const T* __restrict__ data_t, const IDX* __restrict__ cols_t,
-                  const int* __restrict__ warp_slots, const T* __restrict__ x,
-                  T* __restrict__ y, int n, int ncols, int m, int rows_per_block) {
-  constexpr int ROWS = EllCfg<T, IDX>::ROWS;
-  const int i = blockIdx.x * ELL_THREADS + threadIdx.x;
-  if (i >= n) return;
-  const int r0 = blockIdx.y * rows_per_block;
-  const int r1 = min(m, r0 + rows_per_block);
-  const int kw = __ldg(warp_slots + i / ELL_WARP);
-  if (kw == 0) {  // the warp's rows store nothing but padding: Y = 0
-    for (int r = r0; r < r1; ++r) y[(size_t)r * n + i] = T(0);
-  } else if (kw <= ELL_KC) {
-    ell_short_tail<ELL_KC>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i, r0,
-                           r1);
-  } else {
-    int r = r0;
-    for (; r + ROWS <= r1; r += ROWS)
-      ell_long<ROWS>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i, r);
-    for (; r < r1; ++r)
-      ell_long<1>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i, r);
-  }
-}
-
-template <typename T>
-static void launch(dim3 grid, cudaStream_t s, const void* data_t, const void* cols_t,
-                   int index_bytes, const int* slots, const void* x, void* y, int n, int ncols,
-                   int m, int rows_per_block) {
-  if (index_bytes == 2) {
-    ell_spmm_t_kernel<T, short><<<grid, ELL_THREADS, 0, s>>>(
-        (const T*)data_t, (const short*)cols_t, slots, (const T*)x, (T*)y, n, ncols, m,
-        rows_per_block);
-  } else {
-    ell_spmm_t_kernel<T, int><<<grid, ELL_THREADS, 0, s>>>(
-        (const T*)data_t, (const int*)cols_t, slots, (const T*)x, (T*)y, n, ncols, m,
-        rows_per_block);
-  }
-}
 
 extern "C" {
 
@@ -277,19 +100,17 @@ int ell_spmm_t_launch(int value_bytes, const void* data_t, const void* cols_t,
     cudaMemsetAsync(y, 0, (size_t)m * (size_t)n * value_bytes, s);
     return (int)cudaGetLastError();
   }
-  const unsigned gx = (unsigned)((n + ELL_THREADS - 1) / ELL_THREADS);
-  const unsigned target = ELL_TARGET_THREADS / ELL_THREADS;
-  int split = (int)((target + gx - 1) / gx);
-  split = split < 1 ? 1 : (split > m ? m : split);
-  const int rows_per_block = (m + split - 1) / split;
-  const dim3 grid(gx, (unsigned)((m + rows_per_block - 1) / rows_per_block));
+  int rows_per_block;
+  const dim3 grid = ell_grid(n, m, &rows_per_block);
   const int* slots = (const int*)warp_slots;
   if (value_bytes == 4) {
-    launch<float>(grid, s, data_t, cols_t, index_bytes, slots, x, y, (int)n, (int)ncols, m,
-                  rows_per_block);
+    ell_body_launch<ELL_FULL, ELL_ROWS, ELL_KC, ELL_MIN_BLOCKS_I16, ELL_MIN_BLOCKS, float>(
+        grid, s, data_t, cols_t, index_bytes, slots, x, y, (int)n, (int)ncols, m,
+        rows_per_block);
   } else {
-    launch<double>(grid, s, data_t, cols_t, index_bytes, slots, x, y, (int)n, (int)ncols, m,
-                   rows_per_block);
+    ell_body_launch<ELL_FULL, ELL_ROWS_F64, ELL_KC, ELL_MIN_BLOCKS_F64, ELL_MIN_BLOCKS_F64,
+                    double>(grid, s, data_t, cols_t, index_bytes, slots, x, y, (int)n,
+                            (int)ncols, m, rows_per_block);
   }
   return (int)cudaGetLastError();
 }

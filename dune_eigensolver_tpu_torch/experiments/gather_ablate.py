@@ -1,25 +1,27 @@
 """Ablation of the ELL SpMM kernel: where do its microseconds go?
 
-Counterpart of ``experiments/gather_ablate.py``, which times the TPU gather
-kernel against degraded copies of its body. The TPU body's mechanisms do
-not exist on this card, so what is ablated is the port's own kernel as
-first written (K2's first version), one mechanism at a time
-(``csrc/ell_ablate.cu``). Unlike the reference's variants, each one here is
-a defined function with a plain version (``variant_reference``), so the card
-can check it:
+Counterpart of ``experiments/gather_ablate.py``, which times the shipped
+TPU gather kernel against degraded copies of its body. The TPU body's
+mechanisms do not exist on this card, so what is ablated is the body the
+port's K2 ships (``csrc/ell_body.cuh``, instantiated by
+``csrc/ell_ablate.cu``), one mechanism at a time. Unlike the reference's
+variants, each one here is a defined function with a plain version
+(``variant_reference``), so the card can check it:
 
-  full      Y[r,i] = sum_j data[i,j] X[r, cols[i,j]]   timed as the
-            current ``ell_spmm_t_cuda``, called, not copied
+  full      Y[r,i] = sum_j data[i,j] X[r, cols[i,j]]   timed as
+            ``ell_spmm_t_cuda``, called, not copied
   nogather  Y[r,i] = sum_j data[i,j] X[r, i']           no irregular address
   nodyn     Y[r,i] = sum_j data[i,j] X[r, (i'+j) mod ncols]   no index stream
   nofma     Y[r,i] = X[r, i'] + data[i,0]               no inner loop
 
-with i' = min(i, ncols - 1). Where the TPU experiment swept the row tile,
-this one sweeps what the first version had instead: the register chunk KC
-and the threads of a block, on the ablation source's copy of that body
-(``ablate_full``), which gives K2's bits (the redesigned K2's too, on
-finite X). The degraded variants' shares are taken against the current
-K2's time.
+with i' = min(i, ncols - 1), each at K2's constants and on K2's index
+stream. Where the TPU experiment swept the row tile, this one sweeps K2's
+two knobs on the same body (``ablate_full``): the rows of X in flight and
+the register chunk, ``SWEEP``; every setting gives K2's bits. K2's first
+version (``ablate_first``, int32 columns, 256 threads, KC from k) is timed
+beside them, outside the sweep. Shares are taken against K2's time and
+against the copy bound (the variant's least bytes over the measured copy
+rate).
 
     python -m dune_eigensolver_tpu_torch.experiments.gather_ablate [Nel]
         [--device cpu] [--m M] [--graph-n N]
@@ -29,11 +31,15 @@ max row sum, as scalar ELL, k = 18) and for the RCM-ordered unstructured
 graph Laplacian (k = 7), greppable lines
 
     ABLATE variant=<v> us=<t> gbps=<least bytes of v's function / t>
-           share=<t / t of full> operand=<name>
-    ABLATE kc=<KC> threads=<T> us=<t> operand=<name>
+           share=<t / t of K2> copy_share=<copy bound / t> operand=<name>
+    ABLATE first us=<t> share=<t / t of K2> operand=<name>
+    ABLATE rows=<R> kc=<KC> us=<t> share=<t / t of K2> operand=<name>
+
+(``us`` on the card: device time by CUDA-graph replay).
 
 Every wrapper counts its launches and has no fallback: a CPU tensor raises.
-On ``--device cpu`` only the plain versions run (and the output says so).
+On ``--device cpu`` only the plain versions run (and the output says so,
+with ``copy_share=n/a``).
 """
 
 from __future__ import annotations
@@ -44,14 +50,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from dune_eigensolver_tpu_torch.bench.timing import bench_loop
+from dune_eigensolver_tpu_torch.bench.timing import bench_loop, copy_rate, replay_ms
 from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
 from dune_eigensolver_tpu_torch.sparse.formats import ELLMatrix, ell_from_scipy
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 VARIANTS = ("full", "nogather", "nodyn", "nofma")
-KCS = (8, 16, 24, 32)  # the register chunks csrc/ell_ablate.cu is built for
-THREADS = (128, 256, 512)
+#: K2's (rows of X in flight, register chunk): ELL_ROWS, ELL_KC of csrc/ell_body.cuh
+K2_SETTING = (8, 9)
+#: the (rows, kc) settings of K2's body that csrc/ell_sweep_r{1,4,8}.cu build
+SWEEP = tuple((rows, kc) for rows in (1, 4, 8) for kc in (6, 8, 9, 12))
 
 
 def _own_column(A: ELLMatrix) -> torch.Tensor:
@@ -78,57 +86,81 @@ def variant_reference(A: ELLMatrix, Xt: torch.Tensor, variant: str) -> torch.Ten
     raise ValueError(f"unknown variant {variant!r}; choose from {VARIANTS}")
 
 
-def variant_bytes(A: ELLMatrix, m: int, variant: str) -> int:
+def variant_bytes(A: ELLMatrix, m: int, variant: str, index_bytes: int = 4) -> int:
     """Least bytes the variant's FUNCTION must move, f32: X read and Y
     written once, and of the operator what the function depends on (all
-    coefficients and indices; coefficients alone; column 0 alone)."""
+    coefficients and indices, ``index_bytes`` each; coefficients alone;
+    column 0 alone)."""
     n, n_cols = A.shape
-    operator = {"full": 2 * A.nnz, "nogather": A.nnz, "nodyn": A.nnz, "nofma": n}[variant]
+    if variant == "full":
+        return 4 * (A.nnz + m * (n + n_cols)) + index_bytes * A.nnz
+    operator = {"nogather": A.nnz, "nodyn": A.nnz, "nofma": n}[variant]
     return 4 * (operator + m * (n + n_cols))
 
 
-def _launch(variant: str, A: ELLMatrix, Xt: torch.Tensor, kc: int, threads: int) -> torch.Tensor:
-    what = f"ablate_{variant}"
+def _check(what: str, A: ELLMatrix, Xt: torch.Tensor):
     n, n_cols = A.shape
     kg._check_cuda_operands(what, A.data, A.cols, Xt, n_cols)
+    if Xt.dtype != torch.float32:
+        raise TypeError(f"{what}: dtype {Xt.dtype}; the ablation kernels take float32")
     if A.k < 1 or n < 1:
         raise ValueError(f"{what}: the operand has no stored entries")
+
+
+def _launch(variant: str, A: ELLMatrix, Xt: torch.Tensor, rows: int, kc: int) -> torch.Tensor:
+    what = f"ablate_{variant}"
+    if (rows, kc) not in SWEEP or (variant != "full" and (rows, kc) != K2_SETTING):
+        raise ValueError(f"{what}: (rows, kc) = ({rows}, {kc}) is not built; the full body "
+                         f"has {SWEEP}, the other variants K2's {K2_SETTING}")
+    _check(what, A, Xt)
+    n, n_cols = A.shape
     if variant == "nodyn" and A.k > n_cols:
         raise ValueError(f"{what}: k = {A.k} exceeds the {n_cols} columns")
-    if kc not in (0, *KCS) or threads not in THREADS:
-        raise ValueError(f"{what}: kc {kc} not in {KCS} or threads {threads} not in {THREADS}")
-    data_t, cols_t = A.kernel_streams[0], A.column_stream  # K2's first version reads int32
-    return kg._launch("ell_ablate_launch", Xt, (Xt.shape[0], n), VARIANTS.index(variant), kc,
-                      threads, data_t.data_ptr(), cols_t.data_ptr(), n, A.k, n_cols)
+    data_t, index_t = A.kernel_streams  # the index stream K2 reads
+    return kg._launch("ell_ablate_launch", Xt, (Xt.shape[0], n), VARIANTS.index(variant), rows,
+                      kc, data_t.data_ptr(), index_t.data_ptr(), index_t.element_size(),
+                      A.warp_slots.data_ptr(), n, A.k, n_cols)
 
 
-def ablate_full(A: ELLMatrix, Xt: torch.Tensor, kc: int = 0, threads: int = 256) -> torch.Tensor:
-    """Yt = (A @ Xt.T).T by the ablation source's copy of K2's first body
-    with ``kc`` (coefficient, column) pairs in registers (0: the first
-    version's choice for this k) and ``threads`` threads a block."""
-    Y = _launch("full", A, Xt, kc, threads)
+def ablate_full(A: ELLMatrix, Xt: torch.Tensor, rows: int = K2_SETTING[0],
+                kc: int = K2_SETTING[1]) -> torch.Tensor:
+    """Yt = (A @ Xt.T).T by K2's body with ``rows`` rows of X in flight and
+    ``kc`` pairs in registers, a setting of ``SWEEP``: K2's bits."""
+    Y = _launch("full", A, Xt, rows, kc)
     ablate_full.launches += 1
     return Y
 
 
 def ablate_nogather(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
-    """The kernel body without its irregular X addresses (module docstring)."""
-    Y = _launch("nogather", A, Xt, 0, 256)
+    """K2's body without its irregular X addresses (module docstring)."""
+    Y = _launch("nogather", A, Xt, *K2_SETTING)
     ablate_nogather.launches += 1
     return Y
 
 
 def ablate_nodyn(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
-    """The kernel body without its index stream (module docstring)."""
-    Y = _launch("nodyn", A, Xt, 0, 256)
+    """K2's body without its index stream (module docstring)."""
+    Y = _launch("nodyn", A, Xt, *K2_SETTING)
     ablate_nodyn.launches += 1
     return Y
 
 
 def ablate_nofma(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
-    """The streams alone, without the inner loop (module docstring)."""
-    Y = _launch("nofma", A, Xt, 0, 256)
+    """K2's streams alone, without the inner loop (module docstring)."""
+    Y = _launch("nofma", A, Xt, *K2_SETTING)
     ablate_nofma.launches += 1
+    return Y
+
+
+def ablate_first(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
+    """Yt = (A @ Xt.T).T by K2's first version (csrc/ell_ablate.cu): every
+    slot to k, one row of X at a time, int32 columns, 256 threads, the
+    register chunk from k. K2's bits on finite X."""
+    _check("ablate_first", A, Xt)
+    n, n_cols = A.shape
+    Y = kg._launch("ell_first_launch", Xt, (Xt.shape[0], n), A.kernel_streams[0].data_ptr(),
+                   A.column_stream.data_ptr(), n, A.k, n_cols)
+    ablate_first.launches += 1
     return Y
 
 
@@ -136,6 +168,7 @@ ablate_full.launches = 0
 ablate_nogather.launches = 0
 ablate_nodyn.launches = 0
 ablate_nofma.launches = 0
+ablate_first.launches = 0
 
 #: the kernel each variant's row of the table times
 VARIANT_KERNELS = {"full": kg.ell_spmm_t_cuda, "nogather": ablate_nogather,
@@ -144,18 +177,18 @@ VARIANT_KERNELS = {"full": kg.ell_spmm_t_cuda, "nogather": ablate_nogather,
 
 def check_variants(A: ELLMatrix, Xt: torch.Tensor) -> dict:
     """Every variant's kernel against its plain version on the card;
-    returns ``{variant: max|err|}`` and raises on a mismatch. ``full``: K2's
-    first body at every (KC, threads) must give the bits of the current K2
-    (on finite X: the slots K2 skips are padding); sums in another order
-    than the plain version's stay within 1e-5 of the largest row's sum of
-    |data| |X|; ``nofma`` is one add per entry, exact."""
+    returns ``{variant: max|err|}`` and raises on a mismatch. K2's first
+    version and the full body at every setting of ``SWEEP`` must give K2's
+    bits (on finite X: the slots K2 skips are padding); sums in another
+    order than the plain version's stay within 1e-5 of the largest row's
+    sum of |data| |X|; ``nofma`` is one add per entry, exact."""
     absA = dataclasses.replace(A, data=A.data.abs())
     current = kg.ell_spmm_t_cuda(A, Xt)
-    for kc in (0, *KCS):
-        for threads in THREADS:
-            if not torch.equal(ablate_full(A, Xt, kc, threads), current):
-                raise RuntimeError(f"ablate_full kc={kc} threads={threads}: differs from "
-                                   "ell_spmm_t_cuda")
+    if not torch.equal(ablate_first(A, Xt), current):
+        raise RuntimeError("ablate_first: differs from ell_spmm_t_cuda")
+    for rows, kc in SWEEP:
+        if not torch.equal(ablate_full(A, Xt, rows, kc), current):
+            raise RuntimeError(f"ablate_full rows={rows} kc={kc}: differs from ell_spmm_t_cuda")
     errs = {}
     for variant, kernel in VARIANT_KERNELS.items():
         err = (kernel(A, Xt) - variant_reference(A, Xt, variant)).abs().max().item()
@@ -196,44 +229,60 @@ def ablate_operands(device, Nel: int = 512, graph_n: int = 2**20):
     return [(f"elasticity_{Nel}", E), (f"graph_{graph_n}", G)]
 
 
-def ablate_table(device, Nel: int = 512, m: int = 8, graph_n: int = 2**20, operands=None):
-    """Time the four variants, then the (KC, threads) sweep of the full
-    body, on both operands (``operands``: those of ``ablate_operands``, for
-    a caller that has built them); print the ``ABLATE`` lines and return
-    the rows as dicts. On the card every variant is first held to its plain
-    version (``check_variants``), whose time is taken too (``plain_us``,
-    best chain of 5). On the CPU the plain versions are timed and there is
-    no sweep."""
+def ablate_table(device, Nel: int = 512, m: int = 8, graph_n: int = 2**20, operands=None,
+                 copy_gbps=None):
+    """Time the four variants, K2's first version and the (rows, kc) sweep
+    of the full body on both operands (``operands``: those of
+    ``ablate_operands``, for a caller that has built them); print the
+    ``ABLATE`` lines and return the rows as dicts. On the card every
+    variant is first held to its plain version (``check_variants``), whose
+    time is taken too (``plain_us``, best chain of 5); ``us`` is the device
+    time by CUDA-graph replay (these kernels take about as long as the
+    host's launch through a wrapper), the reference's chain of launches
+    beside it (``eager_us``, ``run_variant``), and each variant's copy
+    bound is its least bytes (``full``: at the index width K2 reads) over
+    ``copy_gbps`` (measured here when not given). On the CPU the plain
+    versions are timed by ``run_variant``, with no copy share, no first
+    version and no sweep."""
     device = resolve(device)
+    cuda = device.type == "cuda"
+    if cuda and copy_gbps is None:
+        copy_gbps = copy_rate(device)
     rows = []
     for name, A in operands or ablate_operands(device, Nel, graph_n):
         n = A.shape[0]
         gen = torch.Generator(device=device).manual_seed(1)
         Xt = torch.randn((m, n), generator=gen, dtype=torch.float32, device=device)
-        errs = check_variants(A, Xt) if device.type == "cuda" else {}
+        errs = check_variants(A, Xt) if cuda else {}
+        index_bytes = A.kernel_streams[1].element_size()
+        base = dict(operand=name, n=n, k=A.k, nnz=A.nnz, m=m, index_bytes=index_bytes)
         t_full = None
         for variant in VARIANTS:
-            t = run_variant(A, Xt, variant)
+            t_eager = run_variant(A, Xt, variant)
+            t = replay_ms(lambda: VARIANT_KERNELS[variant](A, Xt)) / 1e3 if cuda else t_eager
             t_full = t if t_full is None else t_full
-            t_plain = t if device.type != "cuda" else bench_loop(
-                lambda x, A_: variant_reference(A_, x, variant), Xt, K=5, reps=2, op_args=(A,))
-            row = dict(operand=name, n=n, k=A.k, nnz=A.nnz, m=m, variant=variant, us=t * 1e6,
-                       plain_us=t_plain * 1e6, nbytes=variant_bytes(A, m, variant),
-                       gbps=variant_bytes(A, m, variant) / t / 1e9, share=t / t_full,
-                       max_abs_err=errs.get(variant))
+            t_plain = bench_loop(lambda x, A_: variant_reference(A_, x, variant), Xt, K=5,
+                                 reps=2, op_args=(A,)) if cuda else t
+            nbytes = variant_bytes(A, m, variant, index_bytes)
+            row = dict(base, variant=variant, us=t * 1e6, plain_us=t_plain * 1e6, nbytes=nbytes,
+                       gbps=nbytes / t / 1e9, share=t / t_full,
+                       copy_share=nbytes / copy_gbps / 1e9 / t if cuda else None,
+                       eager_us=t_eager * 1e6 if cuda else None, max_abs_err=errs.get(variant))
+            copy_share = f"{row['copy_share']:.3f}" if cuda else "n/a"
             print(f"ABLATE variant={variant} us={row['us']:.1f} gbps={row['gbps']:.1f} "
-                  f"share={row['share']:.3f} operand={name}", flush=True)
+                  f"share={row['share']:.3f} copy_share={copy_share} operand={name}", flush=True)
             rows.append(row)
-        if device.type != "cuda":
+        if not cuda:
             continue
-        for kc in KCS:
-            for threads in THREADS:
-                t = bench_loop(lambda x, A_: ablate_full(A_, x, kc, threads), Xt, K=40, reps=4,
-                               op_args=(A,))
-                print(f"ABLATE kc={kc} threads={threads} us={t * 1e6:.1f} operand={name}",
-                      flush=True)
-                rows.append(dict(operand=name, n=n, k=A.k, nnz=A.nnz, m=m, kc=kc,
-                                 threads=threads, us=t * 1e6))
+        t = replay_ms(lambda: ablate_first(A, Xt)) / 1e3
+        t_eager = bench_loop(lambda x, A_: ablate_first(A_, x), Xt, K=40, reps=4, op_args=(A,))
+        print(f"ABLATE first us={t * 1e6:.1f} share={t / t_full:.3f} operand={name}", flush=True)
+        rows.append(dict(base, first=True, us=t * 1e6, share=t / t_full, eager_us=t_eager * 1e6))
+        for r, kc in SWEEP:
+            t = replay_ms(lambda: ablate_full(A, Xt, r, kc)) / 1e3
+            print(f"ABLATE rows={r} kc={kc} us={t * 1e6:.1f} share={t / t_full:.3f} "
+                  f"operand={name}", flush=True)
+            rows.append(dict(base, rows=r, kc=kc, us=t * 1e6, share=t / t_full))
     return rows
 
 

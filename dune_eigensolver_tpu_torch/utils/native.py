@@ -56,8 +56,8 @@ def _sources(csrc: str = CSRC):
 
 
 def _headers(csrc: str = CSRC):
-    """The headers the sources include (``bulk_copy.cuh``): not compiled on
-    their own, but part of the library's hash."""
+    """The headers the sources include (``bulk_copy.cuh``, ``ell_body.cuh``):
+    not compiled on their own, but part of the library's hash."""
     return sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh"))
 
 
@@ -149,18 +149,24 @@ def load() -> ctypes.CDLL:
     offs = ctypes.POINTER(i32)
     lib.dia_c_launch.restype = i32  # ..., T, H, rows, nwalk, stream
     lib.dia_c_launch.argtypes = [vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, vp]
-    lib.dia_b_launch.restype = i32  # ..., T, lo, W, rows, tpc, nslots, depth, stream
+    # ..., T, lo, W, rows, tpc, nslots, depth, body, threads, stream
+    lib.dia_b_launch.restype = i32
     lib.dia_b_launch.argtypes = [
-        vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, i32, i32, i32, vp,
+        vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
     ]
     lib.dia_d_launch.restype = i32  # ..., T, rows, tpc, stream
     lib.dia_d_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, vp]
     # (variant, ndiag, slots, rows, window) -> blocks per SM, 0, or -error
     lib.dia_variant_blocks_per_sm.restype = i32
     lib.dia_variant_blocks_per_sm.argtypes = [i32, i32, i32, i32, i32]
-    # ELL ablation: (variant, kc, threads, data_t, cols_t, n, k, ncols, x, y, m, stream)
+    # ELL ablation: (variant, rows, kc, data_t, index_t, index_bytes, warp_slots, n, k,
+    # ncols, x, y, m, stream); K2's first version: (data_t, cols_t, n, k, ncols, x, y, m,
+    # stream)
     lib.ell_ablate_launch.restype = i32
-    lib.ell_ablate_launch.argtypes = [i32, i32, i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
+    lib.ell_ablate_launch.argtypes = [i32, i32, i32, vp, vp, i32, vp, i64, i32, i64, vp, vp, i32,
+                                      vp]
+    lib.ell_first_launch.restype = i32
+    lib.ell_first_launch.argtypes = [vp, vp, i64, i32, i64, vp, vp, i32, vp]
     # gather probes: (form, idx_bytes, x, idx, out, rows, width, seg, stream),
     # (form, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
     # (vec, x, p, out, rows, bw, nb, row_stride, block_stride, stream),

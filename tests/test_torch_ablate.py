@@ -1,8 +1,10 @@
 """The ELL-kernel ablation's plain versions, on the CPU.
 
-The port ablates its own ELL kernel (``csrc/ell_ablate.cu``); the CUDA
-variants cannot run here, so what is tested is what defines them: each
-variant's plain version against an explicit numpy loop, the byte model, and
+The port ablates the body its ELL kernel K2 ships (``csrc/ell_body.cuh``,
+instantiated by ``csrc/ell_ablate.cu``); the CUDA variants cannot run here,
+so what is tested is what defines them: each variant's plain version
+against an explicit numpy loop, the byte model, the sweep's settings and
+the wrappers' refusals, and
 ``full``'s plain version against the JAX experiment's ``run_variant('full')``
 (``experiments/gather_ablate.py``), whose Pallas kernel runs in interpret
 mode through a monkeypatch of ``pl.pallas_call`` made here, with
@@ -104,13 +106,65 @@ def test_variant_bytes_counts_what_the_function_needs():
     assert ga.variant_bytes(A, m, "nofma") == 4 * (n + xy)
 
 
+@pytest.mark.parametrize("index_bytes", [2, 4])
+def test_variant_bytes_counts_the_index_width_k2_reads(index_bytes):
+    """``full``'s copy bound counts its indices at the width K2 reads (int16
+    offsets on a mesh-ordered operand); the other variants load no index
+    their function needs."""
+    A = _operand("square")
+    n, nnz, m = A.shape[0], A.nnz, 8
+    assert ga.variant_bytes(A, m, "full", index_bytes) == 4 * (nnz + 2 * n * m) + index_bytes * nnz
+    for variant in ("nogather", "nodyn", "nofma"):
+        assert ga.variant_bytes(A, m, variant, index_bytes) == ga.variant_bytes(A, m, variant)
+
+
+def test_sweep_holds_k2s_setting():
+    """At most 12 (rows, kc) settings of K2's body, K2's own (8, 9) among
+    them, on the grid K2's tuning tried: rows 1, 4, 8 x kc 6, 8, 9, 12."""
+    assert ga.K2_SETTING == (8, 9) and ga.K2_SETTING in ga.SWEEP
+    assert len(ga.SWEEP) <= 12 and len(set(ga.SWEEP)) == len(ga.SWEEP)
+    assert {r for r, _ in ga.SWEEP} == {1, 4, 8} and {k for _, k in ga.SWEEP} == {6, 8, 9, 12}
+
+
+@pytest.mark.parametrize("variant,rows,kc", [
+    ("full", 3, 9), ("full", 8, 10), ("full", 2, 9), ("full", 0, 0),
+    ("nogather", 4, 9), ("nodyn", 8, 6), ("nofma", 1, 9),
+])
+def test_ablate_refuses_an_unbuilt_setting(variant, rows, kc):
+    """A (rows, kc) the source did not build is refused before anything is
+    loaded or built, on any device; the degraded variants exist at K2's
+    setting alone."""
+    A = ell_from_scipy(sp.eye(40, format="csr"), dtype=torch.float32, device="cpu")
+    X = torch.ones((8, 40))
+    before = ga.ablate_full.launches
+    with pytest.raises(ValueError, match="not built"):
+        ga._launch(variant, A, X, rows, kc)
+    if variant == "full":
+        with pytest.raises(ValueError, match="not built"):
+            ga.ablate_full(A, X, rows, kc)
+    assert ga.ablate_full.launches == before
+
+
+def test_ablate_first_refuses_cpu_tensors_and_other_dtypes():
+    """K2's first version: CUDA tensors of float32 only, refused before
+    the column stream is made or anything is built."""
+    A = ell_from_scipy(sp.random(30, 30, density=0.2, random_state=0, format="csr"),
+                       dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ga.ablate_first(A, torch.ones((4, 30)))
+    with pytest.raises(ValueError, match="columns"):
+        ga.ablate_first(A, torch.ones((4, 29)))
+    assert ga.ablate_first.launches == 0
+
+
 def test_ablate_wrappers_refuse_cpu_tensors():
     """No fallback: on a CPU tensor every kernel wrapper raises, before
     anything is built; only ``main`` and ``run_variant`` on a CPU tensor
     choose the plain version."""
     A = ell_from_scipy(sp.eye(40, format="csr"), dtype=torch.float32, device="cpu")
     X = torch.ones((8, 40))
-    for fn in (ga.ablate_full, ga.ablate_nogather, ga.ablate_nodyn, ga.ablate_nofma):
+    for fn in (ga.ablate_full, ga.ablate_nogather, ga.ablate_nodyn, ga.ablate_nofma,
+               ga.ablate_first):
         with pytest.raises(ValueError, match="CUDA"):
             fn(A, X)
         assert fn.launches == 0
@@ -130,7 +184,8 @@ def test_ablate_operands_are_scaled_and_square():
 
 def test_ablate_main_on_cpu(capsys):
     """``main`` with ``--device cpu`` times the plain versions of the four
-    variants on both operands, prints the greppable lines and no sweep."""
+    variants on both operands, prints the greppable lines (no copy share:
+    no rate here is the card's) and no first version or sweep."""
     assert ga.main(["6", "--device", "cpu", "--m", "8", "--graph-n", "400"]) == 0
     out = capsys.readouterr().out
     assert "device: cpu (plain versions" in out and out.rstrip().endswith("done")
@@ -138,5 +193,5 @@ def test_ablate_main_on_cpu(capsys):
     assert len(lines) == 8 and not any("kc=" in ln for ln in lines)
     for ln, variant in zip(lines, ga.VARIANTS * 2):
         assert re.fullmatch(rf"ABLATE variant={variant} us=\d+\.\d gbps=\d+\.\d share=\d+\.\d{{3}} "
-                            r"operand=(elasticity_6|graph_400)", ln), ln
-    assert "share=1.000 operand=elasticity_6" in lines[0]
+                            r"copy_share=n/a operand=(elasticity_6|graph_400)", ln), ln
+    assert "share=1.000 copy_share=n/a operand=elasticity_6" in lines[0]

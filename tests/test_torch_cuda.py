@@ -240,16 +240,17 @@ def test_ell_kernel_stops_each_warp_at_its_count(cuda, kind, m):
 @pytest.mark.parametrize("kind", WARP_KINDS + ["ell-graph", "ell-wide", "ell-rect"])
 @pytest.mark.parametrize("m", [1, 9, 24])
 def test_ell_kernel_gives_its_first_versions_bits(cuda, kind, m):
-    """On finite X the redesigned K2 gives the bits of its first version,
-    which the ablation source keeps (``ablate_full`` at KC from k,
-    256 threads): one fused multiply-add chain per output in slot order;
-    the padding slots it skips add zeros to a sum that starts at +0."""
+    """On finite X K2, built from ``csrc/ell_body.cuh``, gives the bits of
+    its first version, which the ablation source keeps (``ablate_first``:
+    KC from k, 256 threads): one fused multiply-add chain per output in
+    slot order; the padding slots it skips add zeros to a sum that starts
+    at +0."""
     from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
     from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
 
     A = _warp_operand(kind, cuda) if kind in WARP_KINDS else _gather_operand(kind, cuda)
     X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, A.shape[1]))).to(cuda, torch.float32)
-    assert torch.equal(kg.ell_spmm_t_cuda(A, X), ga.ablate_full(A, X, 0, 256))
+    assert torch.equal(kg.ell_spmm_t_cuda(A, X), ga.ablate_first(A, X))
 
 
 @pytest.mark.parametrize("far", [False, True])
@@ -273,7 +274,7 @@ def test_ell_kernel_int16_and_int32_indices_give_the_same_bits(cuda, far, m):
     X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, n)).astype(np.float32)).to(cuda)
     Y = kg.ell_spmm_t_cuda(A, X)
     assert A.kernel_streams[1].element_size() == (4 if far else 2)
-    assert torch.equal(Y, ga.ablate_full(A, X, 0, 256))
+    assert torch.equal(Y, ga.ablate_first(A, X))
 
 
 def test_ell_kernel_skips_padding_past_the_warp_count(cuda):
@@ -305,7 +306,7 @@ def test_ell_kernel_skips_padding_past_the_warp_count(cuda):
     X = torch.from_numpy(np.random.default_rng(0).standard_normal((3, n)).astype(np.float32)).to(cuda)
     X[:, 40] = float("inf")
     Y = kg.ell_spmm_t_cuda(A, X)
-    first = ga.ablate_full(A, X, 0, 256)
+    first = ga.ablate_first(A, X)
     plain = kg.ell_spmm_t_reference(A, X)
     assert torch.isnan(plain[:, 40]).all() and torch.isnan(first[:, 40]).all()
     assert torch.isfinite(Y).all()
@@ -504,6 +505,88 @@ def test_variants_match_plain(cuda, N, m, tile, rows):
         assert (Y - R).abs().max().item() <= tol, name
 
 
+# n on the 16-byte grid (bulk copies) and off it (the first version's
+# cp.async); 200^2 = 40,000 and 201^2 = 40,401 hold three tiles of 16384
+@pytest.mark.parametrize("N,route", [(200, "bulk"), (201, "first"), (46, "bulk"), (45, "first")])
+@pytest.mark.parametrize("ring", [(2, 1), (3, 2), (4, 3)])
+def test_ring_bodies_match_plain(cuda, N, route, ring):
+    """Variant B at every tile and rows of its sweep that fit, against the
+    plain DIA product: random coefficients on every diagonal, also where
+    the neighbour lies outside [0, n) (the plain version reads X as zero
+    there, so stale shared memory would show: a launch on X of 1e30 runs
+    first at each setting), m = 5 (a group of two rows is cut short), one
+    application and the 2-chain each within 1e-5 of its max|Y|; every
+    launch takes the route n gives it, and the first version (cp.async),
+    called on any n, matches at every setting too."""
+    from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
+
+    n = N * N
+    rng = np.random.default_rng(N)
+    offsets = (-N, -1, 0, 1, N)
+    data = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32)).to(cuda)
+    A = DIAMatrix(data=data, offsets=offsets, shape=(n, n))
+    X = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32)).to(cuda)
+    R = kd.dia_spmm_t_reference(A, X)
+    R2 = kd.dia_spmm_t_reference(A, R)
+    s, q = ring
+    done = 0
+    for T in kv.RING_TILES:
+        for rows in kv.RING_ROWS:
+            if not kv.ring_geometry(offsets, n, T, rows, s, q, check=False).fits:
+                continue
+            kv.spmm_b(A, torch.full_like(X, 1e30), s, q, tile=T, rows=rows)
+            before = kv.spmm_b.taken[route]
+            Y = kv.spmm_b(A, X, s, q, tile=T, rows=rows)
+            Y2 = kv.spmm_b(A, Y, s, q, tile=T, rows=rows)
+            torch.cuda.synchronize()
+            assert kv.spmm_b.taken[route] == before + 2
+            assert (Y - R).abs().max().item() <= 1e-5 * R.abs().max().item(), (T, rows)
+            assert (Y2 - R2).abs().max().item() <= 1e-5 * R2.abs().max().item(), (T, rows)
+            # the first version at the same setting, on the grid too
+            first = kv.spmm_b_first.launches
+            Yf = kv.spmm_b_first(A, X, s, q, tile=T, rows=rows)
+            torch.cuda.synchronize()
+            assert kv.spmm_b_first.launches == first + 1
+            assert (Yf - R).abs().max().item() <= 1e-5 * R.abs().max().item(), (T, rows)
+            done += 1
+    assert done >= 3
+
+
+def test_ring_launcher_refuses_bulk_off_grid(cuda):
+    """The bulk body needs n, the tile, the window start and X on 16 bytes,
+    and 256 or 512 threads; its launcher refuses anything else (the wrapper
+    never asks: it takes the first version, at 256, off the grid)."""
+    from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
+
+    def launch(n, X, tile=256, body=1, threads=256):
+        A = DIAMatrix(data=torch.ones((3, n), device=cuda), offsets=(-1, 0, 1), shape=(n, n))
+        g = kv.ring_geometry(A.offsets, n, 256, 1, 2, 1, check=False)
+        Y = torch.empty((2, n), device=cuda)
+        kv._run("dia_b_launch", A, X, Y, (), (tile, g.fl_base, g.window, 1, 1, 2, 1, body,
+                                              threads))
+        return Y
+
+    with pytest.raises(RuntimeError, match="dia_b_launch"):
+        launch(1001, torch.ones((2, 1001), device=cuda))
+    buf = torch.ones(2 * 1024 + 1, device=cuda)
+    with pytest.raises(RuntimeError, match="dia_b_launch"):
+        launch(1024, buf[1:].view(2, 1024))  # X one float off 16 bytes
+    with pytest.raises(RuntimeError, match="dia_b_launch"):
+        launch(1024, torch.ones((2, 1024), device=cuda), tile=254)
+    with pytest.raises(RuntimeError, match="dia_b_launch"):
+        launch(1024, torch.ones((2, 1024), device=cuda), body=2)
+    with pytest.raises(RuntimeError, match="dia_b_launch"):
+        launch(1024, torch.ones((2, 1024), device=cuda), threads=384)
+    with pytest.raises(RuntimeError, match="dia_b_launch"):
+        launch(1001, torch.ones((2, 1001), device=cuda), body=0, threads=512)
+    Y = launch(1024, torch.ones((2, 1024), device=cuda), threads=512)  # the bulk body at 512
+    torch.cuda.synchronize()
+    assert Y[:, 1:-1].eq(3.0).all() and Y[:, 0].eq(2.0).all() and Y[:, -1].eq(2.0).all()
+    Y = launch(1001, torch.ones((2, 1001), device=cuda), body=0)  # the first version takes it
+    torch.cuda.synchronize()
+    assert Y[:, 1:-1].eq(3.0).all() and Y[:, 0].eq(2.0).all() and Y[:, -1].eq(2.0).all()
+
+
 def test_variant_d_in_place_two_chain(cuda):
     """The in-place form fed its own output (the reference's 2-chain
     check), with chunks of one and of several tiles."""
@@ -578,11 +661,11 @@ def test_cli_and_experiments_on_card(cuda, capsys):
 @pytest.mark.parametrize("n,k", [(1001, 7), (2049, 18), (777, 33), (300, 3)])
 @pytest.mark.parametrize("m", [1, 8, 24])
 def test_ablate_variants_match_plain(cuda, n, k, m):
-    """``check_variants``: the ablation source's full body (K2's first
-    version) gives K2's bits at every (KC, threads); ``nogather`` and ``nodyn`` stay
-    within 1e-5 of the largest row's sum of |data| |X| of their plain
-    versions; ``nofma`` is exact. n is no multiple of a block, k spans one
-    to two register chunks."""
+    """``check_variants``: K2's first version and K2's body at every
+    (rows, kc) of the sweep give K2's bits; ``nogather`` and ``nodyn``, on
+    K2's body, stay within 1e-5 of the largest row's sum of |data| |X| of
+    their plain versions; ``nofma`` is exact. n is no multiple of a block,
+    k spans one to several register chunks."""
     import scipy.sparse as sp
 
     from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
@@ -592,16 +675,52 @@ def test_ablate_variants_match_plain(cuda, n, k, m):
     A = ell_from_scipy(sp.csr_matrix(S), dtype=torch.float32, device=cuda)
     X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, n)).astype(np.float32)).to(cuda)
     before = {v: f.launches for v, f in ga.VARIANT_KERNELS.items()}
-    full_before = ga.ablate_full.launches
+    full_before, first_before = ga.ablate_full.launches, ga.ablate_first.launches
     errs = ga.check_variants(A, X)
     torch.cuda.synchronize()
     assert set(errs) == set(ga.VARIANTS) and errs["nofma"] == 0.0
-    assert ga.ablate_full.launches == full_before + 15  # (1 + 4 chunks) x 3 block sizes
+    assert ga.ablate_full.launches == full_before + len(ga.SWEEP)  # one a setting
+    assert ga.ablate_first.launches == first_before + 1
     for v, f in ga.VARIANT_KERNELS.items():
         assert f.launches >= before[v] + 1
 
 
+@pytest.mark.parametrize("kind", ["int16", "int32", "long"])
+@pytest.mark.parametrize("m", [1, 9, 24])
+def test_ablate_sweep_gives_k2s_bits(cuda, kind, m):
+    """K2's body at every (rows, kc) of the sweep sums a row's slots in
+    stored order from +0: K2's bits, on the int16 offsets of a banded
+    operand, on int32 columns (one entry 39,999 columns away), and on rows
+    of up to ~50 slots (several register chunks); the degraded variants
+    read the same index stream."""
+    import scipy.sparse as sp
+
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
+
+    if kind == "long":
+        S = sp.random(2049, 2049, density=40 / 2049, random_state=3, format="csr") + sp.eye(2049)
+    else:
+        n = 40_000
+        S = sp.diags([np.full(n - abs(o), 1.0 + 0.1 * o) for o in (-700, -1, 0, 1, 700)],
+                     [-700, -1, 0, 1, 700], format="lil")
+        if kind == "int32":
+            S[0, n - 1] = 0.25
+    A = ell_from_scipy(sp.csr_matrix(S), dtype=torch.float32, device=cuda)
+    assert A.kernel_streams[1].element_size() == (4 if kind == "int32" else 2)
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, A.shape[1])).astype(np.float32)).to(cuda)
+    K2 = kg.ell_spmm_t_cuda(A, X)
+    before = ga.ablate_full.launches
+    for rows, kc in ga.SWEEP:
+        assert torch.equal(ga.ablate_full(A, X, rows, kc), K2), (rows, kc)
+    assert ga.ablate_full.launches == before + len(ga.SWEEP)
+    assert torch.equal(ga.ablate_first(A, X), K2)
+
+
 def test_ablate_wrappers_refuse_bad_operands(cuda):
+    import dataclasses
+
     import scipy.sparse as sp
 
     from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
@@ -617,12 +736,14 @@ def test_ablate_wrappers_refuse_bad_operands(cuda):
                       nnz=wide.nnz)
     with pytest.raises(ValueError, match="exceeds"):
         ga.ablate_nodyn(wide, torch.ones((2, 3), device=cuda))
-    with pytest.raises(ValueError, match="kc"):
-        ga.ablate_full(A, X, kc=12)
-    with pytest.raises(ValueError, match="threads"):
-        ga.ablate_full(A, X, threads=64)
+    with pytest.raises(ValueError, match="not built"):
+        ga.ablate_full(A, X, rows=3, kc=9)
+    with pytest.raises(ValueError, match="not built"):
+        ga.ablate_full(A, X, rows=8, kc=10)
     with pytest.raises(TypeError, match="float32"):
         ga.ablate_nofma(A, X.double())
+    with pytest.raises(TypeError, match="float32"):
+        ga.ablate_first(dataclasses.replace(A, data=A.data.double()), X.double())
 
 
 def test_gather_probes_all_ok_on_card(cuda, capsys):
@@ -897,7 +1018,8 @@ def test_study_path_and_protocols_on_card(cuda, capsys):
     assert cli.main(["--test", "eigenvalues", "ev.method=lobpcg", "ev.nested=1", "ev.dim=3",
                      "ev.N=24", "ev.inverse=mg", "ev.b_identity=1", "ev.min_coarse=6"]) == 0
     out = capsys.readouterr().out
-    assert out.count("ABLATE variant=") == 8 and out.count("ABLATE kc=") == 24
+    assert out.count("ABLATE variant=") == 8 and out.count("ABLATE rows=") == 2 * len(ga.SWEEP)
+    assert out.count("ABLATE first") == 2 and "copy_share=n/a" not in out
     assert out.count(": OK") == 12 and "probe done" in out and "FORM name=gather_lanes_shfl" in out
     assert "N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO: 32 8 " in out
     assert "N_M_TOL_RASERROR_ARPERROR_TIMERATIO: 12 8 " in out

@@ -114,6 +114,124 @@ def test_jax_variant_d_two_chain_equals_port_plain_version(interpret):
     assert np.abs(twice - Y2).max() <= 1e-5 * np.abs(Y2).max()
 
 
+# offset sets for variant B's geometry: the table's 2D N=2048 and the
+# phase-11 N=45 Laplacians, a 3D stencil, and one-sided and shifted sets
+# whose fl_base is not -(max|off|) rounded
+RING_OFFSETS = [(-2048, -1, 0, 1, 2048), (-45, -1, 0, 1, 45),
+                (-1369, -37, -1, 0, 1, 37, 1369), (0, 3, 200), (-300, -5), (-130, 7)]
+
+
+def _reference_ring(monkeypatch, offsets, T, nslots, depth):
+    """(fl_base, W) as the reference's ``spmm_b`` hands them to its kernel:
+    ``pl.pallas_call`` is replaced by a recorder, so nothing runs."""
+    seen = {}
+
+    def record(kernel, **kw):
+        seen["args"] = kernel.args
+        return lambda *a: None
+
+    monkeypatch.setattr(jkv.pl, "pallas_call", record)
+    jkv.spmm_b(offsets, T, 1, 4 * T, None, np.zeros((8, 1), np.float32), nslots=nslots,
+               depth=depth)
+    fl_base, _, T_, W = seen["args"][:4]
+    assert T_ == T and seen["args"][6:8] == (nslots, depth)
+    return fl_base, W
+
+
+@pytest.mark.parametrize("offsets", RING_OFFSETS)
+@pytest.mark.parametrize("T", [256, 2048, 4096, 8192, 16384])
+def test_ring_geometry_window_is_the_references(monkeypatch, offsets, T):
+    """The port's W and fl_base are those the reference's ``spmm_b``
+    computes (experiments/kernel_variants.py:145-147), every ring alike;
+    W / T is the bytes of X a window stages per byte its tile consumes."""
+    for s, q in tkv.B_RINGS:
+        fl_base, W = _reference_ring(monkeypatch, offsets, T, s, q)
+        g = tkv.ring_geometry(offsets, 4 * T, T, 1, s, q, check=False)
+        assert (g.fl_base, g.window) == (fl_base, W)
+        assert g.fl_base <= min(offsets) and T + max(offsets) - g.fl_base <= g.window
+        assert g.staged_per_consumed == W / T and g.nslots == s and g.depth == q
+
+
+@pytest.mark.parametrize("n,route", [(4194304, "bulk"), (2116, "bulk"), (40000, "bulk"),
+                                     (2025, "first"), (40401, "first"), (4194306, "first"),
+                                     (4194307, "first")])
+def test_ring_geometry_route_is_a_rule_on_n(n, route):
+    """Bulk copies need 16-byte sizes and addresses: n % 4 == 0 takes them,
+    any other n the first version's cp.async. The bulk body's barriers add
+    to its shared memory."""
+    offsets = (-45, -1, 0, 1, 45)
+    g = tkv.ring_geometry(offsets, n, 2048, 2, 3, 2)
+    assert g.route == route
+    assert g.slot_bytes == 2 * g.window * 4
+    assert g.smem_bytes == 3 * g.slot_bytes + (32 if route == "bulk" else 0)
+
+
+@pytest.mark.parametrize("rows", tkv.RING_ROWS)
+@pytest.mark.parametrize("T", tkv.RING_TILES)
+@pytest.mark.parametrize("ring", tkv.B_RINGS)
+def test_ring_geometry_fits_or_refuses(ring, T, rows):
+    """Every setting of the sweep on the table's operand either fits a
+    block's 227 KB (232,448 bytes) or is refused with ``ValueError`` before
+    any launch; ``ring_settings`` lists it either way."""
+    offsets, n = (-2048, -1, 0, 1, 2048), 2048 * 2048
+    s, q = ring
+    g = tkv.ring_geometry(offsets, n, T, rows, s, q, check=False)
+    assert g.fits == (g.smem_bytes <= 232_448)
+    assert ((s, q, T, rows), g) in list(tkv.ring_settings(offsets, n))
+    if g.fits:
+        assert tkv.ring_geometry(offsets, n, T, rows, s, q) == g
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            tkv.ring_geometry(offsets, n, T, rows, s, q)
+
+
+def test_ring_sweep_fits_sixteen_settings_and_reaches_1_27():
+    """On the 2D N=2048 operand 16 of the 24 settings fit; W / T falls from
+    3.125 at T = 2048 to 1.266 at T = 16384 (one row, ring (2, 1))."""
+    settings = list(tkv.ring_settings((-2048, -1, 0, 1, 2048), 2048 * 2048))
+    assert len(settings) == 24 and sum(g.fits for _, g in settings) == 16
+    ratios = {T: g.staged_per_consumed for (s, q, T, r), g in settings if g.fits}
+    assert ratios[2048] == 6400 / 2048 and ratios[16384] == 20736 / 16384
+    assert [k for k, g in settings if g.fits and k[2] == 16384] == [(2, 1, 16384, 1)]
+
+
+@pytest.mark.parametrize("ring,T,rows,threads", [
+    ((2, 1), 2048, 2, 256), ((2, 1), 2048, 1, 256), ((2, 1), 8192, 1, 256),
+    ((2, 1), 4096, 2, 512), ((3, 2), 2048, 2, 512), ((4, 3), 2048, 2, 512),
+    ((4, 3), 4096, 1, 512), ((2, 1), 16384, 1, 512),
+])
+def test_ring_threads_fill_the_sm(ring, T, rows, threads):
+    """The bulk body's threads all compute: where its shared memory leaves
+    one block an SM (two would need more than 228 KB with the 1 KB each
+    block keeps back) a block takes 512 threads, else 256; the first
+    version, whose threads stage, keeps 256 at every setting."""
+    offsets = (-2048, -1, 0, 1, 2048)
+    g = tkv.ring_geometry(offsets, 2048 * 2048, T, rows, *ring)
+    assert g.threads == threads
+    assert (2 * (g.smem_bytes + 1024) <= 233_472) == (threads == 256)
+    assert tkv.ring_geometry(offsets, 2048 * 2048 + 1, T, rows, *ring).threads == 256
+
+
+@pytest.mark.parametrize("n,T,walkers,tpc", [(4194304, 2048, 264, 8), (4194304, 16384, 132, 2),
+                                             (2116, 256, 1000, 1), (2116, 256, 3, 3),
+                                             (40000, 16384, 5, 1)])
+def test_ring_tiles_per_chunk(n, T, walkers, tpc):
+    """A row group's tiles are dealt to at most one block a tile, in
+    chunks of consecutive tiles that cover them all."""
+    g = tkv.ring_geometry((-1, 0, 1), n, T, 1, 2, 1)
+    assert g.tiles_per_chunk(n, walkers) == tpc
+    ntiles = -(-n // T)
+    assert -(-ntiles // tpc) <= min(walkers, ntiles)
+
+
+def test_ring_geometry_refuses_bad_rings():
+    for s, q in ((2, 2), (1, 1), (5, 4), (3, 0)):
+        with pytest.raises(ValueError, match="depth < nslots"):
+            tkv.ring_geometry((-1, 0, 1), 1024, 256, 1, s, q)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tkv.ring_geometry((-1, 0, 1), 1024, 254, 1, 2, 1)
+
+
 @pytest.mark.parametrize("T", [256, 512])
 def test_jax_copy_probes_equal_port_plain_versions(interpret, T):
     """One f32 add per element on both sides: exact."""
@@ -132,10 +250,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     anything is built; only the ``main``s choose the plain version."""
     _, At, X = _dia_case(12, 8, seed=0)
     Xt = torch.from_numpy(X)
-    for fn in (tkv.spmm_c, tkv.spmm_b, tkv.spmm_d):
+    for fn in (tkv.spmm_c, tkv.spmm_b, tkv.spmm_b_first, tkv.spmm_d):
         with pytest.raises(ValueError, match="CUDA"):
             fn(At, Xt)
         assert fn.launches == 0
+    assert sum(tkv.spmm_b.taken.values()) == 0 and tkv.FIRST_VERSIONS == {"spmm_b": tkv.spmm_b_first}
     with pytest.raises(ValueError, match="CUDA"):
         tkv.spmm_d(At, Xt, alias=True)
     with pytest.raises(ValueError, match="CUDA"):
@@ -258,6 +377,7 @@ def test_experiment_mains_on_cpu(capsys):
     assert "device: cpu (plain version only" in out
     assert "copy:" in out and "plain:" in out and "GB/s" in out and "shipped" not in out
     assert tkv.spmm_c.launches == tkv.spmm_b.launches == tkv.spmm_d.launches == 0
+    assert tkv.spmm_b_first.launches == 0
 
 
 # ---------------------------------------------------------------------------
