@@ -91,14 +91,19 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               plain versions (exact), at an odd width (where the wrappers
               take the first version) and at the multivector's shape (the
               bulk copies, asserted).
-11. variants — the DIA staging variants (csrc/dia_variants.cu: C, B at
-              (2,1), (3,2), (4,3), D, D in place) against the plain DIA
-              product at two n that are no multiple of the tile (one of
-              them odd), one application and the 2-chain (1e-5 of max|R|);
-              then B at every setting of its sweep that fits (tile 2048 to
-              16384, one or two rows), with random coefficients on every
-              diagonal, at both n: n = 2116 takes the bulk copies, the odd
-              n = 2025 B's first version (the route asserted).
+11. variants — the DIA staging variants (csrc/dia_variants.cu,
+              dia_stage_c.cu, dia_stage_d.cu: C, B at (2,1), (3,2), (4,3),
+              D, D in place) against the plain DIA product at three n that
+              are no multiple of the tile (2025 odd: the cp.async bodies;
+              2116: bulk copies, one column a thread; 2304: bulk copies,
+              four), one application and the 2-chain (1e-5 of max|R|),
+              after a launch on X of 1e30; every staged body (C, D, B on
+              the grid) must give the shipped kernel's bits and take the
+              route and width the rules give it; the first versions of C,
+              B and D are held to the plain version (whether they give
+              K1's bits is printed); then B, C and D at every setting of
+              their sweeps that fits, with random coefficients on every
+              diagonal, at each n.
 12. measure — the measurement path through its entry points, every launch
               counter zeroed just before and read just after:
               ``cli.main`` with ``--test matvec ev.N=2048 mv.m=8`` and
@@ -110,15 +115,19 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               as ``COPY`` lines and one ``ROOFLINE`` line with
               ``copy_gbps``, the best out-of-place rate; ``variant_table`` (2D N=2048 m=8 f32, each
               variant held to the plain product at 1e-5 of max|R| over one
-              application and the 2-chain, then timed) as ``VARIANT`` lines
-              with ms, GB/s under ``bytes_spmm_dia`` and the share of
-              ``copy_gbps``, the shipped kernel and the plain version
-              beside them; B's rows name the route taken (bulk copies,
-              asserted at n = 2048^2), the threads a block and W / T, and
-              carry B's first version timed in turns with them
-              (``first_seconds``; B's rows by CUDA-graph replay); its
-              sweep (``kernel_variants.ring_settings``) and each ring's
-              best setting follow. Every ``RESULT`` number must be finite and every
+              application and the 2-chain, the staged bodies to the shipped
+              kernel's bits, then timed by CUDA-graph replay) as
+              ``VARIANT`` lines with ms, GB/s under ``bytes_spmm_dia`` and
+              the share of ``copy_gbps``, the shipped kernel and the plain
+              version beside them; each variant's row (tile 2048, two rows;
+              B's rings (3,2) and (4,3) one, as their coefficient tiles
+              leave room) names its route (bulk copies, asserted at
+              n = 2048^2), width (4, asserted), threads and staged bytes per
+              consumed, and carries its first version timed in turns with
+              it (``first_seconds``); the sweeps of B
+              (``kernel_variants.ring_settings``), C and D
+              (``stage_settings``) and each ring's, C's and D's best
+              setting follow. Every ``RESULT`` number must be finite and every
               kernel's counter must have moved. Then the copy kernels'
               rows of the kernel table: ``ident`` and ``ident_alias`` at
               the tile the bulk body does best at in the sweep
@@ -281,10 +290,13 @@ versions' time in turns, by replay too (phase 16), and
 so do the ``ident`` and ``ident_alias`` rows (phase 12; with
 ``device_ms``, ``first_version_device_ms`` and ``library_device_ms`` by
 replay, in turns; each body at its own best tile, ``tile`` and
-``first_version_tile``); the ``spmm_b`` row (tile 2048, two rows, ring
-(2,1)) carries its ``body`` (bulk), W / T, the three rings' times there
-beside the first version's in turns (``first_version_ms``), and each
-ring's best setting of the sweep with its copy share; the
+``first_version_tile``); the ``spmm_c``, ``spmm_b`` (ring (2,1)) and
+``spmm_d`` rows (tile 2048, two rows) carry ``device_ms`` (their ``ms``, by
+replay), their route, width, threads and staged bytes per consumed, their
+first version's time in turns (``first_version_ms``) and launches, and
+their best setting of the sweep with its copy share; ``spmm_b`` the three
+rings' times and rows beside their first versions', ``spmm_d`` its
+in-place form's; the
 ablation rows (``ablate_full``: K2's body at K2's setting from the
 ablation source, with the whole sweep in ``sweep_ms``; ``ablate_first``:
 K2's first version; the three degraded variants) take ``ms`` by
@@ -913,52 +925,81 @@ def phase_copy_check(torch, pp):
 
 def phase_variant_check(torch, kv, kd, problems, DIAMatrix):
     """Phase 11: the staging variants against the plain DIA product where n
-    is no multiple of the tile (the full-size check is the table's own),
-    then variant B at every setting of its sweep that fits, on both routes
-    (bulk copies where n % 4 == 0, the first version's cp.async elsewhere),
-    with random coefficients at the positions whose neighbour lies outside
-    [0, n), which stale shared memory would reach."""
+    is no multiple of the tile (the full-size check is the table's own):
+    every staged body (C, D, D in place, B where n % 4 == 0) must also give
+    the shipped kernel's bits, and the first versions of C, B and D are
+    held to the plain version; then B, C and D at every setting of their
+    sweeps that fits, on every route (bulk copies where n % 4 == 0, the
+    cp.async bodies elsewhere) and width (4 columns a thread where the
+    offsets allow), with random coefficients on every diagonal, after a
+    launch on X of 1e30 (stale shared memory would show)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    # 45^2 = 2025 is odd (4-byte copies; B's first version), 46^2 = 2116 a
-    # multiple of 4 (16-byte copies; B's bulk body); the tile of 256 holds
-    # the halo
-    for N in (45, 46):
+    # 45^2 = 2025 is odd (cp.async; B's first version), 46^2 = 2116 a
+    # multiple of 4 with offsets that are not (bulk copies, width 1), 48^2 =
+    # 2304 with offsets that are (bulk copies, width 4); the tile of 256
+    # holds the halo
+    for N in (45, 46, 48):
         A = problems.laplacian_dirichlet_2d(N, dtype=torch.float32, device="cuda")
         A = DIAMatrix(data=A.data / 8.0, offsets=A.offsets, shape=A.shape)
         X = torch.randn((8, N * N), generator=gen, device="cuda")
-        route = "bulk" if N * N % 4 == 0 else "first"
+        n = N * N
+        route = kv.stage_route(n)
 
-        def check(name, step, A, X):
+        def check(name, step, A, X, bits):
             R = kd.dia_spmm_t_reference(A, X)
             R2 = kd.dia_spmm_t_reference(A, R)
+            K = kd.dia_spmm_t_cuda(A, X)
+            K2 = kd.dia_spmm_t_cuda(A, K)
             # the same sum as the plain version, FMA-contracted: 1e-5 of
             # max|R| (as phase 3), for one application and for the 2-chain
             tol = 1e-5 * R.abs().max().item()
-            taken = kv.spmm_b.taken[route]
+            step(torch.full_like(X, 1e30), A)
             Y = step(X.clone(), A)  # on clones: the in-place form overwrites
             Y2 = step(Y.clone(), A)
             torch.cuda.synchronize()
             err = max((Y - R).abs().max().item(), (Y2 - R2).abs().max().item())
             if not err <= tol:  # a NaN fails too
                 raise RuntimeError(f"{name} N={N}: max_abs_err {err:.3e} > tol {tol:.3e}")
-            if name.startswith("B ") and kv.spmm_b.taken[route] != taken + 2:
-                raise RuntimeError(f"{name} N={N}: did not take the {route} route")
-            return err
+            same = torch.equal(Y, K) and torch.equal(Y2, K2)
+            if bits and not same:
+                raise RuntimeError(f"{name} N={N}: not the shipped kernel's bits")
+            return err, same
 
-        for name, step in kv.variant_steps(tile=256)[1:]:
-            err = check(name, step, A, X)
-            log(f"variant check {name} n={N * N} tile 256: max_abs_err {err:.3e}")
+        for name, step, first in kv.variant_steps(tile=256)[1:]:
+            counts = {w: dict(w.taken) for w in (kv.spmm_b, kv.spmm_c, kv.spmm_d)}
+            staged = not name.startswith("B ") or n % 4 == 0
+            err, _ = check(name, step, A, X, bits=staged)
+            wrapper = {"B": kv.spmm_b, "C": kv.spmm_c, "D": kv.spmm_d}[name[0]]
+            if name[0] == "B":
+                key = "bulk" if n % 4 == 0 else "first"
+            else:
+                key = (route, kv.stage_width(A.offsets, n, 256) if route == "bulk" else 1)
+            if wrapper.taken[key] != counts[wrapper].get(key, 0) + 3:
+                raise RuntimeError(f"{name} N={N}: did not take {key}")
+            first_err, first_bits = check(name + " first", first, A, X, bits=False)
+            log(f"variant check {name} n={n} tile 256 {key}: max_abs_err {err:.3e}"
+                f"{', bits of K1' if staged else ''}; first version {first_err:.3e}"
+                f"{', bits of K1' if first_bits else ''}")
         Ar = DIAMatrix(data=torch.randn(A.data.shape, generator=gen, device="cuda"),
                        offsets=A.offsets, shape=A.shape)
+        X5 = X[:5].contiguous()
         errs = {}
-        for (sl, q, T, r), g in kv.ring_settings(Ar.offsets, N * N):
+        for (sl, q, T, r), g in kv.ring_settings(Ar.offsets, n):
             if g.fits:
-                errs[f"s={sl} d={q} T={T} rows={r}"] = check(
+                errs[f"B s={sl} d={q} T={T} rows={r}"] = check(
                     f"B s={sl} d={q} T={T} rows={r}",
                     lambda x, A_, sl=sl, q=q, T=T, r=r: kv.spmm_b(A_, x, sl, q, tile=T, rows=r),
-                    Ar, X[:5].contiguous())
-        log(f"variant check B sweep n={N * N} route {route}, random diagonals, m=5: "
-            f"{len(errs)} settings, max_abs_err {max(errs.values()):.3e}")
+                    Ar, X5, bits=n % 4 == 0)[0]
+        for variant, fn in (("c", kv.spmm_c), ("d", kv.spmm_d)):
+            for (T, r), g in kv.stage_settings(variant, Ar.offsets, n):
+                if g.fits:
+                    errs[f"{variant} T={T} rows={r}"] = check(
+                        f"{variant.upper()} T={T} rows={r}",
+                        lambda x, A_, fn=fn, T=T, r=r: fn(A_, x, tile=T, rows=r), Ar, X5,
+                        bits=True)[0]
+        log(f"variant check sweeps n={n} route {route}, random diagonals, m=5: "
+            f"{len(errs)} settings, max_abs_err {max(errs.values()):.3e}, the staged bodies "
+            "K1's bits")
 
 
 class Tee(io.StringIO):
@@ -1007,24 +1048,26 @@ def phase_measure(torch, kernels, pp, kv):
     best_tile, best_ident_tile = best("first"), best("kernel")
     log("ROOFLINE " + json.dumps(dict(copy_gbps=copy_gbps, best_ident_tile=best_ident_tile,
                                       best_first_tile=best_tile)))
-    variants, ring_sweep, ring_best = {}, [], {}
+    variants, sweep, best_rows = {}, [], {}
     for row in kv.variant_table(None):
         rec = {k: v for k, v in row.items() if k not in ("label", "seconds")}
         if row["seconds"] is not None:
             rec.update(ms=row["seconds"] * 1e3, share_of_copy=row["gbps"] / copy_gbps)
         log("VARIANT " + json.dumps(dict(variant=row["label"], **rec)))
         if row.get("sweep"):
-            ring_sweep.append(dict(rec, label=row["label"]))
+            sweep.append(dict(rec, label=row["label"]))
         elif row.get("best"):
-            ring_best[row["label"].split(" best")[0]] = dict(rec, label=row["label"])
+            best_rows[row["label"].split(" best")[0]] = dict(rec, label=row["label"])
         else:
             variants[row["label"].split(" T=")[0]] = rec
-    # n = 2048^2 lies on 16 bytes: every B row took the bulk copies
-    routes = {r.get("route") for r in [*variants.values(), *ring_sweep] if "route" in r}
-    if routes != {"bulk"}:
-        raise RuntimeError(f"variant_table: B took the routes {routes}, expected bulk")
-    variants["B sweep"] = ring_sweep
-    variants["B best"] = ring_best
+    # n = 2048^2 lies on 16 bytes and the offsets on 4: every staged row took
+    # the bulk copies at four columns a thread
+    taken = {(r["route"], r["width"]) for r in [*variants.values(), *sweep]
+             if "ms" in r and "route" in r}
+    if taken != {("bulk", 4)}:
+        raise RuntimeError(f"variant_table: the staged bodies took {taken}, expected bulk, 4")
+    variants["sweep"] = sweep
+    variants["best"] = best_rows
     torch.cuda.synchronize()
     launches = read_counts(kernels)
     seconds = time.perf_counter() - t0
@@ -2748,7 +2791,9 @@ def main():
 
     kernels = {"dia_spmm_t": kd.dia_spmm_t_cuda, "ell_spmm_t": kg.ell_spmm_t_cuda,
                "bsr_spmm_t": kg.bsr_spmm_t_cuda, "spmm_c": kv.spmm_c, "spmm_b": kv.spmm_b,
-               "spmm_b_first": kv.spmm_b_first, "spmm_d": kv.spmm_d, "ident": pp.ident,
+               "spmm_d": kv.spmm_d,
+               **{name + "_first": fn for name, fn in kv.FIRST_VERSIONS.items()},
+               "ident": pp.ident,
                "identd": pp.identd,
                "ident_alias": pp.ident_alias, "ident_first": pp.ident_first,
                "ident_alias_first": pp.ident_alias_first}
@@ -3083,27 +3128,46 @@ def main():
     n2, m2 = 2048**2, 8
     v_bytes = (5 * n2 + 2 * n2 * m2) * 4  # bytes_spmm_dia
     v_flops = 2.0 * (5 * n2 - 2 * 2048 - 2) * m2
+    def staged(rec):
+        # a staged body's setting and its first version's time in turns (replay)
+        return dict(device_ms=rec["ms"], route=rec["route"], width=rec["width"],
+                    threads=rec["threads"], tile=rec["tile"], rows=rec["rows"],
+                    staged_per_consumed=rec["staged_per_consumed"], k1_bits=rec["k1_bits"],
+                    first_version_ms=rec["first_seconds"] * 1e3,
+                    first_version_max_abs_err=rec["first_max_abs_err"],
+                    first_version_k1_bits=rec["first_k1_bits"])
+
+    def best_of(group):
+        b = variants["best"][group]
+        return dict(tile=b["tile"], rows=b["rows"], ms=b["ms"], route=b["route"],
+                    width=b["width"], threads=b["threads"],
+                    staged_per_consumed=b["staged_per_consumed"], max_abs_err=b["max_abs_err"],
+                    copy_share=v_bytes / copy_gbps / 1e6 / b["ms"])
+
     for name, variant, line in (("spmm_c", "C r1-style", 51), ("spmm_b", "B s=2 d=1", 109),
                                 ("spmm_d", "D rolling", 175)):
         rec = dict(variants[variant], plain_ms=variants["plain"]["ms"],
-                   case=f"2d N=2048 m=8 f32 tile 2048 rows 2 ({variant})")
-        more = {}
+                   case=f"2d N=2048 m=8 f32 tile {variants[variant]['tile']} rows "
+                   f"{variants[variant]['rows']} ({variant})")
+        more = dict(staged(rec), first_version_launches=cli_launches[name + "_first"])
         if name == "spmm_b":
-            # the bulk body: its route and W / T at the table's tile, the three
-            # rings there, and each ring's fastest setting of the sweep
-            more = dict(body=rec["route"], staged_per_consumed=rec["staged_per_consumed"],
-                        rings_ms={f"B s={s} d={q}": variants[f"B s={s} d={q}"]["ms"]
-                                  for s, q in kv.B_RINGS},
-                        first_version_ms={f"B s={s} d={q}": variants[f"B s={s} d={q}"][
-                            "first_seconds"] * 1e3 for s, q in kv.B_RINGS},
-                        first_version_launches=cli_launches["spmm_b_first"],
-                        best={ring: dict(tile=b["tile"], rows=b["rows"], ms=b["ms"], body=b["route"],
-                                         staged_per_consumed=b["staged_per_consumed"],
-                                         max_abs_err=b["max_abs_err"])
-                              for ring, b in variants["B best"].items()},
-                        best_copy_share={ring: v_bytes / copy_gbps / 1e6 / b["ms"]
-                                         for ring, b in variants["B best"].items()})
-        table.append(entry(name, csrc + "dia_variants.cu", f"experiments/kernel_variants.py:{line}",
+            # the three rings at the table's tile, each at the rows that fit,
+            # and each ring's fastest setting of the sweep
+            rings = [f"B s={s} d={q}" for s, q in kv.B_RINGS]
+            more.update(rings_ms={r: variants[r]["ms"] for r in rings},
+                        rings_rows={r: variants[r]["rows"] for r in rings},
+                        first_version_ms={r: variants[r]["first_seconds"] * 1e3 for r in rings},
+                        best={r: best_of(r) for r in rings})
+        elif name == "spmm_c":
+            more["best"] = best_of("C")
+        else:
+            inplace = variants["D in-place"]
+            more.update(best=best_of("D"),
+                        in_place=dict(ms=inplace["ms"], max_abs_err=inplace["max_abs_err"],
+                                      first_version_ms=inplace["first_seconds"] * 1e3,
+                                      copy_share=v_bytes / copy_gbps / 1e6 / inplace["ms"]))
+        table.append(entry(name, csrc + "dia_stage_" + name[-1] + ".cu" if name != "spmm_b"
+                           else csrc + "dia_variants.cu", f"experiments/kernel_variants.py:{line}",
                            cli_launches[name], rec, v_bytes, v_flops,
                            library["2d N=2048 m=8 f32"], **more))
     for name, line in (("ident", 42), ("identd", 57), ("ident_alias", 113)):

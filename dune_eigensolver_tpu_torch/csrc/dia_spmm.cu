@@ -50,8 +50,15 @@
 // (kernels/dia_spmm.py::dia_vector_width): one 8-byte load per multiply-add,
 // coalesced across the warp, accumulated in f64 (Acc<double>); a simple,
 // correct body first, its time beside its bound in PERF.md section 6.
-// X is not staged in shared memory: the staging variants of
-// csrc/dia_variants.cu all lost to L1/L2 re-reads on this card.
+// X is not staged in shared memory. On a compute body as good as this one
+// (csrc/dia_body.cuh: the same bits, 4 columns a thread, the coefficients
+// staged once per tile for every row a block holds), the staging variants
+// C and D (csrc/dia_stage_c.cu, dia_stage_d.cu) come within 6-14% of this
+// kernel at 2D N=2048 m=8, and neither beats it: not D's rolling ring,
+// which reads X from device memory once, nor C's window, which re-reads
+// its halos through L2 (B's ring, dia_variants.cu, stays 1.9x behind). L1/L2 serve
+// this kernel's re-reads of X as well as a staged window does on this card
+// (PERF.md section 6).
 // Registers (ptxas, sm_90a): see PERF.md section 6; the build log prints
 // them.
 //

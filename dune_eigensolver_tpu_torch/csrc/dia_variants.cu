@@ -11,35 +11,39 @@
 // in how a block brings X into shared memory:
 //
 //   C  a block stages the (rows, T + 2H) window of one tile (H = the halo,
-//      rounded up) into one of two slots with cp.async; the next tile's
-//      window is in flight while this one is consumed. Every tile re-reads
-//      its two halos.
+//      rounded up) into one of two slots; the next tile's window is in
+//      flight while this one is consumed. Every tile re-reads its two halos.
 //   B  the same through a ring of `nslots` windows of width T + span + 256
 //      starting at fl_base = floor(min offset / 128) * 128, with `depth`
-//      windows in flight. A persistent block walks consecutive tiles. The
-//      reference runs this ring on the DMA engine (make_async_copy and DMA
-//      semaphores); its Hopper counterpart is the bulk copy (TMA without a
-//      tensor map, csrc/bulk_copy.cuh): one thread arms the slot's
-//      mbarrier with the window's bytes and issues one bulk copy per row of
-//      the window's part inside [0, n); the compute threads wait on the
-//      slot's phase parity and release the slot with a block barrier at the
-//      end of the step, before it is refilled; no compute thread issues a
-//      copy. Bulk copies do not zero-fill, so in a window that reaches
-//      outside [0, n) the compute threads write zeros over those columns
-//      with ordinary stores (the data of a DIA operand may be non-zero
-//      there, and the function reads X as zero), then fence them to the
-//      async proxy before the slot's next bulk copy. Bulk copies need
-//      16-byte addresses and sizes, so this body needs n % 4 == 0; off that
-//      grid the launcher takes E2's first version (`body` 0), whose every
-//      thread stages 16- or 4-byte pieces with cp.async (zero-filling) and
-//      hands the oldest commit group over with wait_group(depth). With the
-//      staging off the compute warps, the tile is no longer held to 2048:
-//      the caller sweeps it (experiments/kernel_variants.py).
+//      windows in flight. A persistent block walks consecutive tiles.
 //   D  a persistent block walks a contiguous chunk of tiles and keeps a
-//      rolling cache of X tiles (left, centre, right, and those being
-//      fetched ahead): each step asks for one new right-hand tile, so X
-//      crosses device memory once plus two warm-up tiles per chunk. Needs
+//      rolling cache of X tiles (left, centre, right, and one being fetched
+//      ahead): each step asks for one new right-hand tile, so X crosses
+//      device memory once plus two warm-up tiles per chunk. Needs
 //      max|off| <= T. With `alias` Y is written over X.
+//
+// This source holds the first versions of all three (dia_c_kernel,
+// dia_b_first_kernel, dia_d_kernel: `spmm_c_first`, `spmm_b_first`,
+// `spmm_d_first`), whose every thread stages 16- or 4-byte pieces with
+// cp.async (zero-filling) and whose compute body, compute_tile, reads each
+// coefficient from device memory once per row group and column batch, one
+// column a thread, with a block barrier a tile; and B's ring on Hopper's
+// bulk copies (dia_b_kernel): the reference runs the ring on the DMA engine
+// (make_async_copy and DMA semaphores), its counterpart here is the bulk
+// copy (TMA without a tensor map, csrc/bulk_copy.cuh): one thread arms the
+// slot's mbarrier with the window's bytes and issues one bulk copy per row
+// of the window's part inside [0, n), and the coefficient tile of the next
+// step beside it; the compute threads wait on the slot's phase parity and
+// release the slot with a block barrier at the end of the step. Its compute
+// body is the staged one C and D run (csrc/dia_body.cuh, dia_stage_c.cu,
+// dia_stage_d.cu), so that the three staging schemes are compared on one
+// body. Bulk copies do not zero-fill: in a window that reaches outside [0,
+// n) the compute threads write zeros over those columns (the data of a DIA
+// operand may be non-zero there, and the function reads X as zero), then
+// fence them to the async proxy before the slot's next bulk copy. Bulk
+// copies need 16-byte addresses and sizes, so B's bulk body needs
+// n % 4 == 0; off that grid the launcher takes B's first version (`body`
+// 0).
 //
 // What differs from the TPU kernels, and why. The TPU grid runs its tiles
 // in order on one core; here blocks run concurrently, so the sequential
@@ -48,25 +52,25 @@
 // has 227 KB of shared memory, so the m rows are split over blocks (`rows`
 // per block, blocks of one tile range adjacent in the grid so that the
 // coefficient tile they share is read from device memory once and from L2
-// after that) and T is 2048 for C, D and B's first version, where the halo
+// after that) and the tile is 2048 or a few times that, where the halo
 // re-read of C and B is a multiple of the tile instead of 12%: those
-// re-reads are meant to hit in L2 (B's bulk body takes tiles up to 16384,
-// as shared memory allows). The tiles are dealt out to exactly as many
-// blocks as the card holds at once (dia_variant_blocks_per_sm), since a
-// persistent block that waits for a second wave costs a whole share of the
-// run. The pre-padded (m, n + 2H) buffer is gone: cp.async zero-fills
-// columns outside [0, n), and B's bulk body writes those zeros itself, so X
-// stays a plain (m, n) tensor. In place (D):
-// on the TPU tile j-1 is written after tile j was read because the grid is
-// sequential; here the tile next to a chunk is overwritten by the
-// neighbouring block while this one still needs its old values, so a
-// pre-pass (dia_d_save_halo) copies every chunk's two boundary tiles into a
-// side buffer and the in-place kernel takes its halos from there.
+// re-reads are meant to hit in L2. The tiles are dealt out to exactly as
+// many blocks as the card holds at once (dia_variant_blocks_per_sm,
+// dia_stage_blocks_per_sm), since a persistent block that waits for a
+// second wave costs a whole share of the run. The pre-padded (m, n + 2H)
+// buffer is gone: cp.async zero-fills columns outside [0, n), and the bulk
+// bodies write those zeros themselves, so X stays a plain (m, n) tensor.
+// In place (D): on the TPU tile j-1 is written after tile j was read
+// because the grid is sequential; here the tile next to a chunk is
+// overwritten by the neighbouring block while this one still needs its old
+// values, so a pre-pass (dia_d_save_halo) copies every chunk's two boundary
+// tiles into a side buffer and the in-place kernel takes its halos from
+// there.
 //
 // What bounds them: device-memory bytes, (ndiag*n + 2*m*n) * 4 at least,
 // as for csrc/dia_spmm.cu. Copies are 16 bytes per cp.async when n, the
-// window starts and the pointers allow it, else 4 bytes (any n works); B's
-// bulk body moves a window row in one bulk copy.
+// window starts and the pointers allow it, else 4 bytes (any n works); the
+// bulk bodies move a window row in one bulk copy.
 //
 // Interface: plain C for ctypes; launches go on the caller's stream and
 // return cudaGetLastError() (or the error of the shared-memory opt-in).
@@ -74,74 +78,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bulk_copy.cuh"
-
-#define DV_MAX_DIAG 16
-#define DV_THREADS 256
-#define DV_MAX_SLOTS 4
-#define DV_D_RING 4  // tiles of X a block of variant D holds
-
-struct DvOffsets {
-  int count;
-  int off[DV_MAX_DIAG];
-};
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int bytes = valid ? 16 : 0;  // src-size 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most `pending` (0..DV_MAX_SLOTS - 1) commit groups are
-// still in flight; the instruction takes its count as an immediate
-__device__ __forceinline__ void cp_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-  }
-}
-
-// Start the copy of `rows` rows of `width` columns into dst (rows, width):
-// row r comes from src + (row0 + r) * stride, columns g0 .. g0 + width - 1;
-// a column outside [0, bound) or a row >= m is zero-filled. vec: 16-byte
-// copies (g0, width, stride, bound multiples of 4, src 16-byte aligned).
-__device__ __forceinline__ void stage(float* dst, const float* src, long long stride,
-                                      long long bound, int row0, int rows, int m,
-                                      long long g0, int width, bool vec) {
-  if (vec) {
-    const int w4 = width >> 2;
-    for (int idx = threadIdx.x; idx < rows * w4; idx += DV_THREADS) {
-      const int r = idx / w4, c = (idx - r * w4) << 2;
-      const long long g = g0 + c;
-      const bool ok = row0 + r < m && g >= 0 && g < bound;
-      cp_async16(dst + r * width + c, ok ? src + (size_t)(row0 + r) * stride + g : src, ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * width; idx += DV_THREADS) {
-      const int r = idx / width, c = idx - r * width;
-      const long long g = g0 + c;
-      const bool ok = row0 + r < m && g >= 0 && g < bound;
-      cp_async4(dst + r * width + c, ok ? src + (size_t)(row0 + r) * stride + g : src, ok);
-    }
-  }
-}
-
-extern __shared__ __align__(16) float dv_smem[];
+#include "dia_body.cuh"
 
 // One output tile: column tile0 + c of Y for every row of the block, by a
 // block of THREADS threads.
-// `where(c, off)` is the index in dv_smem of X[row0, tile0 + c + off], and
+// `where(p)` is the index in dv_smem of X[row0, tile0 + p], and
 // row r of the block lies r * stride further. A thread takes COLS columns at
 // a time, a block stride apart; for each it loads its coefficients (ND = 8
 // or 16 registers a column) and works out where its neighbours lie before
@@ -165,7 +106,7 @@ __device__ __forceinline__ void compute_tile(Where where, int stride,
       for (int d = 0; d < ND; ++d) {
         const bool live = d < offs.count && c < ncol;
         coef[u][d] = live ? __ldg(data + (size_t)d * n + tile0 + c) : 0.f;
-        at[u][d] = live ? where(c, offs.off[d]) : 0;
+        at[u][d] = live ? where(c + offs.off[d]) : 0;
       }
     }
     for (int r = 0; r < rows && row0 + r < m; ++r) {
@@ -184,15 +125,6 @@ __device__ __forceinline__ void compute_tile(Where where, int stride,
     }
   }
 }
-
-// `where` of a staged window of width W that starts `base` floats into
-// dv_smem and whose column 0 is column tile0 + lo of X
-struct WindowAt {
-  int base, lo;
-  __device__ __forceinline__ int operator()(int c, int off) const {
-    return base + c + off - lo;
-  }
-};
 
 // --- variant C: two slots, the window T + 2H re-read for every tile ---
 // Block b: row group b % G, walker b / G over tiles walker, walker + nwalk, ...
@@ -227,22 +159,27 @@ dia_c_kernel(const float* __restrict__ data, const float* __restrict__ x,
 // Block b: row group b % G, chunk b / G of tpc consecutive tiles. Window k
 // of the chunk holds columns g0 .. g0 + W - 1 of X, g0 = (t0 + k) * T + lo,
 // in slot k % nslots, whose barrier completes its (k / nslots)-th phase when
-// the window's bytes have landed. Every thread computes, so where the ring's
-// shared memory leaves one block an SM the block takes THREADS = 512, else
-// 256 (experiments/kernel_variants.py::ring_geometry chooses).
-template <int ND, int THREADS>
+// the window's bytes have landed; the coefficient tile of step k lands in
+// coefficient slot k % 2, one step ahead, on a barrier of its own. Thread 0
+// issues every copy; every thread computes with the staged body
+// (csrc/dia_body.cuh), so where the ring's shared memory leaves one block
+// an SM the block takes THREADS = 512, else 256
+// (experiments/kernel_variants.py::ring_geometry chooses).
+template <int V, int ND, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 dia_b_kernel(const float* __restrict__ data, const float* __restrict__ x,
              float* __restrict__ y, int n, int m, int T, int lo, int W, int rows,
-             int G, int tpc, int ntiles, int nslots, int depth, DvOffsets offs) {
-  __shared__ __align__(8) uint64_t full[DV_MAX_SLOTS];
+             int G, int tpc, int ntiles, int nslots, int depth, int ndiag, DvOffsets offs) {
+  __shared__ __align__(8) uint64_t full[DV_MAX_SLOTS], cfull[2];
   const int row0 = (blockIdx.x % G) * rows;
   const int t0 = (blockIdx.x / G) * tpc;
   const int cnt = min(tpc, ntiles - t0);
   const int nrows = min(rows, m - row0);
   const int slot = rows * W;
+  float* const coef = dv_smem + nslots * slot;  // two (ndiag, T) tiles after the ring
   if (threadIdx.x == 0) {
     for (int s = 0; s < nslots; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < 2; ++s) mbar_init(&cfull[s], 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -252,6 +189,7 @@ dia_b_kernel(const float* __restrict__ data, const float* __restrict__ x,
     a = (int)min(max(-g0, 0LL), (long long)W);
     b = (int)max(min((long long)n - g0, (long long)W), (long long)a);
   };
+  auto columns = [&](int k) { return (int)min((long long)T, n - (long long)(t0 + k) * T); };
   // thread 0 alone: arm the slot's barrier, one bulk copy per row
   auto fill = [&](int k) {
     int a, b;
@@ -267,29 +205,42 @@ dia_b_kernel(const float* __restrict__ data, const float* __restrict__ x,
       mbar_arrive(bar);
     }
   };
-  if (threadIdx.x == 0)
+  // thread 0 alone: the coefficient tile of step k, one bulk copy per diagonal
+  auto fill_coef = [&](int k) {
+    const uint32_t bytes = (uint32_t)columns(k) * sizeof(float);
+    uint64_t* bar = &cfull[k & 1];
+    mbar_arrive_expect_tx(bar, bytes * ndiag);
+    for (int d = 0; d < ndiag; ++d)
+      bulk_load(coef + ((k & 1) * ndiag + d) * T, data + (size_t)d * n + (long long)(t0 + k) * T,
+                bytes, bar);
+  };
+  if (threadIdx.x == 0) {
     for (int k = 0; k < depth && k < cnt; ++k) fill(k);
+    if (cnt > 0) fill_coef(0);
+  }
   for (int k = 0; k < cnt; ++k) {
     // depth < nslots: the slot filled here was last read in step
-    // k + depth - nslots < k, released by that step's closing barrier
-    if (threadIdx.x == 0 && k + depth < cnt) fill(k + depth);
+    // k + depth - nslots < k, released by that step's closing barrier; so
+    // was coefficient slot (k + 1) % 2, read in step k - 1
+    if (threadIdx.x == 0) {
+      if (k + depth < cnt) fill(k + depth);
+      if (k + 1 < cnt) fill_coef(k + 1);
+    }
     mbar_wait(&full[k % nslots], (uint32_t)(k / nslots) & 1);
+    mbar_wait(&cfull[k & 1], (uint32_t)(k >> 1) & 1);
     float* win = dv_smem + (k % nslots) * slot;
     int a, b;
     inside(k, a, b);
     const bool edge = a > 0 || b < W;  // uniform across the block
     if (edge) {
-      const int out = W - (b - a);  // columns outside [0, n), a row
-      for (int idx = threadIdx.x; idx < nrows * out; idx += THREADS) {
-        const int r = idx / out, c = idx - r * out;
-        win[r * W + (c < a ? c : c - a + b)] = 0.f;
-      }
+      zero_outside(win, W, nrows, a, b, threadIdx.x, THREADS);
       __syncthreads();
     }
-    compute_tile<ND, THREADS>(WindowAt{(k % nslots) * slot, lo}, W, data, y, n, m, row0, rows,
-                              (long long)(t0 + k) * T, T, offs);
+    stage_tile<V, ND, THREADS>(WindowAt{(k % nslots) * slot, lo}, W, coef + (k & 1) * ndiag * T,
+                               y, n, T, (long long)(t0 + k) * T, columns(k), row0, nrows, offs,
+                               threadIdx.x);
     if (edge) fence_proxy_async();  // the zeros before the slot's next bulk copy
-    __syncthreads();  // every thread has read the slot: it may be refilled
+    __syncthreads();  // every thread has read the slots: they may be refilled
   }
 }
 
@@ -367,8 +318,7 @@ dia_d_kernel(const float* __restrict__ data, const float* x, float* y,
     // j of X is in shared memory, so in place the store of Y's tile j is safe
     const int centre = (j - t0 + 1) % ring;
     const int left = (centre + ring - 1) % ring * slot, right = (centre + 1) % ring * slot;
-    auto where = [&](int c, int off) {
-      const int p = c + off;
+    auto where = [&](int p) {
       return p < 0 ? left + p + T : (p >= T ? right + p - T : centre * slot + p);
     };
     compute_tile<ND>(where, T, data, y, n, m, row0, rows, (long long)j * T, T, offs);
@@ -376,70 +326,46 @@ dia_d_kernel(const float* __restrict__ data, const float* x, float* y,
   }
 }
 
-// side[chunk][which][r][c] = X[r, tile * T + c] (zero outside [0, n)) for
-// tile = t0 - 1 (which = 0) and t1 (which = 1) of every chunk.
-__global__ void __launch_bounds__(DV_THREADS)
-dia_d_save_halo(const float* __restrict__ x, float* __restrict__ side, int n, int m,
-                int T, int tpc, int ntiles) {
-  const int chunk = blockIdx.x >> 1, which = blockIdx.x & 1;
-  const int r = blockIdx.y;
-  const int t0 = chunk * tpc;
-  const long long tile = which ? min(t0 + tpc, ntiles) : t0 - 1;
-  float* dst = side + ((size_t)(2 * chunk + which) * m + r) * T;
-  for (int c = threadIdx.x; c < T; c += DV_THREADS) {
-    const long long g = tile * T + c;
-    dst[c] = (g >= 0 && g < n) ? x[(size_t)r * n + g] : 0.f;
-  }
-}
-
-static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-static int fill_offsets(DvOffsets* offs, int ndiag, const int* offsets) {
-  if (ndiag < 1 || ndiag > DV_MAX_DIAG) return 1;
-  offs->count = ndiag;
-  for (int d = 0; d < DV_MAX_DIAG; ++d) offs->off[d] = d < ndiag ? offsets[d] : 0;
-  return 0;
-}
-
-// Allow `bytes` of dynamic shared memory. A refusal (more than a block may
-// have) is returned and cleared, so that it is not found again by the next
-// launch's cudaGetLastError().
-template <typename K>
-static int opt_in_shared(K kernel, size_t bytes) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) cudaGetLastError();
-  return (int)e;
-}
-
-// the kernel of variant 0 (C), 1 (B, bulk body, 256 threads), 2 (D), 3 (B,
-// first version) or 4 (B, bulk body, 512 threads) for this many diagonals
+// the first version of variant 0 (C), 2 (D) or 3 (B) for this many diagonals
 static const void* variant_kernel(int variant, int ndiag) {
   const bool small = ndiag <= 8;
   switch (variant) {
     case 0: return small ? (const void*)dia_c_kernel<8> : (const void*)dia_c_kernel<DV_MAX_DIAG>;
-    case 1:
-      return small ? (const void*)dia_b_kernel<8, 256>
-                   : (const void*)dia_b_kernel<DV_MAX_DIAG, 256>;
     case 2: return small ? (const void*)dia_d_kernel<8> : (const void*)dia_d_kernel<DV_MAX_DIAG>;
     case 3:
       return small ? (const void*)dia_b_first_kernel<8>
                    : (const void*)dia_b_first_kernel<DV_MAX_DIAG>;
-    case 4:
-      return small ? (const void*)dia_b_kernel<8, 512>
-                   : (const void*)dia_b_kernel<DV_MAX_DIAG, 512>;
     default: return nullptr;
   }
 }
 
+using BKernel = void (*)(const float*, const float*, float*, int, int, int, int, int, int,
+                        int, int, int, int, int, int, DvOffsets);
+
+template <int THREADS>
+static BKernel b_kernel(int width, int ndiag) {
+  if (width == 4)
+    return ndiag == 5 ? &dia_b_kernel<4, 5, THREADS>
+         : ndiag == 7 ? &dia_b_kernel<4, 7, THREADS> : nullptr;
+  return width == 1 ? (ndiag <= 8 ? &dia_b_kernel<1, 8, THREADS>
+                                  : &dia_b_kernel<1, DV_MAX_DIAG, THREADS>)
+                    : nullptr;
+}
+
 extern "C" {
 
-// How many blocks of a variant one SM holds when a block stages `slots`
-// windows of `rows` rows and `window` floats: its registers and shared
-// memory decide. 0: the windows exceed a block's shared memory. Negative: a
-// CUDA error code, negated. The callers deal the tiles out to exactly as
-// many blocks as the card holds at once, so that no block waits for a
-// second wave.
+// The staged kernels of variants C and D (dia_stage_c.cu, dia_stage_d.cu):
+// route 1 the bulk copies with a producer warp beside `threads` compute
+// threads, route 2 the compute threads' cp.async (256 threads, width 1).
+const void* dia_c_stage_kernel(int route, int width, int ndiag, int threads);
+const void* dia_d_stage_kernel(int route, int width, int ndiag, int threads);
+
+// How many blocks of a first version one SM holds (variant 0 C, 2 D, 3 B)
+// when a block stages `slots` windows of `rows` rows and `window` floats:
+// its registers and shared memory decide. 0: the windows exceed a block's
+// shared memory. Negative: a CUDA error code, negated. The callers deal
+// the tiles out to exactly as many blocks as the card holds at once, so
+// that no block waits for a second wave.
 int dia_variant_blocks_per_sm(int variant, int ndiag, int slots, int rows, int window) {
   const void* kernel = variant_kernel(variant, ndiag);
   if (kernel == nullptr || ndiag < 1 || ndiag > DV_MAX_DIAG || slots < 1 || rows < 1 ||
@@ -452,18 +378,45 @@ int dia_variant_blocks_per_sm(int variant, int ndiag, int slots, int rows, int w
     return 0;
   }
   int blocks = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel, variant == 4 ? 512 : DV_THREADS, bytes);
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, DV_THREADS, bytes);
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
-// Variant C. H: halo rounded up by the caller (>= max|off|, multiple of 4);
-// rows: rows of X per block; nwalk: walkers per row group.
+// The same for a staged kernel (variant 0 C, 1 B, 2 D; route 1 bulk
+// copies, 2 cp.async; width 4 or 1; `threads` compute threads) whose block
+// takes `bytes` of dynamic shared memory.
+int dia_stage_blocks_per_sm(int variant, int route, int width, int ndiag, int threads,
+                            long long bytes) {
+  if (ndiag < 1 || ndiag > DV_MAX_DIAG || bytes < 1) return -(int)cudaErrorInvalidValue;
+  const void* kernel =
+      variant == 0 ? dia_c_stage_kernel(route, width, ndiag, threads)
+      : variant == 2 ? dia_d_stage_kernel(route, width, ndiag, threads)
+      : variant == 1 && route == 1
+          ? (threads == 512 ? (const void*)b_kernel<512>(width, ndiag)
+             : threads == 256 ? (const void*)b_kernel<256>(width, ndiag) : nullptr)
+      : nullptr;
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  // C's and D's bulk kernels run a producer warp beside the compute threads
+  const int block = variant != 1 && route == 1 ? threads + 32 : threads;
+  int blocks = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, (size_t)bytes);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
+// Variant C, first version. H: halo rounded up by the caller (>= max|off|,
+// multiple of 4); rows: rows of X per block; nwalk: walkers per row group.
 int dia_c_launch(const void* data, const void* x, void* y, long long n, int m,
                  int ndiag, const int* offsets, int T, int H, int rows, int nwalk,
                  void* stream) {
   DvOffsets offs;
-  if (fill_offsets(&offs, ndiag, offsets) || n < 1 || n > 0x7fffffffLL || m < 1 ||
+  if (dv_fill_offsets(&offs, ndiag, offsets) || n < 1 || n > 0x7fffffffLL || m < 1 ||
       T < 1 || H < 0 || rows < 1 || nwalk < 1 || x == y)
     return (int)cudaErrorInvalidValue;
   for (int d = 0; d < ndiag; ++d)
@@ -472,9 +425,9 @@ int dia_c_launch(const void* data, const void* x, void* y, long long n, int m,
   const int ntiles = (int)((n + T - 1) / T);
   const size_t bytes = (size_t)2 * rows * (T + 2 * H) * sizeof(float);
   auto kernel = ndiag <= 8 ? dia_c_kernel<8> : dia_c_kernel<DV_MAX_DIAG>;
-  int e = opt_in_shared(kernel, bytes);
+  int e = dv_opt_in_shared(kernel, bytes);
   if (e) return e;
-  const int vec = n % 4 == 0 && T % 4 == 0 && H % 4 == 0 && aligned16(x);
+  const int vec = n % 4 == 0 && T % 4 == 0 && H % 4 == 0 && dv_aligned16(x);
   kernel<<<(unsigned)(G * nwalk), DV_THREADS, bytes, (cudaStream_t)stream>>>(
       (const float*)data, (const float*)x, (float*)y, (int)n, m, T, H, rows, G,
       nwalk, ntiles, offs, vec);
@@ -483,76 +436,80 @@ int dia_c_launch(const void* data, const void* x, void* y, long long n, int m,
 
 // Variant B. lo: window start relative to the tile (fl_base <= min offset);
 // W: window width (>= T + max offset - lo); tpc: tiles per chunk; body: 1
-// the bulk copies (n, T, lo, W multiples of 4 and x on 16 bytes, else
-// refused) with `threads` 256 or 512 a block, 0 the first version
-// (cp.async, any n, 256 threads).
+// the bulk copies and the staged body (n, T, lo, W multiples of 4, x, y and
+// data on 16 bytes, else refused) with `threads` 256 or 512 a block and
+// `width` 4 (T a multiple of 128 and a stencil dv_stencil4 takes) or 1; 0
+// the first version (cp.async, compute_tile, any n, 256 threads, width 1).
 int dia_b_launch(const void* data, const void* x, void* y, long long n, int m,
                  int ndiag, const int* offsets, int T, int lo, int W, int rows,
-                 int tpc, int nslots, int depth, int body, int threads, void* stream) {
+                 int tpc, int nslots, int depth, int body, int threads, int width,
+                 void* stream) {
   DvOffsets offs;
-  if (fill_offsets(&offs, ndiag, offsets) || n < 1 || n > 0x7fffffffLL || m < 1 ||
+  if (dv_fill_offsets(&offs, ndiag, offsets) || n < 1 || n > 0x7fffffffLL || m < 1 ||
       T < 1 || W < 1 || rows < 1 || tpc < 1 || x == y || depth < 1 ||
       depth >= nslots || nslots > DV_MAX_SLOTS || (body != 0 && body != 1) ||
-      !(threads == DV_THREADS || (body == 1 && threads == 512)))
+      !(threads == DV_THREADS || (body == 1 && threads == 512)) ||
+      !(width == 1 || (body == 1 && width == 4)))
     return (int)cudaErrorInvalidValue;
   for (int d = 0; d < ndiag; ++d)
     if (offsets[d] < lo || T + offsets[d] - lo > W) return (int)cudaErrorInvalidValue;
   const int G = (m + rows - 1) / rows;
   const int ntiles = (int)((n + T - 1) / T);
   const int nchunks = (ntiles + tpc - 1) / tpc;
-  const size_t bytes = (size_t)nslots * rows * W * sizeof(float);
-  const bool small = ndiag <= 8;
+  size_t bytes = (size_t)nslots * rows * W * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   if (body == 1) {
-    if (n % 4 || T % 4 || lo % 4 || W % 4 || !aligned16(x)) return (int)cudaErrorInvalidValue;
-    auto kernel = threads == 512 ? (small ? dia_b_kernel<8, 512> : dia_b_kernel<DV_MAX_DIAG, 512>)
-                                 : (small ? dia_b_kernel<8, 256> : dia_b_kernel<DV_MAX_DIAG, 256>);
-    int e = opt_in_shared(kernel, bytes);
+    if (n % 4 || T % 4 || lo % 4 || W % 4 || !dv_aligned16(x) || !dv_aligned16(y) ||
+        !dv_aligned16(data) || (width == 4 && (T % 128 || !dv_stencil4(ndiag, offsets))))
+      return (int)cudaErrorInvalidValue;
+    bytes += (size_t)2 * ndiag * T * sizeof(float);
+    const BKernel kernel = threads == 512 ? b_kernel<512>(width, ndiag)
+                                          : b_kernel<256>(width, ndiag);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    int e = dv_opt_in_shared(kernel, bytes);
     if (e) return e;
     kernel<<<(unsigned)(G * nchunks), (unsigned)threads, bytes, s>>>(
         (const float*)data, (const float*)x, (float*)y, (int)n, m, T, lo, W, rows, G, tpc,
-        ntiles, nslots, depth, offs);
+        ntiles, nslots, depth, ndiag, offs);
     return (int)cudaGetLastError();
   }
-  auto kernel = small ? dia_b_first_kernel<8> : dia_b_first_kernel<DV_MAX_DIAG>;
-  int e = opt_in_shared(kernel, bytes);
+  auto kernel = ndiag <= 8 ? dia_b_first_kernel<8> : dia_b_first_kernel<DV_MAX_DIAG>;
+  int e = dv_opt_in_shared(kernel, bytes);
   if (e) return e;
-  const int vec = n % 4 == 0 && T % 4 == 0 && lo % 4 == 0 && W % 4 == 0 && aligned16(x);
+  const int vec = n % 4 == 0 && T % 4 == 0 && lo % 4 == 0 && W % 4 == 0 && dv_aligned16(x);
   kernel<<<(unsigned)(G * nchunks), DV_THREADS, bytes, s>>>(
       (const float*)data, (const float*)x, (float*)y, (int)n, m, T, lo, W, rows, G,
       tpc, ntiles, nslots, depth, offs, vec);
   return (int)cudaGetLastError();
 }
 
-// Variant D. y == x asks for the in-place form and needs side, a buffer of
-// ceil(ntiles / tpc) * 2 * m * T floats, 16-byte aligned; T a multiple of 4
-// and >= max|off|.
+// Variant D, first version. y == x asks for the in-place form and needs
+// side, a buffer of ceil(ntiles / tpc) * 2 * m * T floats, 16-byte aligned;
+// T a multiple of 4 and >= max|off|.
 int dia_d_launch(const void* data, const void* x, void* y, void* side, long long n,
                  int m, int ndiag, const int* offsets, int T, int rows, int tpc,
                  void* stream) {
   DvOffsets offs;
-  if (fill_offsets(&offs, ndiag, offsets) || n < 1 || n > 0x7fffffffLL || m < 1 ||
+  if (dv_fill_offsets(&offs, ndiag, offsets) || n < 1 || n > 0x7fffffffLL || m < 1 ||
       T < 4 || T % 4 || rows < 1 || tpc < 1)
     return (int)cudaErrorInvalidValue;
   for (int d = 0; d < ndiag; ++d)
     if (offsets[d] > T || offsets[d] < -T) return (int)cudaErrorInvalidValue;
   const int alias = x == y;
-  if (alias && (side == nullptr || !aligned16(side))) return (int)cudaErrorInvalidValue;
+  if (alias && (side == nullptr || !dv_aligned16(side))) return (int)cudaErrorInvalidValue;
   const int G = (m + rows - 1) / rows;
   const int ntiles = (int)((n + T - 1) / T);
   const int nchunks = (ntiles + tpc - 1) / tpc;
   const size_t bytes = (size_t)DV_D_RING * rows * T * sizeof(float);
   auto kernel = ndiag <= 8 ? dia_d_kernel<8> : dia_d_kernel<DV_MAX_DIAG>;
-  int e = opt_in_shared(kernel, bytes);
+  int e = dv_opt_in_shared(kernel, bytes);
   if (e) return e;
   cudaStream_t s = (cudaStream_t)stream;
   if (alias) {
-    dia_d_save_halo<<<dim3(2 * nchunks, m), DV_THREADS, 0, s>>>(
-        (const float*)x, (float*)side, (int)n, m, T, tpc, ntiles);
-    e = (int)cudaGetLastError();
+    e = dv_save_halo(x, side, n, m, T, tpc, ntiles, nchunks, s);
     if (e) return e;
   }
-  const int vec = n % 4 == 0 && aligned16(x);
+  const int vec = n % 4 == 0 && dv_aligned16(x);
   kernel<<<(unsigned)(G * nchunks), DV_THREADS, bytes, s>>>(
       (const float*)data, (const float*)x, (float*)y, (const float*)side, (int)n, m,
       T, rows, G, tpc, ntiles, offs, alias, vec);

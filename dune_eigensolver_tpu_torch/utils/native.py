@@ -149,16 +149,27 @@ def load() -> ctypes.CDLL:
     offs = ctypes.POINTER(i32)
     lib.dia_c_launch.restype = i32  # ..., T, H, rows, nwalk, stream
     lib.dia_c_launch.argtypes = [vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, vp]
-    # ..., T, lo, W, rows, tpc, nslots, depth, body, threads, stream
+    # ..., T, lo, W, rows, tpc, nslots, depth, body, threads, width, stream
     lib.dia_b_launch.restype = i32
     lib.dia_b_launch.argtypes = [
-        vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
+        vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
     ]
     lib.dia_d_launch.restype = i32  # ..., T, rows, tpc, stream
     lib.dia_d_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, vp]
-    # (variant, ndiag, slots, rows, window) -> blocks per SM, 0, or -error
+    # the staged bodies: ..., T, H, rows, nwalk, route, width, threads, stream and
+    # ..., T, rows, tpc, route, width, threads, stream
+    lib.dia_c_stage_launch.restype = i32
+    lib.dia_c_stage_launch.argtypes = [vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, i32,
+                                       i32, i32, vp]
+    lib.dia_d_stage_launch.restype = i32
+    lib.dia_d_stage_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32,
+                                       i32, i32, vp]
+    # (variant, ndiag, slots, rows, window) -> blocks per SM, 0, or -error (first
+    # versions); (variant, route, width, ndiag, threads, bytes) the same (staged bodies)
     lib.dia_variant_blocks_per_sm.restype = i32
     lib.dia_variant_blocks_per_sm.argtypes = [i32, i32, i32, i32, i32]
+    lib.dia_stage_blocks_per_sm.restype = i32
+    lib.dia_stage_blocks_per_sm.argtypes = [i32, i32, i32, i32, i32, i64]
     # ELL ablation: (variant, rows, kc, data_t, index_t, index_bytes, warp_slots, n, k,
     # ncols, x, y, m, stream); K2's first version: (data_t, cols_t, n, k, ncols, x, y, m,
     # stream)

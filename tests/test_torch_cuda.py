@@ -467,24 +467,38 @@ def test_copy_launchers_refuse_bulk_off_grid(cuda):
 
 
 def _variant_calls(kv, tile, rows):
-    calls = [("c", lambda A, X: kv.spmm_c(A, X, tile=tile, rows=rows), kv.spmm_c)]
+    """(name, call, wrapper): every variant on its staged body and the first
+    versions of C, B and D (names ending in "first")."""
+    calls = [("c", lambda A, X: kv.spmm_c(A, X, tile=tile, rows=rows), kv.spmm_c),
+             ("c_first", lambda A, X: kv.spmm_c_first(A, X, tile=tile, rows=rows),
+              kv.spmm_c_first)]
     for s, q in kv.B_RINGS:
         calls.append((f"b{s}{q}", lambda A, X, s=s, q=q: kv.spmm_b(A, X, s, q, tile=tile, rows=rows),
                       kv.spmm_b))
-    calls.append(("d", lambda A, X: kv.spmm_d(A, X, tile=tile, rows=rows), kv.spmm_d))
-    calls.append(("d_alias", lambda A, X: kv.spmm_d(A, X, alias=True, tile=tile, rows=rows),
-                  kv.spmm_d))
+    calls.append(("b21_first", lambda A, X: kv.spmm_b_first(A, X, 2, 1, tile=tile, rows=rows),
+                  kv.spmm_b_first))
+    for alias in (False, True):
+        name = "d_alias" if alias else "d"
+        calls.append((name, lambda A, X, a=alias: kv.spmm_d(A, X, alias=a, tile=tile, rows=rows),
+                      kv.spmm_d))
+        calls.append((name + "_first",
+                      lambda A, X, a=alias: kv.spmm_d_first(A, X, alias=a, tile=tile, rows=rows),
+                      kv.spmm_d_first))
     return calls
 
 
 @pytest.mark.parametrize("N,m,tile,rows", [(32, 8, 256, 8), (45, 8, 256, 2), (46, 8, 256, 4),
-                                           (37, 5, 64, 2), (64, 8, 4096, 2), (100, 16, 128, 1)])
+                                           (37, 5, 64, 2), (48, 8, 2560, 2), (100, 16, 128, 1)])
 def test_variants_match_plain(cuda, N, m, tile, rows):
     """C, B at its three rings, D and D in place against the plain DIA
     product on the 2D Laplacian with random diagonals kept: the same f32
-    sum FMA-contracted, 1e-5 of max|R|. n = 2025 is odd (4-byte copies),
-    2116 and 1369 are no multiples of the tile, (64, 4096) is one tile that
-    holds the whole operand, (100, 128) has many chunks."""
+    sum FMA-contracted, 1e-5 of max|R|; the staged bodies give the shipped
+    kernel's bits (K1: one FMA chain in offset order, zeros outside [0, n)),
+    and so does B's bulk body where n % 4 == 0; the first versions of C, B
+    and D are held to the plain version. n = 2025 is odd (cp.async), 2116
+    and 1369 are no multiples of the tile, (48, 2560) is one tile that holds
+    the whole operand, (100, 128) has many chunks; (32, 256), (48, 2560) and
+    (100, 128) take four columns a thread."""
     from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
 
     A = problems.laplacian_dirichlet_2d(N, dtype=torch.float32, device=cuda)
@@ -494,6 +508,7 @@ def test_variants_match_plain(cuda, N, m, tile, rows):
     A = DIAMatrix(data=data, offsets=A.offsets, shape=A.shape)
     X = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(cuda)
     R = kd.dia_spmm_t_reference(A, X)
+    K1 = kd.dia_spmm_t_cuda(A, X)
     tol = 1e-5 * R.abs().max().item()
     for name, fn, wrapper in _variant_calls(kv, tile, rows):
         before = wrapper.launches
@@ -501,8 +516,73 @@ def test_variants_match_plain(cuda, N, m, tile, rows):
         Y = fn(A, Xin)
         torch.cuda.synchronize()
         assert wrapper.launches == before + 1, name
-        assert (Y.data_ptr() == Xin.data_ptr()) == (name == "d_alias"), name
+        assert (Y.data_ptr() == Xin.data_ptr()) == name.startswith("d_alias"), name
         assert (Y - R).abs().max().item() <= tol, name
+        # B is on the staged body where n lies on the 16-byte grid
+        if not name.endswith("first") and (name[0] != "b" or n % 4 == 0):
+            assert torch.equal(Y, K1), name
+
+
+def _stage_operand(N, m, cuda):
+    """The 2D stencil of N^2 rows with random coefficients on every
+    diagonal, also where the neighbour lies outside [0, n)."""
+    n = N * N
+    rng = np.random.default_rng(N)
+    offsets = (-N, -1, 0, 1, N)
+    data = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32)).to(cuda)
+    X = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(cuda)
+    return DIAMatrix(data=data, offsets=offsets, shape=(n, n)), X
+
+
+# (N, route, width): 200^2 and 48^2 on the 16-byte grid with offsets that are
+# multiples of 4; 46^2 on the grid with offsets that are not; 201^2 and 45^2 odd
+STAGE_CASES = [(200, "bulk", 4), (48, "bulk", 4), (46, "bulk", 1), (201, "async", 1),
+               (45, "async", 1)]
+
+
+@pytest.mark.parametrize("N,route,width", STAGE_CASES)
+@pytest.mark.parametrize("variant", ["c", "d", "d_alias"])
+def test_stage_bodies_match_plain(cuda, N, route, width, variant):
+    """The staged C, D and D in place at every tile and rows of their sweep
+    that fit (tiles of 2048 and 4096 hold the small operands in one or a few
+    tiles; 1024 several), against the plain DIA product with random
+    coefficients on every diagonal: a launch on X of 1e30 runs first at each
+    setting, so stale shared memory would show; m = 5 (a pair of rows is cut
+    short); one application and the 2-chain within 1e-5 of max|Y|, and K1's
+    bits; every launch takes the route and width the rules give it."""
+    from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
+
+    A, X = _stage_operand(N, 5, cuda)
+    n = N * N
+    R = kd.dia_spmm_t_reference(A, X)
+    R2 = kd.dia_spmm_t_reference(A, R)
+    K1 = kd.dia_spmm_t_cuda(A, X)
+    K2 = kd.dia_spmm_t_cuda(A, K1)
+    wrapper = kv.spmm_c if variant == "c" else kv.spmm_d
+    done = 0
+    for (T, rows), g in kv.stage_settings(variant[0], A.offsets, n):
+        if not g.fits:
+            continue
+        assert (g.route, g.width) == (kv.stage_route(n), kv.stage_width(A.offsets, n, T))
+        assert (g.route, g.width) == (route, width if T % 128 == 0 else 1)
+
+        def call(x):
+            if variant == "c":
+                return kv.spmm_c(A, x, tile=T, rows=rows)
+            return kv.spmm_d(A, x.clone() if variant == "d_alias" else x,
+                             alias=variant == "d_alias", tile=T, rows=rows)
+
+        call(torch.full_like(X, 1e30))
+        before = wrapper.taken[g.route, g.width]
+        Y = call(X)
+        Y2 = call(Y)
+        torch.cuda.synchronize()
+        assert wrapper.taken[g.route, g.width] == before + 2, (T, rows)
+        assert (Y - R).abs().max().item() <= 1e-5 * R.abs().max().item(), (T, rows)
+        assert (Y2 - R2).abs().max().item() <= 1e-5 * R2.abs().max().item(), (T, rows)
+        assert torch.equal(Y, K1) and torch.equal(Y2, K2), (T, rows)
+        done += 1
+    assert done >= 3
 
 
 # n on the 16-byte grid (bulk copies) and off it (the first version's
@@ -515,24 +595,25 @@ def test_ring_bodies_match_plain(cuda, N, route, ring):
     the neighbour lies outside [0, n) (the plain version reads X as zero
     there, so stale shared memory would show: a launch on X of 1e30 runs
     first at each setting), m = 5 (a group of two rows is cut short), one
-    application and the 2-chain each within 1e-5 of its max|Y|; every
-    launch takes the route n gives it, and the first version (cp.async),
-    called on any n, matches at every setting too."""
+    application and the 2-chain each within 1e-5 of its max|Y|, and on the
+    bulk route (the staged body) K1's bits; every launch takes the route n
+    gives it and the width ``stage_width`` gives it, and the first version
+    (cp.async), called on any n, matches at every setting too. The bulk
+    body's coefficient tiles leave two settings of ring (4, 3) room."""
     from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
 
     n = N * N
-    rng = np.random.default_rng(N)
-    offsets = (-N, -1, 0, 1, N)
-    data = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32)).to(cuda)
-    A = DIAMatrix(data=data, offsets=offsets, shape=(n, n))
-    X = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32)).to(cuda)
+    A, X = _stage_operand(N, 5, cuda)
+    offsets = A.offsets
     R = kd.dia_spmm_t_reference(A, X)
     R2 = kd.dia_spmm_t_reference(A, R)
+    K1 = kd.dia_spmm_t_cuda(A, X)
     s, q = ring
     done = 0
     for T in kv.RING_TILES:
         for rows in kv.RING_ROWS:
-            if not kv.ring_geometry(offsets, n, T, rows, s, q, check=False).fits:
+            g = kv.ring_geometry(offsets, n, T, rows, s, q, check=False)
+            if not g.fits:
                 continue
             kv.spmm_b(A, torch.full_like(X, 1e30), s, q, tile=T, rows=rows)
             before = kv.spmm_b.taken[route]
@@ -540,8 +621,11 @@ def test_ring_bodies_match_plain(cuda, N, route, ring):
             Y2 = kv.spmm_b(A, Y, s, q, tile=T, rows=rows)
             torch.cuda.synchronize()
             assert kv.spmm_b.taken[route] == before + 2
+            assert kv.spmm_b.width == (kv.stage_width(offsets, n, T) if route == "bulk" else 1)
             assert (Y - R).abs().max().item() <= 1e-5 * R.abs().max().item(), (T, rows)
             assert (Y2 - R2).abs().max().item() <= 1e-5 * R2.abs().max().item(), (T, rows)
+            if route == "bulk":
+                assert torch.equal(Y, K1), (T, rows)
             # the first version at the same setting, on the grid too
             first = kv.spmm_b_first.launches
             Yf = kv.spmm_b_first(A, X, s, q, tile=T, rows=rows)
@@ -549,21 +633,22 @@ def test_ring_bodies_match_plain(cuda, N, route, ring):
             assert kv.spmm_b_first.launches == first + 1
             assert (Yf - R).abs().max().item() <= 1e-5 * R.abs().max().item(), (T, rows)
             done += 1
-    assert done >= 3
+    assert done >= 2
 
 
 def test_ring_launcher_refuses_bulk_off_grid(cuda):
     """The bulk body needs n, the tile, the window start and X on 16 bytes,
-    and 256 or 512 threads; its launcher refuses anything else (the wrapper
-    never asks: it takes the first version, at 256, off the grid)."""
+    256 or 512 threads, and width 4 only on a stencil it takes and a tile on
+    128; its launcher refuses anything else (the wrapper never asks: it
+    takes the first version, at 256, off the grid)."""
     from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
 
-    def launch(n, X, tile=256, body=1, threads=256):
+    def launch(n, X, tile=256, body=1, threads=256, width=1):
         A = DIAMatrix(data=torch.ones((3, n), device=cuda), offsets=(-1, 0, 1), shape=(n, n))
         g = kv.ring_geometry(A.offsets, n, 256, 1, 2, 1, check=False)
         Y = torch.empty((2, n), device=cuda)
         kv._run("dia_b_launch", A, X, Y, (), (tile, g.fl_base, g.window, 1, 1, 2, 1, body,
-                                              threads))
+                                              threads, width))
         return Y
 
     with pytest.raises(RuntimeError, match="dia_b_launch"):
@@ -579,6 +664,10 @@ def test_ring_launcher_refuses_bulk_off_grid(cuda):
         launch(1024, torch.ones((2, 1024), device=cuda), threads=384)
     with pytest.raises(RuntimeError, match="dia_b_launch"):
         launch(1001, torch.ones((2, 1001), device=cuda), body=0, threads=512)
+    with pytest.raises(RuntimeError, match="dia_b_launch"):
+        launch(1024, torch.ones((2, 1024), device=cuda), width=4)  # three diagonals
+    with pytest.raises(RuntimeError, match="dia_b_launch"):
+        launch(1001, torch.ones((2, 1001), device=cuda), body=0, width=4)
     Y = launch(1024, torch.ones((2, 1024), device=cuda), threads=512)  # the bulk body at 512
     torch.cuda.synchronize()
     assert Y[:, 1:-1].eq(3.0).all() and Y[:, 0].eq(2.0).all() and Y[:, -1].eq(2.0).all()
@@ -587,19 +676,61 @@ def test_ring_launcher_refuses_bulk_off_grid(cuda):
     assert Y[:, 1:-1].eq(3.0).all() and Y[:, 0].eq(2.0).all() and Y[:, -1].eq(2.0).all()
 
 
-def test_variant_d_in_place_two_chain(cuda):
-    """The in-place form fed its own output (the reference's 2-chain
-    check), with chunks of one and of several tiles."""
+def test_stage_launchers_refuse_what_the_rules_refuse(cuda):
+    """The staged C's and D's launchers check what ``stage_route`` and
+    ``stage_width`` decide: the bulk route off the 16-byte grid, width 4 on
+    offsets off 4 or a tile off 128, the cp.async route at width 4 or 512
+    threads are refused before any launch."""
     from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
 
-    for N, tile in ((96, 128), (300, 512)):
+    def launch(N, name, route, width, tile=256, threads=256):
+        A, X = _stage_operand(N, 2, cuda)
+        Y = torch.empty_like(X)
+        if name == "c":
+            kv._run("dia_c_stage_launch", A, X, Y, (), (tile, 64, 2, 1, route, width, threads))
+        else:
+            kv._run("dia_d_stage_launch", A, X, Y, (None,), (tile, 2, 1, route, width, threads))
+        torch.cuda.synchronize()
+        return A, X, Y
+
+    for name in ("c", "d"):
+        what = f"dia_{name}_stage_launch"
+        with pytest.raises(RuntimeError, match=what):
+            launch(45, name, 1, 1)  # n odd: no bulk copies
+        with pytest.raises(RuntimeError, match=what):
+            launch(46, name, 1, 4)  # offsets +-46: no 16-byte loads
+        with pytest.raises(RuntimeError, match=what):
+            launch(48, name, 1, 4, tile=192)  # a tile off 128
+        with pytest.raises(RuntimeError, match=what):
+            launch(48, name, 2, 4)
+        with pytest.raises(RuntimeError, match=what):
+            launch(45, name, 2, 1, threads=512)
+        with pytest.raises(RuntimeError, match=what):
+            launch(48, name, 3, 1)
+        A, X, Y = launch(48, name, 1, 4)  # what the rules give: bulk, width 4
+        assert torch.equal(Y, kd.dia_spmm_t_cuda(A, X))
+        A, X, Y = launch(48, name, 2, 1)  # the cp.async body takes any n
+        assert torch.equal(Y, kd.dia_spmm_t_cuda(A, X))
+
+
+def test_variant_d_in_place_two_chain(cuda):
+    """The in-place form fed its own output (the reference's 2-chain
+    check), with chunks of one and of several tiles, on the staged body
+    (bulk copies, width 4 at N = 96 and 300, width 1 on cp.async at N = 95)
+    and on the first version."""
+    from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
+
+    for N, tile in ((96, 128), (300, 512), (95, 128)):
         A = problems.laplacian_dirichlet_2d(N, dtype=torch.float32, device=cuda)
         A = DIAMatrix(data=A.data / 8.0, offsets=A.offsets, shape=A.shape)
         X = torch.randn((8, N * N), generator=torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
         R2 = kd.dia_spmm_t_reference(A, kd.dia_spmm_t_reference(A, X))
+        for fn in (kv.spmm_d, kv.spmm_d_first):
+            Y = fn(A, fn(A, X.clone(), alias=True, tile=tile), alias=True, tile=tile)
+            assert (Y - R2).abs().max().item() <= 1e-5 * R2.abs().max().item(), (N, fn)
         Y = kv.spmm_d(A, kv.spmm_d(A, X.clone(), alias=True, tile=tile), alias=True, tile=tile)
-        assert (Y - R2).abs().max().item() <= 1e-5 * R2.abs().max().item()
+        assert torch.equal(Y, kd.dia_spmm_t_cuda(A, kd.dia_spmm_t_cuda(A, X))), N
 
 
 def test_variant_wrappers_refuse(cuda):
@@ -608,19 +739,25 @@ def test_variant_wrappers_refuse(cuda):
 
     A = problems.laplacian_dirichlet_2d(64, dtype=torch.float32, device=cuda)
     X = torch.ones((8, 64 * 64), device=cuda)
-    with pytest.raises(ValueError, match="exceeds the tile"):
-        kv.spmm_d(A, X, tile=32)
+    for fn in (kv.spmm_d, kv.spmm_d_first):
+        with pytest.raises(ValueError, match="exceeds the tile"):
+            fn(A, X, tile=32)
     with pytest.raises(ValueError, match="depth < nslots"):
         kv.spmm_b(A, X, nslots=2, depth=2)
-    with pytest.raises(ValueError, match="shared memory"):
-        kv.spmm_c(A, X, tile=32768, rows=8)  # two windows beyond 227 KB
+    for fn in (kv.spmm_c, kv.spmm_c_first):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(A, X, tile=32768, rows=8)  # two windows beyond 227 KB
     with pytest.raises(ValueError, match="shared memory"):
         kv.spmm_b(A, X, nslots=4, depth=3, tile=8192, rows=8)
+    for fn in (kv.spmm_d, kv.spmm_d_first):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(A, X, tile=8192, rows=8)
     with pytest.raises(ValueError, match="shared memory"):
-        kv.spmm_d(A, X, tile=8192, rows=8)
-    with pytest.raises(TypeError, match="float32"):
-        kv.spmm_c(A, X.double())
-    for fn in (kv.spmm_c, kv.spmm_b, kv.spmm_d):
+        kv.spmm_d(A, X, tile=4096, rows=2)  # the ring fits, not with its coefficient tiles
+    for fn in (kv.spmm_c, kv.spmm_c_first, kv.spmm_d, kv.spmm_d_first, kv.spmm_b_first):
+        with pytest.raises(TypeError, match="float32"):
+            fn(A, X.double())
+    for fn in (kv.spmm_c, kv.spmm_b, kv.spmm_d, *kv.FIRST_VERSIONS.values()):
         with pytest.raises(ValueError, match="CUDA"):
             fn(A, X.cpu())
     with pytest.raises(ValueError, match="CUDA"):

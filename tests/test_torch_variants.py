@@ -157,13 +157,17 @@ def test_ring_geometry_window_is_the_references(monkeypatch, offsets, T):
                                      (4194307, "first")])
 def test_ring_geometry_route_is_a_rule_on_n(n, route):
     """Bulk copies need 16-byte sizes and addresses: n % 4 == 0 takes them,
-    any other n the first version's cp.async. The bulk body's barriers add
-    to its shared memory."""
+    any other n the first version's cp.async. The bulk body's two
+    coefficient tiles (5 diagonals of the tile) and its six barriers add to
+    its shared memory; ``route="first"`` asks for the first version's
+    geometry on any n."""
     offsets = (-45, -1, 0, 1, 45)
     g = tkv.ring_geometry(offsets, n, 2048, 2, 3, 2)
     assert g.route == route
     assert g.slot_bytes == 2 * g.window * 4
-    assert g.smem_bytes == 3 * g.slot_bytes + (32 if route == "bulk" else 0)
+    assert g.smem_bytes == 3 * g.slot_bytes + (2 * 5 * 2048 * 4 + 48 if route == "bulk" else 0)
+    first = tkv.ring_geometry(offsets, n, 2048, 2, 3, 2, route="first")
+    assert first.route == "first" and first.smem_bytes == 3 * g.slot_bytes
 
 
 @pytest.mark.parametrize("rows", tkv.RING_ROWS)
@@ -186,30 +190,48 @@ def test_ring_geometry_fits_or_refuses(ring, T, rows):
 
 
 def test_ring_sweep_fits_sixteen_settings_and_reaches_1_27():
-    """On the 2D N=2048 operand 16 of the 24 settings fit; W / T falls from
-    3.125 at T = 2048 to 1.266 at T = 16384 (one row, ring (2, 1))."""
-    settings = list(tkv.ring_settings((-2048, -1, 0, 1, 2048), 2048 * 2048))
-    assert len(settings) == 24 and sum(g.fits for _, g in settings) == 16
+    """On the 2D N=2048 operand the bulk body stages two (5, T) coefficient
+    tiles beside the ring, so 5 of the 24 settings fit where the first
+    compute body's 16 did: T = 2048 at every ring (two rows at (2, 1) only)
+    and T = 4096 one row at (2, 1); W / T falls from 3.125 at T = 2048 to
+    2.06 at T = 4096. The first version, which stages no coefficients,
+    still fits 16 and reaches 1.266 at T = 16384 (one row, ring (2, 1))."""
+    offsets, n = (-2048, -1, 0, 1, 2048), 2048 * 2048
+    settings = list(tkv.ring_settings(offsets, n))
+    assert len(settings) == 24 and sum(g.fits for _, g in settings) == 5
+    assert [k for k, g in settings if g.fits] == [
+        (2, 1, 2048, 1), (2, 1, 2048, 2), (2, 1, 4096, 1), (3, 2, 2048, 1), (4, 3, 2048, 1)]
     ratios = {T: g.staged_per_consumed for (s, q, T, r), g in settings if g.fits}
-    assert ratios[2048] == 6400 / 2048 and ratios[16384] == 20736 / 16384
-    assert [k for k, g in settings if g.fits and k[2] == 16384] == [(2, 1, 16384, 1)]
+    assert ratios == {2048: 6400 / 2048, 4096: 8448 / 4096}
+    first = [(k, tkv.ring_geometry(offsets, n, k[2], k[3], k[0], k[1], check=False,
+                                   route="first")) for k, _ in settings]
+    assert sum(g.fits for _, g in first) == 16
+    assert [k for k, g in first if g.fits and k[2] == 16384] == [(2, 1, 16384, 1)]
+    assert dict(first)[(2, 1, 16384, 1)].staged_per_consumed == 20736 / 16384
+    assert tkv.table_ring_rows(offsets, n, 2048, 2) == {(2, 1): 2, (3, 2): 1, (4, 3): 1}
 
 
-@pytest.mark.parametrize("ring,T,rows,threads", [
-    ((2, 1), 2048, 2, 256), ((2, 1), 2048, 1, 256), ((2, 1), 8192, 1, 256),
-    ((2, 1), 4096, 2, 512), ((3, 2), 2048, 2, 512), ((4, 3), 2048, 2, 512),
-    ((4, 3), 4096, 1, 512), ((2, 1), 16384, 1, 512),
+@pytest.mark.parametrize("offsets,ring,T,rows,threads", [
+    ((-2048, -1, 0, 1, 2048), (2, 1), 2048, 1, 512),
+    ((-2048, -1, 0, 1, 2048), (2, 1), 2048, 2, 512),
+    ((-2048, -1, 0, 1, 2048), (4, 3), 2048, 1, 512),
+    ((-2048, -1, 0, 1, 2048), (3, 2), 1024, 1, 256),
+    ((-64, -1, 0, 1, 64), (2, 1), 2048, 1, 256),
+    ((-64, -1, 0, 1, 64), (3, 2), 2048, 1, 256),
+    ((-64, -1, 0, 1, 64), (4, 3), 2048, 1, 512),
+    ((-64, -1, 0, 1, 64), (4, 3), 1024, 2, 256),
 ])
-def test_ring_threads_fill_the_sm(ring, T, rows, threads):
-    """The bulk body's threads all compute: where its shared memory leaves
-    one block an SM (two would need more than 228 KB with the 1 KB each
-    block keeps back) a block takes 512 threads, else 256; the first
-    version, whose threads stage, keeps 256 at every setting."""
-    offsets = (-2048, -1, 0, 1, 2048)
-    g = tkv.ring_geometry(offsets, 2048 * 2048, T, rows, *ring)
+def test_ring_threads_fill_the_sm(offsets, ring, T, rows, threads):
+    """The bulk body's threads all compute: where its shared memory (the
+    ring and the coefficient tiles) leaves one block an SM (two would need
+    more than 228 KB with the 1 KB each block keeps back) a block takes 512
+    threads, else 256; the first version, whose threads stage, keeps 256 at
+    every setting."""
+    n = 2048 * 2048
+    g = tkv.ring_geometry(offsets, n, T, rows, *ring)
     assert g.threads == threads
     assert (2 * (g.smem_bytes + 1024) <= 233_472) == (threads == 256)
-    assert tkv.ring_geometry(offsets, 2048 * 2048 + 1, T, rows, *ring).threads == 256
+    assert tkv.ring_geometry(offsets, n + 1, T, rows, *ring).threads == 256
 
 
 @pytest.mark.parametrize("n,T,walkers,tpc", [(4194304, 2048, 264, 8), (4194304, 16384, 132, 2),
@@ -218,7 +240,7 @@ def test_ring_threads_fill_the_sm(ring, T, rows, threads):
 def test_ring_tiles_per_chunk(n, T, walkers, tpc):
     """A row group's tiles are dealt to at most one block a tile, in
     chunks of consecutive tiles that cover them all."""
-    g = tkv.ring_geometry((-1, 0, 1), n, T, 1, 2, 1)
+    g = tkv.ring_geometry((-1, 0, 1), n, T, 1, 2, 1, check=False)
     assert g.tiles_per_chunk(n, walkers) == tpc
     ntiles = -(-n // T)
     assert -(-ntiles // tpc) <= min(walkers, ntiles)
@@ -230,6 +252,122 @@ def test_ring_geometry_refuses_bad_rings():
             tkv.ring_geometry((-1, 0, 1), 1024, 256, 1, s, q)
     with pytest.raises(ValueError, match="multiple of 4"):
         tkv.ring_geometry((-1, 0, 1), 1024, 254, 1, 2, 1)
+
+
+# the table's operand: the 2D N=2048 Laplacian
+TABLE_OFFSETS, TABLE_N = (-2048, -1, 0, 1, 2048), 2048 * 2048
+
+
+@pytest.mark.parametrize("variant,tiles", [("c", tkv.C_TILES), ("d", tkv.D_TILES)])
+def test_stage_geometry_fits_or_refuses(variant, tiles):
+    """Every setting of the staged C's and D's sweeps either fits a block's
+    227 KB (232,448 bytes: the X slots, two (5, T) coefficient tiles and the
+    bulk body's barriers) or is refused with ``ValueError`` before any
+    launch; ``stage_settings`` lists them all in order."""
+    settings = list(tkv.stage_settings(variant, TABLE_OFFSETS, TABLE_N))
+    assert [k for k, _ in settings] == [(T, r) for T in tiles for r in tkv.STAGE_ROWS]
+    bars = {"c": 32, "d": 96}[variant]
+    for (T, rows), g in settings:
+        slots, W = (2, T + 2 * 2048) if variant == "c" else (4, T)
+        assert g.dynamic_bytes == (slots * rows * W + 2 * 5 * T) * 4
+        assert g.smem_bytes == g.dynamic_bytes + bars
+        assert g.fits == (g.smem_bytes <= 232_448)
+        assert (g.route, g.width) == ("bulk", 4)
+        assert g.threads == (256 if 2 * (g.smem_bytes + 1024) <= 233_472 else 512)
+        if g.fits:
+            assert tkv.stage_geometry(variant, TABLE_OFFSETS, TABLE_N, T, rows) == g
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                tkv.stage_geometry(variant, TABLE_OFFSETS, TABLE_N, T, rows)
+
+
+def test_stage_sweeps_fit_ten_settings():
+    """On the table's operand the halo of 2048 and the coefficient tiles
+    leave C six settings of twelve and D four of eight, none at 8 rows:
+    C's window re-reads (T + 2H) / T = 5, 3 and 2 times X at T = 1024, 2048
+    and 4096; D stages 1 + 2 / (tiles a chunk)."""
+    c = [k for k, g in tkv.stage_settings("c", TABLE_OFFSETS, TABLE_N) if g.fits]
+    d = [k for k, g in tkv.stage_settings("d", TABLE_OFFSETS, TABLE_N) if g.fits]
+    assert c == [(1024, 1), (1024, 2), (1024, 4), (2048, 1), (2048, 2), (4096, 1)]
+    assert d == [(2048, 1), (2048, 2), (2048, 4), (4096, 1)]
+    ratios = {T: g.staged_per_consumed() for (T, r), g in
+              tkv.stage_settings("c", TABLE_OFFSETS, TABLE_N)}
+    assert ratios == {1024: 5.0, 2048: 3.0, 4096: 2.0}
+    g = tkv.stage_geometry("d", TABLE_OFFSETS, TABLE_N, 2048, 2)
+    assert g.staged_per_consumed(8) == 1.25 and g.staged_per_consumed(1) == 3.0
+    # 2048 tiles dealt to 264 walkers a row group: 8 tiles a chunk
+    assert g.tiles_per_chunk(TABLE_N, 264) == 8 and g.halo == 2048
+
+
+@pytest.mark.parametrize("N,T,halo,window", [(45, 256, 64, 384), (46, 1024, 64, 1152),
+                                             (200, 2048, 224, 2496), (20, 64, 32, 128)])
+def test_stage_geometry_c_halo(N, T, halo, window):
+    """C's halo is max|off| rounded up to 32 (at least 32), its window
+    T + 2H, the same H the first version takes."""
+    g = tkv.stage_geometry("c", (-N, -1, 0, 1, N), N * N, T, 2)
+    assert (g.halo, g.window, g.slots) == (halo, window, 2)
+    assert g.staged_per_consumed() == window / T
+
+
+def test_stage_geometry_refuses():
+    with pytest.raises(ValueError, match="exceeds the tile"):
+        tkv.stage_geometry("d", (-64, -1, 0, 1, 64), 4096, 32, 1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tkv.stage_geometry("c", (-1, 0, 1), 4096, 254, 1)
+    with pytest.raises(ValueError, match="variant"):
+        tkv.stage_geometry("b", (-1, 0, 1), 4096, 256, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        tkv.stage_geometry("c", TABLE_OFFSETS, TABLE_N, 4096, 2)
+
+
+# (offsets, n, tile, width): the 2D and 3D stencils whose far offsets are
+# multiples of 4 take 4 on the 16-byte grid and a tile on 128; offsets off
+# 4, odd n, n = 2 mod 4, a tile off 128, three or nine diagonals, and a
+# stencil whose middle is not (-1, 0, 1) take 1
+WIDTH_CASES = [
+    ((-2048, -1, 0, 1, 2048), 2048 * 2048, 2048, 4),
+    ((-2048, -1, 0, 1, 2048), 2048 * 2048, 4096, 4),
+    ((-48, -1, 0, 1, 48), 2304, 2560, 4),
+    ((-46656, -216, -1, 0, 1, 216, 46656), 216**3, 2048, 4),
+    ((-46, -1, 0, 1, 46), 2116, 256, 1),
+    ((-45, -1, 0, 1, 45), 2025, 256, 1),
+    ((-48, -1, 0, 1, 48), 2306, 256, 1),
+    ((-48, -1, 0, 1, 48), 2304, 192, 1),
+    ((-1, 0, 1), 4096, 256, 1),
+    ((-8, -4, -2, -1, 0, 1, 2, 4, 8), 4096, 256, 1),
+    ((-8, -2, 0, 2, 8), 4096, 256, 1),
+]
+
+
+@pytest.mark.parametrize("offsets,n,tile,width", WIDTH_CASES)
+def test_stage_width_rule(offsets, n, tile, width):
+    """The staged body's columns a thread: K1's rule for 4
+    (``dia_vector_width`` on 16-byte aligned f32 operands) and a tile on
+    128; the route: bulk copies on the 16-byte grid, cp.async off it, width
+    1 there."""
+    from dune_eigensolver_tpu_torch.kernels.dia_spmm import dia_vector_width
+
+    assert tkv.stage_width(offsets, n, tile) == width
+    if tile % 128 == 0:
+        assert (width == 4) == (dia_vector_width(offsets, n, torch.float32) == 4)
+    route = tkv.stage_route(n)
+    assert route == ("bulk" if n % 4 == 0 else "async")
+    for variant in ("c", "d"):
+        if variant == "d" and max(abs(o) for o in offsets) > tile:
+            continue
+        g = tkv.stage_geometry(variant, offsets, n, tile, 1, check=False)
+        assert (g.route, g.width) == (route, width if route == "bulk" else 1)
+
+
+def test_variant_steps_pair_each_variant_with_its_first_version():
+    """The table times each staged variant in turns with its first version
+    at the same setting; B's rings take the rows ``table_ring_rows`` gives
+    them."""
+    steps = tkv.variant_steps(2048, 2, {(3, 2): 1})
+    assert [label for label, _, _ in steps] == [
+        "A shipped", "D rolling", "D in-place", "B s=2 d=1", "B s=3 d=2", "B s=4 d=3",
+        "C r1-style"]
+    assert steps[0][2] is None and all(first is not None for _, _, first in steps[1:])
 
 
 @pytest.mark.parametrize("T", [256, 512])
@@ -250,13 +388,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     anything is built; only the ``main``s choose the plain version."""
     _, At, X = _dia_case(12, 8, seed=0)
     Xt = torch.from_numpy(X)
-    for fn in (tkv.spmm_c, tkv.spmm_b, tkv.spmm_b_first, tkv.spmm_d):
+    for fn in (tkv.spmm_c, tkv.spmm_b, tkv.spmm_d, *tkv.FIRST_VERSIONS.values()):
         with pytest.raises(ValueError, match="CUDA"):
             fn(At, Xt)
         assert fn.launches == 0
-    assert sum(tkv.spmm_b.taken.values()) == 0 and tkv.FIRST_VERSIONS == {"spmm_b": tkv.spmm_b_first}
-    with pytest.raises(ValueError, match="CUDA"):
-        tkv.spmm_d(At, Xt, alias=True)
+    assert sum(tkv.spmm_b.taken.values()) == 0
+    assert sum(tkv.spmm_c.taken.values()) == sum(tkv.spmm_d.taken.values()) == 0
+    assert tkv.FIRST_VERSIONS == {"spmm_b": tkv.spmm_b_first, "spmm_c": tkv.spmm_c_first,
+                                  "spmm_d": tkv.spmm_d_first}
+    for fn in (tkv.spmm_d, tkv.spmm_d_first):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(At, Xt, alias=True)
     with pytest.raises(ValueError, match="CUDA"):
         tpp.ident(256, Xt)
     with pytest.raises(ValueError, match="CUDA"):
@@ -377,7 +519,7 @@ def test_experiment_mains_on_cpu(capsys):
     assert "device: cpu (plain version only" in out
     assert "copy:" in out and "plain:" in out and "GB/s" in out and "shipped" not in out
     assert tkv.spmm_c.launches == tkv.spmm_b.launches == tkv.spmm_d.launches == 0
-    assert tkv.spmm_b_first.launches == 0
+    assert all(fn.launches == 0 for fn in tkv.FIRST_VERSIONS.values())
 
 
 # ---------------------------------------------------------------------------
