@@ -90,7 +90,10 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               first versions of ``ident``/``ident_alias`` against their
               plain versions (exact), at an odd width (where the wrappers
               take the first version) and at the multivector's shape (the
-              bulk copies, asserted).
+              bulk copies, asserted); then the SASS check (``SASS`` line,
+              where the toolkit has ``cuobjdump``): every instantiation of
+              ``copy_add_row_kernel`` that streams rows 1.. of ``identd``'s
+              d has at least 4 global loads more than without them.
 11. variants — the DIA staging variants (csrc/dia_variants.cu,
               dia_stage_c.cu, dia_stage_d.cu: C, B at (2,1), (3,2), (4,3),
               D, D in place) against the plain DIA product at three n that
@@ -133,7 +136,11 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               the tile the bulk body does best at in the sweep
               (``best_ident_tile``) in turns with their first versions at
               the first version's own best (``best_first_tile``; both in
-              ``ROOFLINE``), ``identd`` at its own best tile.
+              ``ROOFLINE``), ``identd`` at its own best tile, by replay too,
+              in turns with ``x + d[0]``. Any reading of a kernel's
+              streamed bytes (over 100 MB) above 1.05 x ``copy_gbps`` fails
+              the script (``check_streamed``; phase 16's ``FORM`` rows
+              too): the L2 cannot hold them.
 13. library — one PyTorch call computing the same function, where there is
               one: ``torch.sparse.mm`` on a CSR tensor for the DIA and ELL
               operands and on a BSR tensor for the BSR operand, at the
@@ -166,7 +173,8 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               ``block_select``, one row-copy kernel, and
               ``block_select_scratch`` are timed in turns with their first
               versions and must have taken float4 moves or, the scratch
-              form, its bulk copies (``REDESIGN`` lines: both times, the
+              form, its bulk copies, as must ``gather_axis0``, timed in
+              turns with its first version too (``REDESIGN`` lines: both times, the
               library call's, the shares of the table's ``x + 1.0`` rate;
               device times by CUDA-graph replay, the kernel's and the
               library call's eager times beside).
@@ -284,13 +292,16 @@ gather-probe rows' ``ms`` is the device time by CUDA-graph replay (their
 kernels take less time than the host's launch through a wrapper),
 ``eager_ms`` and ``library_eager_ms`` beside it (their ``launches``
 count the wrapper's calls: a graph replay re-runs the launches it
-captured without a call, uncounted); the ``lane_slice``, ``block_select`` and
-``block_select_scratch`` rows carry ``first_version_ms``, their first
-versions' time in turns, by replay too (phase 16), and
+captured without a call, uncounted); the ``lane_slice``, ``block_select``,
+``block_select_scratch`` and ``gather_axis0`` rows carry
+``first_version_ms`` and ``first_version_launches``, their first
+versions' time in turns, by replay too (phase 16), and the body or width
+taken, and
 so do the ``ident`` and ``ident_alias`` rows (phase 12; with
 ``device_ms``, ``first_version_device_ms`` and ``library_device_ms`` by
 replay, in turns; each body at its own best tile, ``tile`` and
-``first_version_tile``); the ``spmm_c``, ``spmm_b`` (ring (2,1)) and
+``first_version_tile``); the ``identd`` row carries ``device_ms`` and
+``library_device_ms`` (``x + d[0]``) by replay; the ``spmm_c``, ``spmm_b`` (ring (2,1)) and
 ``spmm_d`` rows (tile 2048, two rows) carry ``device_ms`` (their ``ms``, by
 replay), their route, width, threads and staged bytes per consumed, their
 first version's time in turns (``first_version_ms``) and launches, and
@@ -877,6 +888,36 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def check_streamed(what, streamed_bytes, seconds, copy_gbps):
+    """Raise where a kernel's streamed bytes over its time read above 1.05 x
+    ``copy_gbps``, for more than 100 MB: two L2s' worth of bytes cannot
+    stay in the 50 MB L2 across a chain or a replay, so such a reading
+    means the kernel did not move the bytes it is credited with (as the
+    first ``identd``'s 3,388 GB/s did, its discarded loads gone)."""
+    gbps = streamed_bytes / seconds / 1e9
+    if streamed_bytes > 100e6 and gbps > 1.05 * copy_gbps:
+        raise RuntimeError(f"{what}: {streamed_bytes / 1e6:.1f} MB streamed at {gbps:.1f} GB/s, "
+                           f"above 1.05 x copy_gbps {copy_gbps:.1f}")
+    return gbps
+
+
+def sass_check(pp, native):
+    """What ptxas kept of ``identd``'s coefficient stream: in the SASS of the
+    built library each instantiation of ``copy_add_row_kernel`` that loads
+    rows 1.. of d (STREAM) has at least CP_UNROLL = 4 global loads more than
+    the same body without them. Returns the counts (None where the toolkit
+    has no cuobjdump)."""
+    if native.cuobjdump() is None:
+        log("SASS copy_add_row_kernel: no cuobjdump in this toolkit, not checked")
+        return None
+    by = {f"vec={int(v)} stream={int(st)}": n for (v, st), n in pp.coefficient_loads().items()}
+    if len(by) != 4 or any(by[f"vec={v} stream=1"] < by[f"vec={v} stream=0"] + 4 for v in "01"):
+        raise RuntimeError(f"SASS copy_add_row_kernel: global loads {by}: the coefficient "
+                           "stream's loads are missing")
+    log("SASS " + json.dumps(dict(kernel="copy_add_row_kernel", global_loads=by)))
+    return by
+
+
 def exact_or_raise(name, Y, R):
     err = (Y - R).abs().max().item()
     if err != 0.0:
@@ -886,8 +927,11 @@ def exact_or_raise(name, Y, R):
 
 def phase_copy_check(torch, pp):
     """Phase 10: the copy kernels and the first versions of ``ident`` and
-    ``ident_alias`` against their plain versions. Returns the operands of
-    the multivector's shape and each kernel's max_abs_err there."""
+    ``ident_alias`` against their plain versions, then ``sass_check``.
+    Returns the operands of the multivector's shape and each kernel's
+    max_abs_err there."""
+    from dune_eigensolver_tpu_torch.utils import native
+
     gen = torch.Generator(device="cuda").manual_seed(2)
     # an odd width (4-byte accesses: the wrappers take the first version)
     # first, then the multivector's shape (the bulk copies)
@@ -920,6 +964,7 @@ def phase_copy_check(torch, pp):
         log(f"copy check ({rows}, {width}) tile {tile}: exact, body {body}, first versions "
             "exact")
         del want
+    sass_check(pp, native)
     return x, d, errs
 
 
@@ -1037,6 +1082,8 @@ def phase_measure(torch, kernels, pp, kv):
         log("COPY " + json.dumps(dict(case=label, kind=kind, us=t * 1e6, gbps=gbps)))
         copy_rows.append((label, t, gbps, kind))
     copy_gbps = max(g for label, _, g, _ in copy_rows if "ALIASED" not in label)
+    for label, t, g, _ in copy_rows:  # each row counts its own bytes, 136 MB or more
+        check_streamed(f"COPY {label}", g * t * 1e9, t, copy_gbps)
     # the kernel table's copy rows hold each body at its own best tile in
     # the sweep (both timed in turns at every tile there); identd, which
     # the sweep does not time, finds its own in copy_kernel_rows
@@ -1093,7 +1140,7 @@ def phase_measure(torch, kernels, pp, kv):
                           best_ident_tile=best_ident_tile), variants
 
 
-def copy_kernel_rows(torch, pp, x, d, errs, tile, first_tile):
+def copy_kernel_rows(torch, pp, x, d, errs, tile, first_tile, copy_gbps):
     """The kernel table's rows of the three copy kernels at the
     multivector's shape, each beside its plain version (one PyTorch call,
     so the library call too), by the probe's own timing helpers; ``ident``
@@ -1101,7 +1148,9 @@ def copy_kernel_rows(torch, pp, x, d, errs, tile, first_tile):
     ``first_tile`` (``first_version_ms``: each body at its own best tile),
     and by CUDA-graph replay, the kernel, its first version and the library
     call in turns (``device_ms``, ``first_version_device_ms``,
-    ``library_device_ms``); ``identd`` at its own best of ``pp.TILES``."""
+    ``library_device_ms``); ``identd`` at its own best of ``pp.TILES``, by
+    replay in turns with ``x + d[0]`` too. Every reading of the streamed
+    bytes is held under 1.05 x ``copy_gbps`` (``check_streamed``)."""
     from dune_eigensolver_tpu_torch.bench.timing import bench_loop, in_turns, replay_ms
 
     def identd_ms(T):
@@ -1133,12 +1182,18 @@ def copy_kernel_rows(torch, pp, x, d, errs, tile, first_tile):
                 [lambda: step(xr), lambda: first(first_tile, xr), lambda: plain(xr)], replay_ms)
         else:
             ms = timed(step)
+            xr = x.clone()
+            more["device_ms"], more["library_device_ms"] = in_turns(
+                [lambda: step(xr), lambda: plain(xr)], replay_ms)
         plain_ms = timed(plain)
         at = d_tile if name == "identd" else tile
+        gbps = check_streamed(f"COPYKERNEL {name}", streamed, ms * 1e-3, copy_gbps)
+        more["device_streamed_gbps"] = check_streamed(f"COPYKERNEL {name} by replay", streamed,
+                                                      more["device_ms"] * 1e-3, copy_gbps)
         recs[name] = dict(case=f"({x.shape[0]}, {x.shape[1]}) f32 tile {at}", tile=at,
                           max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
                           nbytes=nbytes, flops=x.numel(),  # one add per element
-                          streamed_bytes=streamed, streamed_gbps=streamed / ms / 1e6, **more)
+                          streamed_bytes=streamed, streamed_gbps=gbps, **more)
         log("COPYKERNEL " + json.dumps(dict(kernel=name, **recs[name])))
     return recs
 
@@ -1275,13 +1330,23 @@ def phase_study(torch, study_kernels, ga, gp, copy_gbps):
     numbers = [r["us"] for r in ablate_rows] + [r["us"] for r in forms.values()]
     if not all(np.isfinite(x) and x > 0 for x in numbers):
         raise RuntimeError(f"study: non-finite or non-positive times {numbers}")
-    for name in gp.FIRST_VERSIONS:
-        # each selection, timed in turns with its first version; the timed
-        # shape lies on 16 bytes everywhere, so the row copy must take
-        # float4 moves and the scratch form its bulk copies
+    for row in forms.values():  # 402.7 MB for the gathers: above the L2 twice over
+        for key in ("us", "eager_us"):
+            if row[key] is not None:
+                check_streamed(f"FORM {row['name']} {key}", row["streamed_bytes"],
+                               row[key] * 1e-6, copy_gbps)
+    # each redesigned kernel, timed in turns with its first version; the
+    # timed shape lies on 16 bytes everywhere, so the row copy must take
+    # float4 moves and the scratch form and the gather across rows their
+    # bulk copies
+    expect = {"lane_slice": ("width", 4), "block_select": ("width", 4),
+              "block_select_scratch": ("body", "bulk"), "gather_axis0": ("body", "bulk")}
+    if set(expect) != set(gp.FIRST_VERSIONS):
+        raise RuntimeError(f"study: first versions {sorted(gp.FIRST_VERSIONS)}")
+    for name, (attr, want) in expect.items():
         row, fn = forms[name], gp.KERNELS[name]
-        taken = fn.body if name == "block_select_scratch" else fn.width
-        if taken not in (4, "bulk") or not row["first_us"] > 0:
+        taken = getattr(fn, attr)
+        if taken != want or not row["first_us"] > 0:
             raise RuntimeError(f"study: {name} took {taken}, first version {row['first_us']} us")
         log("REDESIGN " + json.dumps(dict(
             name=name, shape=row["shape"], taken=taken, us=row["us"], eager_us=row["eager_us"],
@@ -2974,7 +3039,7 @@ def main():
     cli_launches, roofline, variants = phase_measure(torch, kernels, pp, kv)
     copy_gbps = roofline["copy_gbps"]
     copies = copy_kernel_rows(torch, pp, x8, d5, copy_errs, roofline["best_ident_tile"],
-                              roofline["best_tile"])
+                              roofline["best_tile"], copy_gbps)
     del x8, d5
     torch.cuda.empty_cache()
 
@@ -3173,7 +3238,8 @@ def main():
     for name, line in (("ident", 42), ("identd", 57), ("ident_alias", 113)):
         rec = copies[name]
         more = {k: rec[k] for k in ("tile", "first_version_ms", "first_version_tile", "body",
-                                    "device_ms", "first_version_device_ms", "library_device_ms")
+                                    "device_ms", "first_version_device_ms", "library_device_ms",
+                                    "device_streamed_gbps")
                 if k in rec}
         if name in pp.FIRST_VERSIONS:
             more["first_version_launches"] = cli_launches[name + "_first"]
@@ -3237,6 +3303,8 @@ def main():
         if row["first_us"] is not None:
             more.update(first_version_ms=row["first_us"] / 1e3,
                         first_version_launches=study_launches[name + "_first"])
+            fn = gp.KERNELS[name]
+            more.update({k: getattr(fn, k) for k in ("body", "width") if hasattr(fn, k)})
         if row["first_streamed_bytes"] is not None:
             more["first_version_streamed_bytes"] = row["first_streamed_bytes"]
         table.append(entry(name, csrc + "gather_probe.cu",

@@ -43,9 +43,17 @@
 // The coefficient stream: the TPU kernel is handed the whole (nd, tile)
 // block of d by its BlockSpec though it adds row 0 only, and the probe's
 // purpose is the cost of that stream beside X (the DIA SpMM reads ndiag
-// such rows). Here rows 1..nd-1 are loaded with `asm volatile` loads whose
-// results are discarded: a volatile asm statement is never removed by the
-// compiler, so the loads are issued and their bytes cross device memory.
+// such rows). Here rows 1..nd-1 are loaded and their bits folded by XOR
+// into one register a thread, which is stored (to y[0]) only where it
+// equals `never`, an argument whose high word the launcher sets: a 32-bit
+// fold cannot equal it, but the compiler cannot know that, so every load
+// stays. (The first version loaded those rows with `asm volatile` loads
+// whose results nothing read: the front end kept the statements, but
+// ptxas removed the loads as dead, so the kernel moved row 0 alone while
+// its bytes were counted for all nd rows. The SASS check,
+// experiments/pipeline_probe.py::coefficient_loads, counts the loads of
+// each instantiation: the STREAM ones must have 4 more than those
+// without.)
 // The result is exactly X + d[0], and the bytes to count are all nd rows.
 //
 // Interface: plain C for ctypes; launches go on the caller's stream and
@@ -63,16 +71,8 @@ __device__ __forceinline__ float4 add1(float4 v) {
   return make_float4(v.x + 1.f, v.y + 1.f, v.z + 1.f, v.w + 1.f);
 }
 
-// a 16-byte load the compiler must issue though nothing uses its result
-__device__ __forceinline__ void touch16(const float* p) {
-  float a, b, c, d;
-  asm volatile("ld.global.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(a), "=f"(b), "=f"(c), "=f"(d)
-               : "l"(p));
-}
-__device__ __forceinline__ void touch4(const float* p) {
-  float a;
-  asm volatile("ld.global.f32 %0, [%1];" : "=f"(a) : "l"(p));
+__device__ __forceinline__ unsigned bits4(float4 v) {
+  return __float_as_uint(v.x) ^ __float_as_uint(v.y) ^ __float_as_uint(v.z) ^ __float_as_uint(v.w);
 }
 
 // element offset of the idx-th float4 of a (rows, w4 * 4) tile at column c0
@@ -123,24 +123,36 @@ copy_add1_kernel(const float* x, float* y, int rows, long long width, int tile) 
   }
 }
 
-// Y = X + d[0], with rows 1..nd-1 of d loaded and discarded (see the head
-// of this file).
-template <bool VEC>
+// Y = X + d[0]. STREAM (nd > 1): rows 1..nd-1 of the tile are loaded too,
+// CP_UNROLL loads in flight a thread, streaming (they are read once), and
+// folded into `seen` (see the head of this file).
+template <bool VEC, bool STREAM>
 __global__ void __launch_bounds__(CP_THREADS)
 copy_add_row_kernel(const float* __restrict__ d, const float* __restrict__ x,
                     float* __restrict__ y, int rows, long long width, int nd,
-                    int tile) {
+                    int tile, unsigned long long never) {
   const long long ntiles = (width + tile - 1) / tile;
+  unsigned seen = 0;
   for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const long long c0 = t * tile;
     const int w = (int)min((long long)tile, width - c0);
     if (VEC) {
       const int w4 = w >> 2;
-      // the coefficient stream beyond row 0: (nd - 1) rows of this tile
-      const int extra = (nd - 1) * w4;
-      for (int idx = threadIdx.x; idx < extra; idx += CP_THREADS) {
-        const int k = idx / w4, c = idx - k * w4;
-        touch16(d + (size_t)(k + 1) * width + c0 + 4 * (size_t)c);
+      if (STREAM) {  // the coefficient stream beyond row 0: (nd - 1) rows of this tile
+        const int extra = (nd - 1) * w4;
+        for (int base = threadIdx.x; base < extra; base += CP_UNROLL * CP_THREADS) {
+          float4 v[CP_UNROLL];
+#pragma unroll
+          for (int u = 0; u < CP_UNROLL; ++u) {
+            const int idx = base + u * CP_THREADS, k = idx / w4;
+            if (idx < extra)
+              v[u] = __ldcs(reinterpret_cast<const float4*>(
+                  d + (size_t)(k + 1) * width + c0 + 4 * (size_t)(idx - k * w4)));
+          }
+#pragma unroll
+          for (int u = 0; u < CP_UNROLL; ++u)
+            if (base + u * CP_THREADS < extra) seen ^= bits4(v[u]);
+        }
       }
       const int total = rows * w4;
       for (int base = threadIdx.x; base < total; base += CP_UNROLL * CP_THREADS) {
@@ -162,10 +174,19 @@ copy_add_row_kernel(const float* __restrict__ d, const float* __restrict__ x,
         }
       }
     } else {
-      const int extra = (nd - 1) * w;
-      for (int idx = threadIdx.x; idx < extra; idx += CP_THREADS) {
-        const int k = idx / w, c = idx - k * w;
-        touch4(d + (size_t)(k + 1) * width + c0 + c);
+      if (STREAM) {
+        const int extra = (nd - 1) * w;
+        for (int base = threadIdx.x; base < extra; base += CP_UNROLL * CP_THREADS) {
+          float v[CP_UNROLL];
+#pragma unroll
+          for (int u = 0; u < CP_UNROLL; ++u) {
+            const int idx = base + u * CP_THREADS, k = idx / w;
+            if (idx < extra) v[u] = __ldcs(d + (size_t)(k + 1) * width + c0 + (idx - k * w));
+          }
+#pragma unroll
+          for (int u = 0; u < CP_UNROLL; ++u)
+            if (base + u * CP_THREADS < extra) seen ^= __float_as_uint(v[u]);
+        }
       }
       const int total = rows * w;
       for (int idx = threadIdx.x; idx < total; idx += CP_THREADS) {
@@ -175,6 +196,7 @@ copy_add_row_kernel(const float* __restrict__ d, const float* __restrict__ x,
       }
     }
   }
+  if (STREAM && seen == never) y[0] = __uint_as_float(seen);  // never taken
 }
 
 // --- the bulk-copy body ----------------------------------------------------
@@ -310,12 +332,23 @@ int copy_add_row_launch(const void* d, const void* x, void* y, int rows,
   int e = probe_grid(width, tile, &grid);
   if (e) return e;
   cudaStream_t s = (cudaStream_t)stream;
-  if (width % 4 == 0 && tile % 4 == 0 && aligned16(x) && aligned16(y) && aligned16(d))
-    copy_add_row_kernel<true><<<grid, CP_THREADS, 0, s>>>(
-        (const float*)d, (const float*)x, (float*)y, rows, width, nd, tile);
-  else
-    copy_add_row_kernel<false><<<grid, CP_THREADS, 0, s>>>(
-        (const float*)d, (const float*)x, (float*)y, rows, width, nd, tile);
+  const float *dp = (const float*)d, *xp = (const float*)x;
+  float* yp = (float*)y;
+  const unsigned long long never = 1ULL << 32;  // no 32-bit fold equals it
+  if (width % 4 == 0 && tile % 4 == 0 && aligned16(x) && aligned16(y) && aligned16(d)) {
+    if (nd > 1)
+      copy_add_row_kernel<true, true><<<grid, CP_THREADS, 0, s>>>(dp, xp, yp, rows, width, nd,
+                                                                  tile, never);
+    else
+      copy_add_row_kernel<true, false><<<grid, CP_THREADS, 0, s>>>(dp, xp, yp, rows, width, nd,
+                                                                   tile, never);
+  } else if (nd > 1) {
+    copy_add_row_kernel<false, true><<<grid, CP_THREADS, 0, s>>>(dp, xp, yp, rows, width, nd,
+                                                                 tile, never);
+  } else {
+    copy_add_row_kernel<false, false><<<grid, CP_THREADS, 0, s>>>(dp, xp, yp, rows, width, nd,
+                                                                  tile, never);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -52,8 +52,22 @@
 //                  timing in turns (block_select_launch, form 0).
 //   roll_lanes     out[r, c] = x[r, seg(c) + (c + s) mod seg], s read from
 //                  device memory; through shared memory (dyn_roll_lane).
-//   gather_axis0   out[r, c] = x[idx[r, c], c]: a gather across rows,
-//                  through L1/L2 (gather_sublane_axis0).
+//   gather_axis0   out[r, c] = x[idx[r, c], c]: a gather across rows
+//                  (gather_sublane_axis0). Where every row segment lies on
+//                  16 bytes (gather_axis0_bulk_kernel), a block owns a chunk
+//                  of GA_TILE columns of all rows, as the TPU probe's
+//                  (8, 128) block holds all rows of its lanes: one thread
+//                  brings x's rows x GA_TILE block into shared memory with
+//                  one bulk copy a row segment, completed on an mbarrier,
+//                  while every thread reads its indices as int4s; then each
+//                  gathers four columns of a row from shared memory and
+//                  writes them with one 16-byte store. So x crosses device
+//                  memory once, where the first version (one float a thread
+//                  through L1/L2, gather_axis0_kernel, kept to be timed in
+//                  turns and for shapes off the grid) reads a row of x in
+//                  each of the up to `rows` rows a warp's indices name and
+//                  finds it evicted from L2 when the next output row comes
+//                  back to the same columns.
 //   int8_widen     out = x + float(i8): char4 loads widened in registers
 //                  (int8_widen).
 //
@@ -278,6 +292,8 @@ roll_lanes_smem_kernel(const float* __restrict__ x, const int* __restrict__ s_pt
 
 // --- gather across rows ----------------------------------------------------
 
+// the first version: one float a thread over the flat output, a 64-bit
+// modulo an element, x read through L1/L2
 __global__ void __launch_bounds__(GP_THREADS)
 gather_axis0_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                     float* __restrict__ out, int rows, long long width) {
@@ -286,6 +302,72 @@ gather_axis0_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   for (long long f = (long long)blockIdx.x * GP_THREADS + threadIdx.x; f < total; f += stride) {
     const long long c = f % width;
     out[f] = __ldg(x + (size_t)clampi(idx[f], rows - 1) * width + c);
+  }
+}
+
+#define GA_TILE 512                  // columns a block owns: 2 KB a row
+#define GA_QUADS (GA_TILE / 4)       // float4 columns of a chunk
+#define GA_ROWSTEP (GP_THREADS / GA_QUADS)  // rows the block's threads cover at once
+#define GA_UNROLL 4                  // int4 index loads in flight a thread
+#define GA_BAR 16                    // the mbarrier, ahead of the block in shared memory
+#define GA_MAX_SMEM (227 * 1024)     // a block's shared memory on the H100
+#define GA_MAX_ROWS ((GA_MAX_SMEM - GA_BAR) / (GA_TILE * 4))
+
+// Block b gathers columns [b * GA_TILE, + w) of all rows (the head of this
+// file). Thread t owns float4 column q = t % GA_QUADS of rows t / GA_QUADS,
+// + GA_ROWSTEP, ...: a warp reads 512 contiguous bytes of idx and writes 512
+// of out. Bank conflicts do not bound it: GA_TILE is a multiple of 32, so
+// smem[row * GA_TILE + c] lies in bank c mod 32 whatever the row, and the
+// four scalar reads of a thread's float4 are at worst 4-way conflicted,
+// which leaves some 32 useful bytes a clock an SM against the ~5 the copy
+// rate asks of it. x, idx and out on 16 bytes and width % 4 == 0 (the
+// launcher checks), so every segment and vector is aligned.
+__global__ void __launch_bounds__(GP_THREADS)
+gather_axis0_bulk_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                         float* __restrict__ out, int rows, long long width) {
+  extern __shared__ __align__(128) unsigned char ga_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(ga_smem);
+  const float* sm = reinterpret_cast<const float*>(ga_smem + GA_BAR);
+  const long long c0 = (long long)blockIdx.x * GA_TILE;
+  const int w = (int)min((long long)GA_TILE, width - c0);
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // x's rows x w block, one bulk copy a row
+    mbar_arrive_expect_tx(full, (uint32_t)rows * w * 4);
+    for (int r = 0; r < rows; ++r)
+      bulk_load(ga_smem + GA_BAR + (size_t)r * GA_TILE * 4, x + (size_t)r * width + c0,
+                (uint32_t)w * 4, full);
+  }
+  const int q = threadIdx.x % GA_QUADS;
+  if (4 * q >= w) return;  // past a narrow last chunk (never thread 0, which waits)
+  bool landed = false;
+  for (int r0 = threadIdx.x / GA_QUADS; r0 < rows; r0 += GA_ROWSTEP * GA_UNROLL) {
+    int4 j[GA_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GA_UNROLL; ++u) {
+      const int r = r0 + u * GA_ROWSTEP;
+      if (r < rows)
+        j[u] = __ldcs(reinterpret_cast<const int4*>(idx + (size_t)r * width + c0 + 4 * q));
+    }
+    if (!landed) {  // the indices are in flight: now wait for x's block
+      mbar_wait(full, 0);
+      landed = true;
+    }
+#pragma unroll
+    for (int u = 0; u < GA_UNROLL; ++u) {
+      const int r = r0 + u * GA_ROWSTEP;
+      if (r < rows) {
+        const float* col = sm + 4 * q;
+        const float4 o = make_float4(col[clampi(j[u].x, rows - 1) * GA_TILE],
+                                     col[clampi(j[u].y, rows - 1) * GA_TILE + 1],
+                                     col[clampi(j[u].z, rows - 1) * GA_TILE + 2],
+                                     col[clampi(j[u].w, rows - 1) * GA_TILE + 3]);
+        __stcs(reinterpret_cast<float4*>(out + (size_t)r * width + c0 + 4 * q), o);
+      }
+    }
   }
 }
 
@@ -465,12 +547,31 @@ int roll_lanes_launch(const void* x, const void* s_ptr, void* out, int rows, lon
   return (int)cudaGetLastError();
 }
 
-int gather_axis0_launch(const void* x, const void* idx, void* out, int rows, long long width,
-                        void* stream) {
-  if (rows < 1 || width < 1) return (int)cudaErrorInvalidValue;
-  gather_axis0_kernel<<<stride_grid((long long)rows * width), GP_THREADS, 0,
-                        (cudaStream_t)stream>>>((const float*)x, (const int*)idx,
-                                                (float*)out, rows, width);
+// body: 0 the first version (any shape), 1 bulk copies one chunk of
+// GA_TILE columns a block (refused unless width % 4 == 0, x, idx and out lie
+// on 16 bytes and rows <= GA_MAX_ROWS; the wrapper chooses it with
+// gather_probe.axis0_body)
+int gather_axis0_launch(int body, const void* x, const void* idx, void* out, int rows,
+                        long long width, void* stream) {
+  if (rows < 1 || width < 1 || body < 0 || body > 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (body == 1) {
+    if (width % 4 || rows > GA_MAX_ROWS || !aligned16(x) || !aligned16(idx) || !aligned16(out))
+      return (int)cudaErrorInvalidValue;
+    const int smem = GA_BAR + rows * GA_TILE * 4;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(gather_axis0_bulk_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const long long chunks = (width + GA_TILE - 1) / GA_TILE;
+    if (chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    gather_axis0_bulk_kernel<<<(unsigned)chunks, GP_THREADS, smem, s>>>(
+        (const float*)x, (const int*)idx, (float*)out, rows, width);
+  } else {
+    gather_axis0_kernel<<<stride_grid((long long)rows * width), GP_THREADS, 0, s>>>(
+        (const float*)x, (const int*)idx, (float*)out, rows, width);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,10 @@ reference's names, inputs and functions:
                             versions, ``FIRST_VERSIONS``, are timed beside)
   dyn_roll_lane             ``roll_lanes``: roll by a run-time shift
   gather_sublane_axis0      ``gather_axis0``: out[r, c] = x[idx[r, c], c]
+                            (x's block of all rows staged in shared memory
+                            by bulk copies where ``axis0_body`` says
+                            "bulk"; its first version, through L1/L2, is
+                            timed beside)
   int8_widen                ``int8_widen``: x + float(int8)
   int8_gather_idx           ``gather_lanes_int8``: the same with int8 indices
 
@@ -333,16 +337,55 @@ def roll_lanes(x: torch.Tensor, s: torch.Tensor, seg: int) -> torch.Tensor:
     return out
 
 
-def gather_axis0(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[r, c] = x[idx[r, c], c] by the CUDA kernel (through L1/L2)."""
-    _check("gather_axis0", x, ints=(idx,))
+#: ``gather_axis0_launch``'s flag of each body
+AXIS0_BODIES = {"first": 0, "bulk": 1}
+AXIS0_TILE = 512  # columns a block of the bulk body owns (``GA_TILE``)
+#: rows whose (rows, AXIS0_TILE) f32 block, with its 16-byte barrier, fits
+#: a block's 227 KB of shared memory (``GA_MAX_ROWS``)
+AXIS0_MAX_ROWS = (227 * 1024 - 16) // (AXIS0_TILE * 4)
+
+
+def axis0_body(rows: int, width: int, align: int = 16) -> str:
+    """Which body of the gather across rows runs: "bulk" (a block stages x's
+    rows x 512 block by bulk copies and gathers in shared memory, four
+    columns a thread) where every row segment and every index and output
+    vector lies on 16 bytes, that is ``width`` is a multiple of 4 and the
+    three tensors' addresses are multiples of ``align`` with 16 dividing
+    it, and the block of all ``rows`` fits in shared memory; "first" (the
+    first version, one float a thread through L1/L2, which has no
+    condition) else. A dispatch between two bodies that give the same bits;
+    the launcher refuses "bulk" elsewhere."""
+    if align % 16 == 0 and width % 4 == 0 and 1 <= rows <= AXIS0_MAX_ROWS:
+        return "bulk"
+    return "first"
+
+
+def _axis0(fn, x: torch.Tensor, idx: torch.Tensor, first: bool) -> torch.Tensor:
+    what = fn.__name__
+    _check(what, x, ints=(idx,))
     if x.ndim != 2 or idx.shape != x.shape or idx.dtype != torch.int32:
-        raise ValueError("gather_axis0: x and int32 idx must be one 2-D shape")
+        raise ValueError(f"{what}: x and int32 idx must be one 2-D shape")
     out = torch.empty_like(x)
-    _run("gather_axis0_launch", x, x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0],
-         x.shape[1])
-    gather_axis0.launches += 1
+    ptrs = x.data_ptr() | idx.data_ptr() | out.data_ptr() | 16
+    fn.body = "first" if first else axis0_body(x.shape[0], x.shape[1], align=ptrs & -ptrs)
+    _run("gather_axis0_launch", x, AXIS0_BODIES[fn.body], x.data_ptr(), idx.data_ptr(),
+         out.data_ptr(), x.shape[0], x.shape[1])
+    fn.launches += 1
     return out
+
+
+def gather_axis0(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[r, c] = x[idx[r, c], c] by the CUDA kernel: x's block of all rows
+    staged once in shared memory by bulk copies where ``axis0_body`` says
+    "bulk", else the first version (the body taken in
+    ``gather_axis0.body``)."""
+    return _axis0(gather_axis0, x, idx, first=False)
+
+
+def gather_axis0_first(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``gather_axis0`` by its first version (one float a thread, x read
+    through L1/L2), kept to be timed in turns with the bulk body."""
+    return _axis0(gather_axis0_first, x, idx, first=True)
 
 
 def int8_widen(x: torch.Tensor, i8: torch.Tensor) -> torch.Tensor:
@@ -360,14 +403,16 @@ def int8_widen(x: torch.Tensor, i8: torch.Tensor) -> torch.Tensor:
 KERNELS = {fn.__name__: fn for fn in (
     gather_lanes_smem, gather_lanes_shfl, gather_lanes_global, gather_lanes_int8,
     block_select_scratch, lane_slice, block_select, roll_lanes, gather_axis0, int8_widen)}
-#: the first versions of the selections, by the name of the kernel they
-#: preceded; no probe runs them, only ``form_table``'s timing in turns
+#: the first versions of the redesigned kernels, by the name of the kernel
+#: they preceded; no probe runs them, only ``form_table``'s timing in turns
 FIRST_VERSIONS = {"lane_slice": lane_slice_first, "block_select": block_select_first,
-                  "block_select_scratch": block_select_scratch_first}
+                  "block_select_scratch": block_select_scratch_first,
+                  "gather_axis0": gather_axis0_first}
 for _fn in (*KERNELS.values(), *FIRST_VERSIONS.values()):
     _fn.launches = 0
 lane_slice.width = block_select.width = None  # the vector width of the last launch
-block_select_scratch.body = block_select_scratch_first.body = None  # the body of the last launch
+for _fn in (block_select_scratch, block_select_scratch_first, gather_axis0, gather_axis0_first):
+    _fn.body = None  # the body of the last launch
 
 
 # ---------------------------------------------------------------------------
@@ -565,11 +610,12 @@ def form_table(device, width: int = 4_194_304):
     scratch form's stages all four blocks; None on the other rows). On the
     card each kernel is first held to its plain version (``max_abs_err``,
     which must be 0: these kernels only move values, and the widen-add is
-    one f32 add); the three selections are timed in turns with their first
-    versions (``FIRST_VERSIONS``, held to the same bits): kernel, first,
-    first, kernel, the best of each, the first's in ``first_us`` (None on
-    every other row), by replay too. On the CPU only the plain versions run
-    and ``us`` is None. Prints each row as a ``FORM`` line."""
+    one f32 add); the three selections and the gather across rows are timed
+    in turns with their first versions (``FIRST_VERSIONS``, held to the same
+    bits): kernel, first, first, kernel, the best of each, the first's in
+    ``first_us`` (None on every other row), by replay too. On the CPU only
+    the plain versions run and ``us`` is None. Prints each row as a
+    ``FORM`` line."""
     device = resolve(device)
     on_card = device.type == "cuda"
     rng = np.random.default_rng(0)
@@ -597,7 +643,8 @@ def form_table(device, width: int = 4_194_304):
 
     firsts = {"lane_slice": lambda v, q: lane_slice_first(v, q, bw),
               "block_select": block_select_first,
-              "block_select_scratch": lambda v, q: block_select_scratch_first(v, q, bw)}
+              "block_select_scratch": lambda v, q: block_select_scratch_first(v, q, bw),
+              "gather_axis0": gather_axis0_first}
 
     # name, kernel, plain version, the one library call, x0, further
     # arguments, bytes the function moves, bytes the kernel streams

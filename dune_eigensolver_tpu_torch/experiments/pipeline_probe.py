@@ -26,8 +26,10 @@ phases 4 and 6.
     python -m dune_eigensolver_tpu_torch.experiments.pipeline_probe [T]
         [--device cpu] [--width W] [--mb MB]
 
-``identd`` loads all rows of ``d`` (the kernel discards rows 1.., see the
-source), so its bytes are ``2 * x + d``, as the reference counts them.
+``identd`` loads all rows of ``d`` (the kernel folds rows 1.. into a value
+whose store can never happen, see the source, and the SASS check of
+``utils/native.py::sass_global_loads`` shows the loads kept), so its bytes
+are ``2 * x + d``, as the reference counts them.
 """
 
 from __future__ import annotations
@@ -149,6 +151,23 @@ def identd(T: int, d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
          x.shape[1], d.shape[0], T)
     identd.launches += 1
     return y
+
+
+def coefficient_loads(path=None) -> dict:
+    """The global loads ptxas kept in each instantiation of ``identd``'s
+    kernel, ``{(vec, stream): count}``, from the SASS of the library at
+    ``path`` (the built one by default; ``utils/native.py::
+    sass_global_loads``): ``vec`` the float4 body, ``stream`` the one that
+    loads d's rows 1.. (taken where nd > 1). Raises without cuobjdump."""
+    import re
+
+    from dune_eigensolver_tpu_torch.utils import native
+
+    loads = {}
+    for name, n in native.sass_global_loads("copy_add_row_kernel", path).items():
+        vec, stream = re.search(r"ILb([01])ELb([01])E", name).groups()
+        loads[(vec == "1", stream == "1")] = n
+    return loads
 
 
 #: the first versions of the two Y = X + 1 launches, by the name of the

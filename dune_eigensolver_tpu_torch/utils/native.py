@@ -29,8 +29,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 from typing import Optional, Tuple
 
 import numpy as np
@@ -181,7 +183,7 @@ def load() -> ctypes.CDLL:
     # gather probes: (form, idx_bytes, x, idx, out, rows, width, seg, stream),
     # (form, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
     # (vec, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
-    # (x, s, out, rows, width, seg, stream), (x, idx, out, rows, width, stream),
+    # (x, s, out, rows, width, seg, stream), (body, x, idx, out, rows, width, stream),
     # (x, i8, out, total, stream)
     lib.gather_lanes_launch.restype = i32
     lib.gather_lanes_launch.argtypes = [i32, i32, vp, vp, vp, i32, i64, i32, vp]
@@ -192,7 +194,7 @@ def load() -> ctypes.CDLL:
     lib.roll_lanes_launch.restype = i32
     lib.roll_lanes_launch.argtypes = [vp, vp, vp, i32, i64, i32, vp]
     lib.gather_axis0_launch.restype = i32
-    lib.gather_axis0_launch.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.gather_axis0_launch.argtypes = [i32, vp, vp, vp, i32, i64, vp]
     lib.int8_widen_launch.restype = i32
     lib.int8_widen_launch.argtypes = [vp, vp, vp, i64, vp]
     lib.dune_cuda_error_string.restype = ctypes.c_char_p
@@ -206,6 +208,60 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().dune_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def cuobjdump() -> Optional[str]:
+    """The CUDA toolkit's ``cuobjdump``, or None where it is missing."""
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "cuobjdump"),
+        shutil.which("cuobjdump"),
+        "/usr/local/cuda/bin/cuobjdump",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    return None
+
+
+def _sass_text(tool: str, lib: str, name: str) -> str:
+    """``cuobjdump -sass`` of the cubins in ``lib`` whose symbols hold
+    ``name``: each source's cubin is extracted first (``-xelf all``, no
+    disassembly), so only the sources asked about are disassembled, not the
+    whole library (over 20 s for it on the H100's host)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([tool, "-xelf", "all", os.path.abspath(lib)], cwd=tmp, check=True,
+                       capture_output=True)
+        picked = []
+        for f in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, f), "rb") as fh:
+                if name.encode() in fh.read():
+                    picked.append(os.path.join(tmp, f))
+        return "".join(_run_all([[tool, "-sass", c] for c in picked], tool="cuobjdump"))
+
+
+def sass(name: str, path: Optional[str] = None) -> dict:
+    """The SASS of each kernel of the library at ``path`` (the built one by
+    default) whose mangled name holds ``name``: ``{mangled name: text}``,
+    as ``cuobjdump -sass`` prints it. What ptxas kept, which the sources
+    alone cannot show (a load whose result nothing reads is dead to it).
+    Raises where ``cuobjdump`` is missing."""
+    tool = cuobjdump()
+    if tool is None:
+        raise RuntimeError("cuobjdump not found: set CUDA_HOME or put it on PATH")
+    funcs = {}
+    for part in _sass_text(tool, path or build()[0], name).split("Function : ")[1:]:
+        head, _, body = part.partition("\n")
+        if name in head:
+            funcs[head.strip()] = body
+    return funcs
+
+
+_LDG = re.compile(r"\bLDG\b")  # a global load (not LDGSTS, cp.async)
+
+
+def sass_global_loads(name: str, path: Optional[str] = None) -> dict:
+    """The global-load instructions (``LDG``) in the SASS of each kernel
+    whose mangled name holds ``name``: ``{mangled name: count}``."""
+    return {f: len(_LDG.findall(text)) for f, text in sass(name, path).items()}
 
 
 # ---------------------------------------------------------------------------

@@ -466,6 +466,39 @@ def test_copy_launchers_refuse_bulk_off_grid(cuda):
             pp._run("copy_add1_inplace_launch", flat, body, x_ptr, 4, width, tile)
 
 
+@pytest.mark.parametrize("nd", [1, 2, 5])
+@pytest.mark.parametrize("shape,tile", [((8, 4096), 1024), ((3, 1001), 100), ((5, 2052), 512)])
+def test_identd_coefficient_rows_match_plain(cuda, nd, shape, tile):
+    """``identd`` with one coefficient row (no stream) and with more (rows
+    1.. loaded and folded): Y = X + d[0] exactly, on the 16-byte path and
+    the 4-byte one."""
+    from dune_eigensolver_tpu_torch.experiments import pipeline_probe as pp
+
+    gen = torch.Generator(device="cuda").manual_seed(nd * shape[1] + tile)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    d = torch.randn((nd, shape[1]), generator=gen, device=cuda)
+    before = pp.identd.launches
+    assert torch.equal(pp.identd(tile, d, x), pp.identd_reference(d, x))
+    assert pp.identd.launches == before + 1
+
+
+def test_identd_sass_keeps_the_coefficient_loads(cuda):
+    """What ptxas kept: in ``cuobjdump -sass`` of the built library, each
+    instantiation of ``copy_add_row_kernel`` that streams rows 1.. of d
+    (STREAM, taken where nd > 1) has at least CP_UNROLL = 4 global loads
+    more than the same body without them; a load whose result nothing reads
+    would be gone. Skips only where the toolkit has no cuobjdump."""
+    from dune_eigensolver_tpu_torch.experiments import pipeline_probe as pp
+    from dune_eigensolver_tpu_torch.utils import native
+
+    if native.cuobjdump() is None:
+        pytest.skip("needs the CUDA toolkit's cuobjdump")
+    loads = pp.coefficient_loads()
+    assert set(loads) == {(v, st) for v in (False, True) for st in (False, True)}, loads
+    for vec in (False, True):
+        assert loads[(vec, True)] >= loads[(vec, False)] + 4, loads
+
+
 def _variant_calls(kv, tile, rows):
     """(name, call, wrapper): every variant on its staged body and the first
     versions of C, B and D (names ending in "first")."""
@@ -1062,6 +1095,71 @@ def test_row_copy_launcher_refuses_float4_off_grid(cuda):
         with pytest.raises(RuntimeError, match="slice_rows_launch"):
             gp._run("slice_rows_launch", flat, 4, x_ptr, p.data_ptr(), out.data_ptr(), 4, bw, 1,
                     bw, 4 * bw)
+
+
+# (rows, width, floats x's first element lies past an allocation, body):
+# rows 1, 3, 8 and 16; a last chunk of 488 columns and one of 4; a width off
+# the 16-byte grid and a view one float off (the first version); the most
+# rows a block's shared memory holds (231 KB) and more than that
+AXIS0_CASES = [
+    (1, 4096, 0, "bulk"),
+    (3, 1000, 0, "bulk"),
+    (8, 40964, 0, "bulk"),
+    (16, 8192, 0, "bulk"),
+    (8, 1001, 0, "first"),
+    (8, 4096, 1, "first"),
+    (113, 1028, 0, "bulk"),
+    (120, 256, 0, "first"),
+]
+
+
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("rows,width,off,body", AXIS0_CASES)
+def test_axis0_bodies_match_plain(cuda, rows, width, off, body, wild):
+    """``gather_axis0`` (the bulk body where ``axis0_body`` says so, else the
+    first version) and its first version against the plain version bit for
+    bit, on indices in range and on wild ones (clamped); each launch
+    counted once."""
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    gen = torch.Generator(device="cuda").manual_seed(rows * width + off + wild)
+    flat = torch.randn(rows * width + off, generator=gen, device=cuda)
+    x = flat[off:].view(rows, width)
+    lo, hi = (-3 * rows, 4 * rows) if wild else (0, rows)
+    idx = torch.randint(lo, hi, (rows, width), generator=gen, device=cuda, dtype=torch.int32)
+    want = gp.gather_axis0_reference(x, idx)
+    fns = (gp.gather_axis0, gp.gather_axis0_first)
+    counts = {fn: fn.launches for fn in fns}
+    assert torch.equal(gp.gather_axis0(x, idx), want) and gp.gather_axis0.body == body
+    assert torch.equal(gp.gather_axis0_first(x, idx), want)
+    assert gp.gather_axis0_first.body == "first"
+    torch.cuda.synchronize()
+    assert all(fn.launches == counts[fn] + 1 for fn in fns)
+
+
+def test_axis0_launcher_refuses_bulk_off_grid(cuda):
+    """``gather_axis0_launch`` checks what ``axis0_body`` checks: the bulk
+    body (flag 1) on x, idx or out off 16 bytes, on a width no multiple of
+    4 or on more rows than shared memory holds is refused before any
+    launch, and so is an unknown flag."""
+    from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
+
+    n = 4 * 1024 + 4
+    x = torch.zeros(n, device=cuda)
+    idx = torch.zeros(n, dtype=torch.int32, device=cuda)
+    out = torch.empty(n, device=cuda)
+    ptrs = (x.data_ptr(), idx.data_ptr(), out.data_ptr())
+    bulk = gp.AXIS0_BODIES["bulk"]
+    for body, (xp, ip, op), rows, width in (
+        (bulk, (x[1:].data_ptr(), ptrs[1], ptrs[2]), 4, 1024),
+        (bulk, (ptrs[0], idx[1:].data_ptr(), ptrs[2]), 4, 1024),
+        (bulk, (ptrs[0], ptrs[1], out[1:].data_ptr()), 4, 1024),
+        (bulk, ptrs, 4, 1022),
+        (bulk, ptrs, gp.AXIS0_MAX_ROWS + 1, 4),
+        (2, ptrs, 4, 1024),
+    ):
+        with pytest.raises(RuntimeError, match="gather_axis0_launch"):
+            gp._run("gather_axis0_launch", x, body, xp, ip, op, rows, width)
 
 
 def test_probe_kernels_clamp_and_refuse(cuda):

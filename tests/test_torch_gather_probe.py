@@ -148,12 +148,14 @@ def test_probe_wrappers_refuse_cpu_tensors():
         lambda: gp.lane_slice_first(x, p, 32),
         lambda: gp.block_select_first(x.reshape(4, 8, 32), p),
         lambda: gp.block_select_scratch_first(x, p, 32),
+        lambda: gp.gather_axis0_first(x, i32),
     ]
     assert len(calls) == len(gp.KERNELS) + len(gp.FIRST_VERSIONS)
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert all(fn.launches == 0 for fn in (*gp.KERNELS.values(), *gp.FIRST_VERSIONS.values()))
+    assert gp.gather_axis0.body is None and gp.gather_axis0_first.body is None
 
 
 # (bw, row_stride, block_stride, align, width): lane_slice's strides are
@@ -218,6 +220,8 @@ def test_form_table_rows_on_cpu():
     assert all(r["us"] is None and r["max_abs_err"] is None and r["plain_us"] > 0
                and r["library_us"] > 0 and r["gbps"] > 0 for r in rows)
     assert all(r["first_us"] is None for r in rows)  # first versions are timed on the card
+    assert by["gather_axis0"]["streamed_bytes"] == 3 * f4  # x, idx and out once
+    assert "gather_axis0" in gp.FIRST_VERSIONS
     # so are the kernels, eager and by replay, and the library's eager chain
     assert all(r["eager_us"] is None and r["library_eager_us"] is None for r in rows)
 
@@ -242,3 +246,36 @@ def test_scratch_body(bw, align, body):
     alignment alone (the launcher refuses the bulk body elsewhere)."""
     assert gp.scratch_body(bw, align) == body
 
+
+
+# (rows, width, align, body): the gather across rows' choice between its
+# bulk copies and its first version, one float a thread through L1/L2
+AXIS0_CASES = [
+    (8, 4194304, 16, "bulk"),   # the timed shape, aligned
+    (1, 4, 16, "bulk"),         # one float4 of one row
+    (3, 1000, 64, "bulk"),      # a last chunk of 488 columns; more than 16 bytes is 16
+    (16, 8192, 16, "bulk"),     # 32 KB a block
+    (113, 512, 16, "bulk"),     # the most rows whose block fits in shared memory
+    (114, 512, 16, "first"),    # one row more than fits
+    (8, 1001, 16, "first"),     # a width off the 16-byte grid
+    (8, 1002, 16, "first"),     # even, but rows of 1,002 floats break it
+    (8, 4096, 8, "first"),      # a tensor 8 bytes off
+    (8, 4096, 4, "first"),      # a tensor one float off
+]
+
+
+@pytest.mark.parametrize("rows,width,align,body", AXIS0_CASES)
+def test_axis0_body(rows, width, align, body):
+    """The gather across rows' chooser, from shape and alignment alone (the
+    launcher refuses the bulk body elsewhere)."""
+    assert gp.axis0_body(rows, width, align) == body
+
+
+def test_axis0_bodies_are_the_launchers_flags():
+    """Each body has its own flag of ``gather_axis0_launch``, the chooser
+    picks each at some shape, and the row limit is the one a 227 KB block
+    with its 16-byte barrier gives at 512 columns."""
+    assert gp.AXIS0_BODIES == {"first": 0, "bulk": 1}
+    assert {gp.axis0_body(r, w, a) for r, w, a, _ in AXIS0_CASES} == set(gp.AXIS0_BODIES)
+    assert gp.AXIS0_TILE == 512 and gp.AXIS0_MAX_ROWS == 113
+    assert 16 + 113 * 512 * 4 <= 227 * 1024 < 16 + 114 * 512 * 4

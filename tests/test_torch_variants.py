@@ -482,6 +482,65 @@ def test_copy_table_rows_on_cpu():
     assert all(t > 0 and g > 0 for _, t, g, _ in rows)
 
 
+# what ``cuobjdump -sass`` prints for two kernels of a library (cut short)
+SASS_DUMP = """
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,8]
+
+\tcode for sm_90a
+\t\tFunction : _Z19copy_add_row_kernelILb1ELb1EEvPKfS1_Pfixiiy
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0080*/                   LDG.E.EF.128 R4, desc[UR4][R2.64] ;
+        /*0090*/               @P0 LDG.E.128.CONSTANT R8, desc[UR4][R6.64] ;
+        /*00a0*/                   LDGSTS.E [R1], desc[UR4][R2.64] ;
+        /*00b0*/                   LDGDEPBAR ;
+        /*00c0*/                   STG.E.128 desc[UR4][R2.64], R4 ;
+\t\t..........
+
+\t\tFunction : _Z19copy_add_row_kernelILb1ELb0EEvPKfS1_Pfixiiy
+        /*0080*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+\t\t..........
+
+\t\tFunction : _Z16copy_add1_kernelILb1EEvPKfPfixi
+        /*0080*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+"""
+
+
+def test_sass_global_loads_counts_ldg_per_kernel(monkeypatch):
+    """The SASS check's parser: one entry per kernel whose mangled name holds
+    the name asked for, counting the global loads (``LDG``) and not
+    cp.async's ``LDGSTS`` or its barrier."""
+    from dune_eigensolver_tpu_torch.utils import native
+
+    seen = []
+
+    def sass_text(tool, lib, name):
+        seen.append((tool, lib, name))
+        return SASS_DUMP
+
+    monkeypatch.setattr(native, "cuobjdump", lambda: "/toolkit/bin/cuobjdump")
+    monkeypatch.setattr(native, "_sass_text", sass_text)
+    loads = native.sass_global_loads("copy_add_row_kernel", path="lib.so")
+    assert loads == {"_Z19copy_add_row_kernelILb1ELb1EEvPKfS1_Pfixiiy": 2,
+                     "_Z19copy_add_row_kernelILb1ELb0EEvPKfS1_Pfixiiy": 1}
+    assert seen == [("/toolkit/bin/cuobjdump", "lib.so", "copy_add_row_kernel")]
+    monkeypatch.setattr(native, "cuobjdump", lambda: None)
+    with pytest.raises(RuntimeError, match="cuobjdump not found"):
+        native.sass("copy_add_row_kernel", path="lib.so")
+
+
+def test_coefficient_loads_keys_by_instantiation(monkeypatch):
+    """``identd``'s SASS counts by (float4 body, coefficient stream), read
+    from the template arguments of the mangled names."""
+    from dune_eigensolver_tpu_torch.utils import native
+
+    monkeypatch.setattr(native, "cuobjdump", lambda: "/toolkit/bin/cuobjdump")
+    monkeypatch.setattr(native, "_sass_text", lambda tool, lib, name: SASS_DUMP)
+    assert tpp.coefficient_loads("lib.so") == {(True, True): 2, (True, False): 1}
+
+
 def test_lib_path_hashes_headers(tmp_path):
     """The library's name changes when a header the sources include
     changes, not only when a source does, so an edited ``bulk_copy.cuh`` is
