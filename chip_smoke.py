@@ -71,7 +71,8 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               f32 (n = 522,242) through ``lobpcg_generalized`` with the
               cg25 Jacobi-CG preconditioner, twice, timing the second run;
               converged, finite, BSR kernel launched, and the smallest 8
-              within 1e-2 (relative) of scipy/ARPACK shift-invert.
+              within 1e-2 (relative) of scipy/ARPACK shift-invert, which a
+              worker process computes on the host from phase 3 on.
 8. flagship — ``generalized_inverse`` on elasticity_2d(96) at nev=124
               (the m=128 production GenEO block) with a CG inverse, twice,
               timing the second; within 5e-2 of the oracle; then nev=4 on
@@ -158,7 +159,11 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               (``ablate_first``) and K2's body at every (rows, kc) of
               ``gather_ablate.SWEEP`` must give ``ell_spmm_t_cuda``'s bits,
               ``nogather``/``nodyn`` stay within 1e-5 of the row's
-              |data|.|X|, ``nofma`` is exact; then the eleven gather
+              |data|.|X|, ``nofma`` is exact; then what ptxas kept of
+              their slot loads (``SASS`` line for ``ell_spmm_t_kernel``,
+              ``gather_ablate.slot_load_faults``: ``nogather`` as many
+              global loads as K2, ``nofma`` at least 8, at both index
+              widths); then the eleven gather
               probes (csrc/gather_probe.cu) and the shuffle form of the
               first, none of which may print anything but OK.
 16. study   — the gather-kernel study path through its entry points, every
@@ -166,8 +171,9 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               after: ``gather_ablate.ablate_table`` at Nel=512 m=8 and on
               the 2^20 graph (``ABLATE`` lines: the four variants with their
               shares of K2's time and of the copy bound over phase 12's
-              ``copy_gbps``, K2's first version, then the (rows, kc) sweep;
-              K2's launches counted per operand),
+              ``copy_gbps`` and the bytes their bodies stream, each held to
+              ``check_streamed``, K2's first version, then the (rows, kc)
+              sweep; K2's launches counted per operand),
               ``gather_probe.form_table`` at
               (8, 4,194,304) (``FORM`` lines), where ``lane_slice`` and
               ``block_select``, one row-copy kernel, and
@@ -191,8 +197,8 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               (``INVERSE``); both must stop by their change-based criterion
               and stay under the gates stated, with their reasons, at
               ``phase_standard``. Then the
-              CLI in process: ``--test largest ev.N=256``, ``--test smallest
-              ev.dim=3 ev.N=32 ev.inverse=mgcg`` and ``--test eigenvalues
+              CLI in process: ``--test largest ev.N=128``, ``--test smallest
+              ev.dim=3 ev.N=24 ev.inverse=mgcg`` and ``--test eigenvalues
               ev.method=lobpcg ev.nested=1 ev.dim=3 ev.N=64``, each
               returning 0 and printing its result line.
 
@@ -234,8 +240,8 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               an injected inf, ``b_identity_check``, and nothing added once
               off (device operations and host syncs); (e) the CLI in
               float64 (f64 K1 and K3) and with ``ev.refine=on`` and
-              ``ev.profile_dir``; (f) ``ortho_block='full'`` at N=24
-              (gated) and 216^3 (recorded).
+              ``ev.profile_dir`` (at N=64); (f) ``ortho_block='full'`` at
+              N=24 (gated) and 108^3 (recorded; it runs to maxiter).
 
 20. dist    — the distributed layer (``dune_eigensolver_tpu_torch/dist``)
               at world size 1 under NCCL (``DIST`` lines; ``phase_dist``
@@ -312,17 +318,23 @@ ablation rows (``ablate_full``: K2's body at K2's setting from the
 ablation source, with the whole sweep in ``sweep_ms``; ``ablate_first``:
 K2's first version; the three degraded variants) take ``ms`` by
 CUDA-graph replay, ``eager_ms`` (a chain of launches) beside, and carry
-K2's time and their share of it, the graph operand's numbers beside; then
+K2's time and their share of it, the graph operand's numbers beside, and
+(all but ``ablate_first``) the bytes their bodies stream
+(``streamed_bytes``, ``streamed_gbps``); ``ablate_nofma``'s
+``library_ms`` is its function as one PyTorch call, ``Xt + data_t[0]``.
+A ``PHASES`` line before the table gives each phase's seconds. Then
 the card's
 name and power limit as nvidia-smi reports them, then the last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import importlib
 import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -748,11 +760,28 @@ def phase_gather(torch, kg, cases):
     return records
 
 
-def phase_geneo(torch, kernels, A, B):
-    """Phase 7: bench.py's fast-path recipe on the 522k elasticity pencil,
-    against scipy/ARPACK shift-invert on the host (its seconds printed)."""
-    from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
+def geneo_oracle(Nel=512):
+    """Phase 7's oracle: the smallest 8 eigenvalues of the elasticity_2d(Nel)
+    pencil, f32 as the card's, by scipy/ARPACK shift-invert at -1e-3, and
+    the seconds it took. Run in a worker process from phase 3 on, so that
+    the host's tens of seconds of sparse LU overlap the card's phases."""
+    import torch
+
     from dune_eigensolver_tpu_torch.oracle import smallest_generalized
+    from dune_eigensolver_tpu_torch.sparse import problems
+
+    t0 = time.perf_counter()
+    A, B = problems.elasticity_2d(Nel, dtype=torch.float32, device="cpu")
+    ref, _ = smallest_generalized(A, B, nev=8, sigma=-1e-3)
+    return ref, time.perf_counter() - t0
+
+
+def phase_geneo(torch, kernels, A, B, oracle):
+    """Phase 7: bench.py's fast-path recipe on the 522k elasticity pencil,
+    against scipy/ARPACK shift-invert on the host (``oracle``: the future of
+    ``geneo_oracle``; its own seconds printed, and the seconds this phase
+    waited for it)."""
+    from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
     from dune_eigensolver_tpu_torch.solvers import lobpcg_generalized
 
     prec = cg_inverse_factory(rtol=1e-2, maxiter=25)
@@ -767,10 +796,10 @@ def phase_geneo(torch, kernels, A, B):
         raise RuntimeError("geneo: the solve launched the BSR kernel no time")
     del res
     t0 = time.perf_counter()
-    ref, _ = smallest_generalized(A, B, nev=8, sigma=-1e-3)
+    ref, oracle_seconds = oracle.result()
     err = relerr(ev, ref)
-    rec.update(n=A.shape[0], nev=8, eigenvalues=ev.tolist(),
-               oracle_seconds=time.perf_counter() - t0, relerr=err,
+    rec.update(n=A.shape[0], nev=8, eigenvalues=ev.tolist(), oracle_seconds=oracle_seconds,
+               oracle_wait_seconds=time.perf_counter() - t0, relerr=err,
                plateau=plateau(err, 2e-3))
     log("GENEO " + json.dumps(rec))
     if not err <= 1e-2:
@@ -915,6 +944,24 @@ def sass_check(pp, native):
         raise RuntimeError(f"SASS copy_add_row_kernel: global loads {by}: the coefficient "
                            "stream's loads are missing")
     log("SASS " + json.dumps(dict(kernel="copy_add_row_kernel", global_loads=by)))
+    return by
+
+
+def ablate_sass_check(ga, native):
+    """What ptxas kept of the ablation's slot loads: in the SASS of the
+    built library, each degraded instantiation of K2's body at K2's setting
+    keeps the coefficient and index loads it is credited with
+    (``gather_ablate.slot_load_faults`` states the rule). Returns the counts
+    (None where the toolkit has no cuobjdump)."""
+    if native.cuobjdump() is None:
+        log("SASS ell_spmm_t_kernel: no cuobjdump in this toolkit, not checked")
+        return None
+    loads = ga.slot_loads()
+    by = {f"{v} index={b}": loads[(v, b)] for v, b in sorted(loads)}
+    faults = ga.slot_load_faults(loads)
+    if faults:
+        raise RuntimeError(f"SASS ell_spmm_t_kernel: global loads {by}: {faults}")
+    log("SASS " + json.dumps(dict(kernel="ell_spmm_t_kernel", global_loads=by)))
     return by
 
 
@@ -1290,6 +1337,9 @@ def phase_study_check(torch, ga, gp):
             log(f"ablate check n={n} k={A.k} m={m} index {A.kernel_streams[1].element_size()} "
                 f"bytes: K2's first version and the full body at {len(ga.SWEEP)} (rows, kc) "
                 "settings == ell_spmm_t_cuda; max_abs_err " + json.dumps(errs))
+    from dune_eigensolver_tpu_torch.utils import native
+
+    ablate_sass_check(ga, native)
     verdicts = gp.run_probes(None)
     torch.cuda.synchronize()
     bad = {name: v for name, v in verdicts.items() if v != "OK"}
@@ -1330,6 +1380,12 @@ def phase_study(torch, study_kernels, ga, gp, copy_gbps):
     numbers = [r["us"] for r in ablate_rows] + [r["us"] for r in forms.values()]
     if not all(np.isfinite(x) and x > 0 for x in numbers):
         raise RuntimeError(f"study: non-finite or non-positive times {numbers}")
+    # what each variant's body streams (89.7 MB on elasticity, under
+    # check_streamed's 100 MB, where the SASS check of phase 15 guards it;
+    # 100.7 MB on the graph)
+    for row in variants:
+        check_streamed(f"ABLATE {row['variant']} {row['operand']}", row["streamed_bytes"],
+                       row["us"] * 1e-6, copy_gbps)
     for row in forms.values():  # 402.7 MB for the gathers: above the L2 twice over
         for key in ("us", "eager_us"):
             if row[key] is not None:
@@ -1363,7 +1419,8 @@ def phase_study(torch, study_kernels, ga, gp, copy_gbps):
         seconds=time.perf_counter() - t0, launches=launches, ell_spmm_t_by_operand=k2_by_operand,
         best_sweep={k: dict(rows=r["rows"], kc=r["kc"], us=r["us"], share=r["share"])
                     for k, r in best.items()},
-        k2_shares={r["operand"]: {v["variant"]: dict(share=v["share"], copy_share=v["copy_share"])
+        k2_shares={r["operand"]: {v["variant"]: dict(share=v["share"], copy_share=v["copy_share"],
+                                                     streamed_gbps=v["streamed_gbps"])
                                   for v in variants if v["operand"] == r["operand"]}
                    for r in firsts},
     )))
@@ -1470,8 +1527,10 @@ def phase_standard(torch, kernels, problems):
 
     ini = os.path.join(ROOT, "dune-eigensolver.ini")
     protocols = (
-        (["--test", "largest", "ev.N=256"], "N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO:"),
-        (["--test", "smallest", "ev.dim=3", "ev.N=32", "ev.inverse=mgcg"],
+        # sizes at which each protocol's own ARPACK oracle takes seconds on
+        # the host, not tens of them (N=256 and 3D N=32 took 23 and 33 s)
+        (["--test", "largest", "ev.N=128"], "N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO:"),
+        (["--test", "smallest", "ev.dim=3", "ev.N=24", "ev.inverse=mgcg"],
          "N_M_TOL_RASERROR_ARPERROR_TIMERATIO:"),
         (["--test", "eigenvalues", "ev.method=lobpcg", "ev.nested=1", "ev.dim=3", "ev.N=64",
           "ev.inverse=mg", "ev.b_identity=1", "ev.min_coarse=16"], "RESULT eigenvalues_test"),
@@ -2224,8 +2283,9 @@ def extras_cli(torch, kernels, cli):
     named: ``largest ev.dtype=float64`` at the INI's N = 200 the f64 K1,
     ``eigenvalues`` on the elasticity pencil at N = 96 in f64 the f64 K3,
     ``largest``/``smallest ev.refine=on`` the f64 K1 of the refinement,
-    ``largest ev.N=256 ev.profile_dir`` K1, whose symbol the trace file
-    must name."""
+    ``largest ev.N=64 ev.profile_dir`` K1, whose symbol the trace file
+    must name (a small N: the trace is what is checked, and phase 17 runs
+    the ``largest`` protocol itself)."""
     import tempfile
 
     ini = os.path.join(ROOT, "dune-eigensolver.ini")
@@ -2244,7 +2304,7 @@ def extras_cli(torch, kernels, cli):
         out[key] = cli_protocol(kernels, cli, [ini, *argv], head, kernel=kernel, f64=True,
                                 also=also)
     with tempfile.TemporaryDirectory() as d:
-        rec = cli_protocol(kernels, cli, [ini, "--test", "largest", "ev.N=256",
+        rec = cli_protocol(kernels, cli, [ini, "--test", "largest", "ev.N=64",
                                           f"ev.profile_dir={d}"], largest)
         files = os.listdir(d)
         with open(os.path.join(d, files[0])) as fh:
@@ -2263,7 +2323,7 @@ def extras_ortho_full(torch, kernels, problems, DIAMatrix, lobpcg_nested, mg_inv
     finite and within the N=24 gate (3e-4), whether or not its change-based
     stop fires within maxiter (with 'full' the reference itself needs 163
     iterations at N=24 on the CPU, against 9 with ortho_block=24); one
-    216^3 solve recorded, not gated (the
+    108^3 solve recorded, not gated (the
     reference keeps 'full' outside its validated envelope): finite or not,
     max_err, iterations, seconds, and the time inside the
     orthonormalization, by CUDA events around each call (a profiler would
@@ -2281,7 +2341,8 @@ def extras_ortho_full(torch, kernels, problems, DIAMatrix, lobpcg_nested, mg_inv
                n24_converged=bool(res.converged), n24_criterion=float(res.criterion))
     if not (np.isfinite(ev24).all() and err24 <= 3e-4):
         raise RuntimeError(f"ortho full N=24: {n24} (gate 3e-4)")
-    run = north_star(torch, 216, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory,
+    N = 108  # the solve runs to maxiter: 50-74 s at 216^3 for the same reading
+    run = north_star(torch, N, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory,
                      ortho_block="full")
     orig, ranges = lob.b_orthonormalize_blocked_t, []
 
@@ -2306,9 +2367,9 @@ def extras_ortho_full(torch, kernels, problems, DIAMatrix, lobpcg_nested, mg_inv
     torch.cuda.synchronize()
     ortho_ms = sum(a.elapsed_time(b) for a, b in ranges)
     finite = bool(np.isfinite(ev).all() and torch.isfinite(res.eigenvectors).all())
-    err = (float(np.abs(np.sort(ev)[:20] - eigenvalues_laplace_dirichlet_3d(216, count=20)).max())
+    err = (float(np.abs(np.sort(ev)[:20] - eigenvalues_laplace_dirichlet_3d(N, count=20)).max())
            if finite else None)
-    rec = dict(**n24, n=216**3, finite=finite,
+    rec = dict(**n24, n=N**3, finite=finite,
                max_err=err, iterations=int(res.iterations), converged=bool(res.converged),
                seconds=seconds, orthos=len(ranges), ortho_ms=ortho_ms,
                ortho_share_of_seconds=ortho_ms / 1e3 / seconds, launches=read_counts(kernels))
@@ -2838,6 +2899,13 @@ def main():
     import torch
 
     # --- phase 1: device ---
+    phase_seconds, phase_t0 = {}, [time.perf_counter()]
+
+    def phase_done(name):  # the seconds since the last phase ended
+        now = time.perf_counter()
+        phase_seconds[name] = now - phase_t0[0]
+        phase_t0[0] = now
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
@@ -2868,6 +2936,7 @@ def main():
     log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
 
+    phase_done("phase 1")
     # --- phase 2: build ---
     t0 = time.perf_counter()
     path, build_log = native.build()
@@ -2888,9 +2957,15 @@ def main():
           or k.startswith(("v=0 rows=8 kc=9 cap=5 f32 int16", "v=0 rows=4 kc=9 cap=3 f64"))}
     log("REGISTERS " + json.dumps(dict(k2=k2, ell_body=regs)))
 
+    phase_done("phase 2")
     # --- phase 3: kernel against plain version ---
+    # phase 7's oracle on the host, in a worker process beside phases 3-6
+    oracle_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    geneo_ref = oracle_pool.submit(geneo_oracle, 512)
     records = phase_kernel(torch, kd, problems)
 
+    phase_done("phase 3")
     # --- phase 4: the main path ---
     small = north_star(torch, 24, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory)
     res = small()
@@ -2938,6 +3013,7 @@ def main():
     north = dict(V=res.eigenvectors.cpu(), max_err=err, N=N3)
     del res
 
+    phase_done("phase 4")
     # --- phase 5: spread and profile ---
     reps = []
     for _ in range(2):
@@ -2949,6 +3025,7 @@ def main():
     del run
     torch.cuda.empty_cache()
 
+    phase_done("phase 5")
     # --- phase 6: the gather kernels against their plain versions ---
     t0 = time.perf_counter()
     A512, B512 = problems.elasticity_2d(512, dtype=torch.float32, device="cuda")
@@ -3016,8 +3093,10 @@ def main():
     del E512, B1024, E1024, A512_64, E512_64, graph64
     torch.cuda.empty_cache()
 
+    phase_done("phase 6")
     # --- phases 7-9: the general-sparsity path ---
-    geneo = phase_geneo(torch, kernels, A512, B512)
+    geneo = phase_geneo(torch, kernels, A512, B512, geneo_ref)
+    oracle_pool.shutdown()
     geneo_pencil = (A512.to_scipy(), B512.to_scipy())  # phase 20's general drivers
     del A512, B512
     torch.cuda.empty_cache()
@@ -3031,10 +3110,12 @@ def main():
     del graph_small
     torch.cuda.empty_cache()
 
+    phase_done("phases 7-9")
     # --- phases 10-11: the new kernels against their plain versions ---
     x8, d5, copy_errs = phase_copy_check(torch, pp)
     phase_variant_check(torch, kv, kd, problems, DIAMatrix)
 
+    phase_done("phases 10-11")
     # --- phase 12: the measurement path through its entry points ---
     cli_launches, roofline, variants = phase_measure(torch, kernels, pp, kv)
     copy_gbps = roofline["copy_gbps"]
@@ -3043,6 +3124,7 @@ def main():
     del x8, d5
     torch.cuda.empty_cache()
 
+    phase_done("phase 12")
     # --- phase 13: the library call beside the DIA kernel, at phase 3's shapes ---
     for name, dim, N, m, dtype, _ in phase_kernel_cases(torch):
         build = problems.laplacian_dirichlet_2d if dim == 2 else problems.laplacian_dirichlet_3d
@@ -3054,6 +3136,7 @@ def main():
         del A, X
         torch.cuda.empty_cache()
 
+    phase_done("phase 13")
     # --- phases 15-16: the gather-kernel study path ---
     from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
     from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
@@ -3074,19 +3157,23 @@ def main():
     del e512
     torch.cuda.empty_cache()
 
+    phase_done("phases 15-16")
     # --- phase 17: the standard entry points and the CLI's protocols ---
     standard = phase_standard(torch, kernels, problems)
 
+    phase_done("phase 17")
     # --- phase 18: the direct engines, the reference's default inverse ---
     direct = phase_direct(torch, kernels, problems, flagship, A96, B96)
     flagship_pencil = (A96.to_scipy(), B96.to_scipy())  # phase 20's general drivers
     del A96, B96
     torch.cuda.empty_cache()
 
+    phase_done("phase 18")
     # --- phase 19: the solver extras and float64 through the entry points ---
     extras, f64_launches = phase_extras(torch, kernels, cli, problems, DIAMatrix, lobpcg_nested,
                                         mg_inverse_factory, north, geneo)
 
+    phase_done("phase 19")
     # --- phase 20: the distributed layer, world size 1 under NCCL ---
     dist_refs = dict(largest=standard["largest"], parity=direct["parity"]["eigenvalues"],
                      parity_oracle=extras["parity_oracle"], graph=graph_scipy,
@@ -3095,11 +3182,13 @@ def main():
     _, dist_launches = phase_dist(torch, kernels, problems, DIAMatrix, dist_refs)
     del dist_refs, flagship_pencil, geneo_pencil
 
+    phase_done("phase 20")
     # --- phase 21: the JAX package's public hooks at full width ---
     A96, B96 = problems.elasticity_2d(96, dtype=torch.float32, device="cuda")
     phase_hooks(torch, kernels, problems, DIAMatrix, mg_inverse_factory, A96, B96, graph_scipy)
     del A96, B96, graph_scipy
 
+    phase_done("phase 21")
     # --- phase 14: the kernel table ---
     def entry(name, source, replaces, launches, rec, nbytes, flops, library_ms, **more):
         b_ms, b_by = bound(nbytes, flops,
@@ -3282,11 +3371,20 @@ def main():
         elif v == "first":
             more["graph_ms"] = first_ms[graph_rows["full"]["operand"]]
         else:
-            more.update(graph_ms=graph_rows[v]["us"] / 1e3, graph_share_of_k2=graph_rows[v]["share"],
-                        graph_copy_share=graph_rows[v]["copy_share"])
+            g = graph_rows[v]
+            more.update(graph_ms=g["us"] / 1e3, graph_share_of_k2=g["share"],
+                        graph_copy_share=g["copy_share"],
+                        graph_streamed_bytes=g["streamed_bytes"],
+                        graph_streamed_gbps=g["streamed_gbps"])
+        if v != "first":  # what the body moves (K2's body at (8, 9) moves K2's)
+            more.update(streamed_bytes=row["streamed_bytes"],
+                        streamed_gbps=row["streamed_bytes"] / ms / 1e6)
+        # nofma's function as one PyTorch call, Xt + data_t[0]
+        library_ms = (ablate_library if v in ("full", "first") else
+                      row["library_us"] / 1e3 if row["library_us"] is not None else None)
         table.append(entry(f"ablate_{v}", csrc + "ell_ablate.cu", "experiments/gather_ablate.py:35",
                            study_launches[f"ablate_{v}"], rec, row["nbytes"], flops,
-                           ablate_library if v in ("full", "first") else None, **more))
+                           library_ms, **more))
     for name, lines in PROBE_LINES.items():
         row = forms[name]
         # ms: the device time by replay (the host's launch of one of these
@@ -3313,6 +3411,8 @@ def main():
                            row["library_us"] / 1e3, share_of_form_copy=row["share"],
                            streamed_bytes=row["streamed_bytes"],
                            streamed_gbps=row["streamed_bytes"] / row["us"] / 1e3, **more))
+    phase_done("phase 14")
+    log("PHASES " + json.dumps(dict(seconds=phase_seconds, total=sum(phase_seconds.values()))))
     log(json.dumps({"kernels": table}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

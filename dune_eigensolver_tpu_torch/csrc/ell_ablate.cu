@@ -9,9 +9,23 @@
 // one mechanism at a time. Each variant is still a defined function (the
 // header states them), so the card holds it to a plain version:
 //
-//   nogather  no irregular address: every term loads X at the row's own column
-//   nodyn     no index stream: the column is computed, not loaded
-//   nofma     no inner loop: the streams once, X read and Y written once
+//   nogather  no irregular address: every term loads X at the row's own
+//             column; K2's coefficient and index streams, and its one X
+//             load a term, stay
+//   nodyn     no index stream: the column is computed, not loaded; the
+//             coefficient stream and the X loads stay
+//   nofma     no inner loop: K2's coefficient and index streams loaded once
+//             (XOR-folded, not multiplied), X read and Y written once
+//
+// As the reference's BlockSpecs bring every variant the (smax, Tr) blocks
+// of data and lanes, nogather and nofma load every slot K2 loads (to the
+// warp counts). A loaded value that nothing reads would be removed by
+// ptxas, so each has a reader the compiler cannot prove idle: nogather
+// adds (index & 0) to its column, nofma stores its fold only on a value no
+// fold can take, the 0 and that value being a kernel argument
+// (ell_body.cuh, ELL_NEVER). experiments/gather_ablate.py::slot_loads
+// counts the loads in the SASS; chip_smoke.py and a card test hold them
+// to K2's.
 //
 // They are instantiated at K2's constants (ELL_ROWS, ELL_KC, its register
 // caps) and read K2's index stream (int16 offsets or int32 columns). Where

@@ -20,16 +20,27 @@
 //
 //   ELL_FULL      Y[r,i] = sum_j data[i,j] * X[r, cols[i,j]]
 //   ELL_NOGATHER  Y[r,i] = sum_j data[i,j] * X[r, i']     i' = min(i, ncols-1)
-//                 no irregular address: each term still issues its own load
-//                 of X (a volatile load, so the loads of one row of X are
-//                 not merged), all of a warp's neighbours in L1; the index
-//                 stream is still loaded (volatile, value dropped)
+//                 no irregular address, and nothing else taken away: every
+//                 slot's coefficient and index are loaded as K2 loads them,
+//                 and each term loads X at i' + (index & zero), zero = 0 a
+//                 kernel argument (the low word of ``never``). So the X
+//                 loads keep K2's count (one a term) and its dependence on
+//                 the index load, and ptxas can neither drop the index load
+//                 nor merge the X loads: only the addresses are regular
 //   ELL_NODYN     Y[r,i] = sum_j data[i,j] * X[r, (i' + j) mod ncols]
 //                 no index stream: the column is computed (needs k <= ncols)
 //   ELL_NOFMA     Y[r,i] = X[r, i'] + data[i,0]
-//                 no inner loop: the warp's slots of coefficients and
-//                 indices are streamed once (volatile, values dropped), X
-//                 read and Y written once
+//                 no inner loop: the warp's slots are loaded once, the
+//                 coefficients after data[i,0] and every index XOR-folded
+//                 into one 32-bit register that is stored only if it equals
+//                 ``never`` = 2^32, which no fold can; X read and Y written
+//                 once
+//
+// ``never`` is a kernel argument that ell_body_launch sets to ELL_NEVER,
+// so ptxas cannot prove the fold unused or the mask zero: each kept load
+// has a reader. (A load whose value nothing reads is removed by ptxas,
+// ``asm volatile`` or not: the volatile binds only the front end.)
+// ELL_FULL never reads it.
 //
 // Every variant keeps the warp-slot skip. The slots after a warp's count
 // are padding (zero coefficient), so on finite X the skip changes no value
@@ -52,29 +63,22 @@ enum EllVariant { ELL_FULL = 0, ELL_NOGATHER = 1, ELL_NODYN = 2, ELL_NOFMA = 3 }
 __device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
 
-// loads the compiler must issue, one per call, whatever becomes of the value
-__device__ __forceinline__ float load_kept(const float* p) {
-  float v;
-  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ int load_kept(const int* p) {
-  int v;
-  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ short load_kept(const short* p) {
-  short v;
-  asm volatile("ld.global.nc.s16 %0, [%1];" : "=h"(v) : "l"(p));
-  return v;
+#define ELL_NEVER (1ULL << 32)  // no 32-bit fold equals it; its low word is 0
+
+__device__ __forceinline__ unsigned fold_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ unsigned fold_bits(double v) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(v);
+  return (unsigned)b ^ (unsigned)(b >> 32);
 }
 
 // slots j0 .. j0 + KC - 1 of row i into registers; IDX is int (columns) or
-// short (offsets col - i); ic = min(i, ncols - 1)
+// short (offsets col - i); ic = min(i, ncols - 1); zero = 0 (ELL_NOGATHER's
+// mask, unknown to ptxas)
 template <int V, int KC, typename T, typename IDX>
 __device__ __forceinline__ void ell_load(const T* __restrict__ data_t,
                                          const IDX* __restrict__ cols_t, size_t n, size_t i,
-                                         int ic, int ncols, int j0, T (&v)[KC], int (&c)[KC]) {
+                                         int ic, int ncols, int zero, int j0, T (&v)[KC],
+                                         int (&c)[KC]) {
 #pragma unroll
   for (int j = 0; j < KC; ++j) {
     v[j] = __ldg(data_t + (size_t)(j0 + j) * n + i);
@@ -82,8 +86,8 @@ __device__ __forceinline__ void ell_load(const T* __restrict__ data_t,
       const int s = __ldg(cols_t + (size_t)(j0 + j) * n + i);
       c[j] = sizeof(IDX) == 2 ? (int)i + s : s;
     } else if constexpr (V == ELL_NOGATHER) {
-      load_kept(cols_t + (size_t)(j0 + j) * n + i);
-      c[j] = ic;
+      const int s = __ldg(cols_t + (size_t)(j0 + j) * n + i);
+      c[j] = ic + (s & zero);
     } else {  // ELL_NODYN: k <= ncols (checked by the launcher), so one subtract
       const int cc = ic + j0 + j;
       c[j] = cc >= ncols ? cc - ncols : cc;
@@ -101,12 +105,7 @@ __device__ __forceinline__ void ell_fma(const T* __restrict__ x, size_t ncols, i
   for (int q = 0; q < RR; ++q) {
     const T* xr = x + (size_t)(r + q) * ncols;
 #pragma unroll
-    for (int j = 0; j < KC; ++j) {
-      if constexpr (V == ELL_NOGATHER)
-        xv[q][j] = load_kept(xr + c[j]);
-      else
-        xv[q][j] = __ldg(xr + c[j]);
-    }
+    for (int j = 0; j < KC; ++j) xv[q][j] = __ldg(xr + c[j]);
   }
 #pragma unroll
   for (int q = 0; q < RR; ++q) {
@@ -128,11 +127,11 @@ template <int V, int K, int ROWS, typename T, typename IDX>
 __device__ __forceinline__ void ell_short(const T* __restrict__ data_t,
                                           const IDX* __restrict__ cols_t,
                                           const T* __restrict__ x, T* __restrict__ y,
-                                          size_t n, size_t ncols, size_t i, int ic, int r0,
-                                          int r1) {
+                                          size_t n, size_t ncols, size_t i, int ic, int zero,
+                                          int r0, int r1) {
   T v[K];
   int c[K];
-  ell_load<V, K>(data_t, cols_t, n, i, ic, (int)ncols, 0, v, c);
+  ell_load<V, K>(data_t, cols_t, n, i, ic, (int)ncols, zero, 0, v, c);
   int r = r0;
   for (; r + ROWS <= r1; r += ROWS) {
     T acc[ROWS] = {};
@@ -152,12 +151,14 @@ __device__ __forceinline__ void ell_short_tail(int kw, const T* __restrict__ dat
                                                const IDX* __restrict__ cols_t,
                                                const T* __restrict__ x,
                                                T* __restrict__ y, size_t n, size_t ncols,
-                                               size_t i, int ic, int r0, int r1) {
+                                               size_t i, int ic, int zero, int r0,
+                                               int r1) {
   if constexpr (K > 0) {
     if (kw == K) {
-      ell_short<V, K, ROWS>(data_t, cols_t, x, y, n, ncols, i, ic, r0, r1);
+      ell_short<V, K, ROWS>(data_t, cols_t, x, y, n, ncols, i, ic, zero, r0, r1);
     } else {
-      ell_short_tail<V, K - 1, ROWS>(kw, data_t, cols_t, x, y, n, ncols, i, ic, r0, r1);
+      ell_short_tail<V, K - 1, ROWS>(kw, data_t, cols_t, x, y, n, ncols, i, ic, zero, r0,
+                                     r1);
     }
   }
 }
@@ -167,16 +168,16 @@ template <int V, int K, int RR, typename T, typename IDX>
 __device__ __forceinline__ void ell_long_tail(int rem, const T* __restrict__ data_t,
                                               const IDX* __restrict__ cols_t,
                                               const T* __restrict__ x, size_t n,
-                                              size_t ncols, size_t i, int ic, int j0, int r,
-                                              T (&acc)[RR]) {
+                                              size_t ncols, size_t i, int ic, int zero, int j0,
+                                              int r, T (&acc)[RR]) {
   if constexpr (K > 0) {
     if (rem == K) {
       T v[K];
       int c[K];
-      ell_load<V, K>(data_t, cols_t, n, i, ic, (int)ncols, j0, v, c);
+      ell_load<V, K>(data_t, cols_t, n, i, ic, (int)ncols, zero, j0, v, c);
       ell_fma<V, K, RR>(x, ncols, r, v, c, acc);
     } else {
-      ell_long_tail<V, K - 1, RR>(rem, data_t, cols_t, x, n, ncols, i, ic, j0, r, acc);
+      ell_long_tail<V, K - 1, RR>(rem, data_t, cols_t, x, n, ncols, i, ic, zero, j0, r, acc);
     }
   }
 }
@@ -189,50 +190,58 @@ template <int V, int KC, int RR, typename T, typename IDX>
 __device__ __forceinline__ void ell_long(int kw, const T* __restrict__ data_t,
                                          const IDX* __restrict__ cols_t,
                                          const T* __restrict__ x, T* __restrict__ y,
-                                         size_t n, size_t ncols, size_t i, int ic, int r) {
+                                         size_t n, size_t ncols, size_t i, int ic, int zero,
+                                         int r) {
   T acc[RR] = {};
   int j0 = 0;
   for (; j0 + KC <= kw; j0 += KC) {
     T v[KC];
     int c[KC];
-    ell_load<V, KC>(data_t, cols_t, n, i, ic, (int)ncols, j0, v, c);
+    ell_load<V, KC>(data_t, cols_t, n, i, ic, (int)ncols, zero, j0, v, c);
     ell_fma<V, KC, RR>(x, ncols, r, v, c, acc);
   }
-  ell_long_tail<V, KC - 1, RR>(kw - j0, data_t, cols_t, x, n, ncols, i, ic, j0, r, acc);
+  ell_long_tail<V, KC - 1, RR>(kw - j0, data_t, cols_t, x, n, ncols, i, ic, zero, j0, r,
+                               acc);
   ell_store<RR>(y, n, r, i, acc);
 }
 
 // One thread per row i; its warp's rows run warp_slots[i / ELL_WARP] slots.
+// never: ELL_NEVER (header); ELL_FULL does not read it.
 template <int V, int ROWS, int KC, int MIN_BLOCKS, typename T, typename IDX>
 __global__ void __launch_bounds__(ELL_THREADS, MIN_BLOCKS)
 ell_spmm_t_kernel(const T* __restrict__ data_t, const IDX* __restrict__ cols_t,
                   const int* __restrict__ warp_slots, const T* __restrict__ x,
-                  T* __restrict__ y, int n, int ncols, int m, int rows_per_block) {
+                  T* __restrict__ y, int n, int ncols, int m, int rows_per_block,
+                  unsigned long long never) {
   const int i = blockIdx.x * ELL_THREADS + threadIdx.x;
   if (i >= n) return;
   const int r0 = blockIdx.y * rows_per_block;
   const int r1 = min(m, r0 + rows_per_block);
   const int kw = __ldg(warp_slots + i / ELL_WARP);
   const int ic = min(i, ncols - 1);
+  const int zero = (int)(unsigned)never;  // 0, unknown to ptxas
   if constexpr (V == ELL_NOFMA) {
-    for (int j = 0; j < kw; ++j) {
-      if (j) load_kept(data_t + (size_t)j * n + i);
-      load_kept(cols_t + (size_t)j * n + i);
-    }
     const T d0 = __ldg(data_t + i);
+    unsigned seen = 0;  // slots 1.. of the coefficients, every slot of the indices
+    for (int j = 0; j < kw; ++j) {
+      if (j) seen ^= fold_bits(__ldg(data_t + (size_t)j * n + i));
+      seen ^= (unsigned)__ldg(cols_t + (size_t)j * n + i);
+    }
     for (int r = r0; r < r1; ++r) y[(size_t)r * n + i] = __ldg(x + (size_t)r * ncols + ic) + d0;
+    if (seen == never) y[i] = T(seen);  // never taken
   } else if (kw == 0) {  // the warp's rows store nothing but padding: Y = 0
     for (int r = r0; r < r1; ++r) y[(size_t)r * n + i] = T(0);
   } else if (kw <= KC) {
     ell_short_tail<V, KC, ROWS>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i,
-                                ic, r0, r1);
+                                ic, zero, r0, r1);
   } else {
     int r = r0;
     for (; r + ROWS <= r1; r += ROWS)
       ell_long<V, KC, ROWS>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i, ic,
-                            r);
+                            zero, r);
     for (; r < r1; ++r)
-      ell_long<V, KC, 1>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i, ic, r);
+      ell_long<V, KC, 1>(kw, data_t, cols_t, x, y, (size_t)n, (size_t)ncols, (size_t)i, ic,
+                         zero, r);
   }
 }
 
@@ -257,10 +266,10 @@ static void ell_body_launch(dim3 grid, cudaStream_t s, const void* data_t, const
   if (index_bytes == 2) {
     ell_spmm_t_kernel<V, ROWS, KC, MIN_BLOCKS16, T, short><<<grid, ELL_THREADS, 0, s>>>(
         (const T*)data_t, (const short*)cols_t, slots, (const T*)x, (T*)y, n, ncols, m,
-        rows_per_block);
+        rows_per_block, ELL_NEVER);
   } else {
     ell_spmm_t_kernel<V, ROWS, KC, MIN_BLOCKS32, T, int><<<grid, ELL_THREADS, 0, s>>>(
         (const T*)data_t, (const int*)cols_t, slots, (const T*)x, (T*)y, n, ncols, m,
-        rows_per_block);
+        rows_per_block, ELL_NEVER);
   }
 }

@@ -15,7 +15,13 @@ variants, each one here is a defined function with a plain version
   nofma     Y[r,i] = X[r, i'] + data[i,0]               no inner loop
 
 with i' = min(i, ncols - 1), each at K2's constants and on K2's index
-stream. Where the TPU experiment swept the row tile, this one sweeps K2's
+stream. As the reference's BlockSpecs bring every variant its blocks of
+coefficients and indices, ``nogather`` and ``nofma`` load every slot K2
+loads, to the warp counts (``variant_streamed_bytes``): ``nogather`` adds
+each index, masked to 0, to its column, ``nofma`` folds coefficients and
+indices into a value it stores only where no fold can reach. So ptxas
+keeps the loads; ``slot_loads`` counts them in the SASS and
+``slot_load_faults`` states the rule they are held to. Where the TPU experiment swept the row tile, this one sweeps K2's
 two knobs on the same body (``ablate_full``): the rows of X in flight and
 the register chunk, ``SWEEP``; every setting gives K2's bits. K2's first
 version (``ablate_first``, int32 columns, 256 threads, KC from k) is timed
@@ -31,6 +37,7 @@ max row sum, as scalar ELL, k = 18) and for the RCM-ordered unstructured
 graph Laplacian (k = 7), greppable lines
 
     ABLATE variant=<v> us=<t> gbps=<least bytes of v's function / t>
+           streamed_bytes=<bytes v's body moves> streamed_gbps=<those / t>
            share=<t / t of K2> copy_share=<copy bound / t> operand=<name>
     ABLATE first us=<t> share=<t / t of K2> operand=<name>
     ABLATE rows=<R> kc=<KC> us=<t> share=<t / t of K2> operand=<name>
@@ -52,7 +59,7 @@ import torch
 
 from dune_eigensolver_tpu_torch.bench.timing import bench_loop, copy_rate, replay_ms
 from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
-from dune_eigensolver_tpu_torch.sparse.formats import ELLMatrix, ell_from_scipy
+from dune_eigensolver_tpu_torch.sparse.formats import WARP_ROWS, ELLMatrix, ell_from_scipy
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 VARIANTS = ("full", "nogather", "nodyn", "nofma")
@@ -96,6 +103,73 @@ def variant_bytes(A: ELLMatrix, m: int, variant: str, index_bytes: int = 4) -> i
         return 4 * (A.nnz + m * (n + n_cols)) + index_bytes * A.nnz
     operator = {"nogather": A.nnz, "nodyn": A.nnz, "nofma": n}[variant]
     return 4 * (operator + m * (n + n_cols))
+
+
+def variant_streamed_bytes(A: ELLMatrix, m: int, variant: str, index_bytes: int = 4) -> int:
+    """Bytes the variant's BODY moves, f32: X read and Y written once, and
+    of the operator every slot up to its warp's count (``A.warp_slots``)
+    that the body loads: coefficient and index (``index_bytes``) for
+    ``full``, ``nogather`` and ``nofma``, the coefficient alone for
+    ``nodyn``. ``nofma`` reads ``data[i, 0]`` also where its warp's count
+    is 0. ``variant_bytes`` is the least the function needs, the bound."""
+    n, n_cols = A.shape
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; choose from {VARIANTS}")
+    per_row = A.warp_slots.to(torch.int64).repeat_interleave(WARP_ROWS)[:n]
+    slots = int(per_row.sum())
+    coefficients = int(per_row.clamp(min=1).sum()) if variant == "nofma" else slots
+    indices = 0 if variant == "nodyn" else slots
+    return 4 * (coefficients + m * (n + n_cols)) + index_bytes * indices
+
+
+def slot_loads(path=None) -> dict:
+    """The global loads ptxas kept in each instantiation of K2's body at
+    K2's setting in f32, ``{(variant, index bytes): count}``, from the SASS
+    of the library at ``path`` (the built one by default;
+    ``utils/native.py::sass_global_loads``). The sweep's other settings and
+    the f64 body are left out. Raises without cuobjdump."""
+    import re
+
+    from dune_eigensolver_tpu_torch.utils import native
+
+    pat = re.compile(r"ell_spmm_t_kernelILi(\d)ELi(\d+)ELi(\d+)ELi\d+E([fd])([si])E")
+    loads = {}
+    for name, count in native.sass_global_loads("ell_spmm_t_kernel", path).items():
+        v, rows, kc, value, index = pat.search(name).groups()
+        if (int(rows), int(kc)) == K2_SETTING and value == "f":
+            loads[(VARIANTS[int(v)], 2 if index == "s" else 4)] = count  # V: ell_body.cuh
+    return loads
+
+
+#: the global loads of ``nofma``'s epilogue in the SASS (sm_90a): the warp
+#: count, ``data[i, 0]`` and four of X (ptxas unrolls the loop over the
+#: rows of X four times); the first ``nofma``, whose slot loop ptxas had
+#: removed, had exactly these
+NOFMA_EPILOGUE_LOADS = 6
+
+
+def slot_load_faults(loads: dict) -> list:
+    """What ``slot_loads``' counts break of the rule that the degraded
+    bodies keep their slot loads (empty where it holds): at each index
+    width ``nogather`` has exactly K2's (``full``'s) count, since it loads
+    what K2 loads and only its addresses differ, and ``nofma`` has at least
+    two loads beyond its epilogue's ``NOFMA_EPILOGUE_LOADS``, a coefficient
+    and an index in its slot loop. A body whose slot loads ptxas removed
+    has fewer: ``nogather`` without its index loads (and with its loads of
+    one X address merged), ``nofma`` without its slot loop."""
+    faults = []
+    for index_bytes in (2, 4):
+        got = {v: loads.get((v, index_bytes)) for v in VARIANTS}
+        if None in got.values():
+            faults.append(f"index {index_bytes} bytes: an instantiation is missing: {got}")
+            continue
+        if got["nogather"] != got["full"]:
+            faults.append(f"index {index_bytes} bytes: nogather has {got['nogather']} global "
+                          f"loads, K2 {got['full']}")
+        if got["nofma"] < NOFMA_EPILOGUE_LOADS + 2:
+            faults.append(f"index {index_bytes} bytes: nofma has {got['nofma']} global loads, "
+                          f"fewer than its epilogue's {NOFMA_EPILOGUE_LOADS} and a slot's 2")
+    return faults
 
 
 def _check(what: str, A: ELLMatrix, Xt: torch.Tensor):
@@ -241,7 +315,10 @@ def ablate_table(device, Nel: int = 512, m: int = 8, graph_n: int = 2**20, opera
     host's launch through a wrapper), the reference's chain of launches
     beside it (``eager_us``, ``run_variant``), and each variant's copy
     bound is its least bytes (``full``: at the index width K2 reads) over
-    ``copy_gbps`` (measured here when not given). On the CPU the plain
+    ``copy_gbps`` (measured here when not given). Each variant's row also
+    holds what its body moves (``streamed_bytes``, ``streamed_gbps``) and,
+    for ``nofma`` on a square operand, the device time of its function as
+    one PyTorch call, ``Xt + data_t[0]`` (``library_us``). On the CPU the plain
     versions are timed by ``run_variant``, with no copy share, no first
     version and no sweep."""
     device = resolve(device)
@@ -264,12 +341,21 @@ def ablate_table(device, Nel: int = 512, m: int = 8, graph_n: int = 2**20, opera
             t_plain = bench_loop(lambda x, A_: variant_reference(A_, x, variant), Xt, K=5,
                                  reps=2, op_args=(A,)) if cuda else t
             nbytes = variant_bytes(A, m, variant, index_bytes)
+            streamed = variant_streamed_bytes(A, m, variant, index_bytes)
             row = dict(base, variant=variant, us=t * 1e6, plain_us=t_plain * 1e6, nbytes=nbytes,
-                       gbps=nbytes / t / 1e9, share=t / t_full,
+                       gbps=nbytes / t / 1e9, streamed_bytes=streamed,
+                       streamed_gbps=streamed / t / 1e9, share=t / t_full,
                        copy_share=nbytes / copy_gbps / 1e9 / t if cuda else None,
-                       eager_us=t_eager * 1e6 if cuda else None, max_abs_err=errs.get(variant))
+                       eager_us=t_eager * 1e6 if cuda else None, max_abs_err=errs.get(variant),
+                       library_us=None)
+            if cuda and variant == "nofma" and n == A.shape[1]:
+                # the function as one PyTorch call (square: i' = i); it reads
+                # column 0 alone, where the body streams every slot on purpose
+                data0 = A.kernel_streams[0][0]
+                row["library_us"] = replay_ms(lambda: Xt + data0) * 1e3
             copy_share = f"{row['copy_share']:.3f}" if cuda else "n/a"
             print(f"ABLATE variant={variant} us={row['us']:.1f} gbps={row['gbps']:.1f} "
+                  f"streamed_bytes={streamed} streamed_gbps={row['streamed_gbps']:.1f} "
                   f"share={row['share']:.3f} copy_share={copy_share} operand={name}", flush=True)
             rows.append(row)
         if not cuda:

@@ -192,6 +192,7 @@ def test_ablate_main_on_cpu(capsys):
     lines = [ln for ln in out.splitlines() if ln.startswith("ABLATE")]
     assert len(lines) == 8 and not any("kc=" in ln for ln in lines)
     for ln, variant in zip(lines, ga.VARIANTS * 2):
-        assert re.fullmatch(rf"ABLATE variant={variant} us=\d+\.\d gbps=\d+\.\d share=\d+\.\d{{3}} "
+        assert re.fullmatch(rf"ABLATE variant={variant} us=\d+\.\d gbps=\d+\.\d "
+                            r"streamed_bytes=\d+ streamed_gbps=\d+\.\d share=\d+\.\d{3} "
                             r"copy_share=n/a operand=(elasticity_6|graph_400)", ln), ln
     assert "share=1.000 copy_share=n/a operand=elasticity_6" in lines[0]

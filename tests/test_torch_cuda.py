@@ -888,6 +888,24 @@ def test_ablate_sweep_gives_k2s_bits(cuda, kind, m):
     assert torch.equal(ga.ablate_first(A, X), K2)
 
 
+def test_ablation_sass_keeps_the_slot_loads(cuda):
+    """What ptxas kept of the ablation's slot loads: in ``cuobjdump -sass``
+    of the built library, at K2's setting and both index widths,
+    ``nogather`` has exactly K2's global loads (it loads every coefficient
+    and index K2 loads, and X once a term) and ``nofma`` at least two beyond
+    its epilogue's six (``gather_ablate.slot_load_faults``); a load whose
+    value nothing reads would be gone. Skips only where the toolkit has no
+    cuobjdump."""
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.utils import native
+
+    if native.cuobjdump() is None:
+        pytest.skip("needs the CUDA toolkit's cuobjdump")
+    loads = ga.slot_loads()
+    assert set(loads) == {(v, b) for v in ga.VARIANTS for b in (2, 4)}, loads
+    assert ga.slot_load_faults(loads) == [], loads
+
+
 def test_ablate_wrappers_refuse_bad_operands(cuda):
     import dataclasses
 

@@ -541,6 +541,184 @@ def test_coefficient_loads_keys_by_instantiation(monkeypatch):
     assert tpp.coefficient_loads("lib.so") == {(True, True): 2, (True, False): 1}
 
 
+#: cuobjdump -sass of K2's body (csrc/ell_body.cuh), a function each for
+#: K2 (variant 0 at (8, 9), f32), the three degraded variants, a setting of
+#: the sweep and the f64 body; only the first kind count for ``slot_loads``
+ELL_SASS_DUMP = """
+\t\tFunction : _Z17ell_spmm_t_kernelILi0ELi8ELi9ELi5EfsEvPKT4_PKT5_PKiS2_PS0_iiiiy
+        /*0080*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0090*/                   LDG.E.S16.CONSTANT R5, desc[UR4][R2.64] ;
+        /*00a0*/                   LDG.E.CONSTANT R6, desc[UR4][R8.64] ;
+\t\t..........
+\t\tFunction : _Z17ell_spmm_t_kernelILi0ELi8ELi9ELi6EfiEvPKT4_PKT5_PKiS2_PS0_iiiiy
+        /*0080*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0090*/                   LDG.E.CONSTANT R5, desc[UR4][R2.64] ;
+\t\t..........
+\t\tFunction : _Z17ell_spmm_t_kernelILi1ELi8ELi9ELi5EfsEvPKT4_PKT5_PKiS2_PS0_iiiiy
+        /*0080*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*00a0*/                   LDG.E.CONSTANT R6, desc[UR4][R8.64] ;
+\t\t..........
+\t\tFunction : _Z17ell_spmm_t_kernelILi3ELi8ELi9ELi6EfiEvPKT4_PKT5_PKiS2_PS0_iiiiy
+        /*0080*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+\t\t..........
+\t\tFunction : _Z17ell_spmm_t_kernelILi0ELi4ELi9ELi5EfsEvPKT4_PKT5_PKiS2_PS0_iiiiy
+        /*0080*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+\t\t..........
+\t\tFunction : _Z17ell_spmm_t_kernelILi0ELi4ELi9ELi3EdiEvPKT4_PKT5_PKiS2_PS0_iiiiy
+        /*0080*/                   LDG.E.64.CONSTANT R4, desc[UR4][R2.64] ;
+"""
+
+
+def test_slot_loads_keys_by_instantiation(monkeypatch):
+    """The ablation's SASS counts by (variant, index bytes), read from the
+    template arguments of the mangled names: K2's setting (8, 9) in f32
+    alone, not the sweep's other settings or the f64 body."""
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+    from dune_eigensolver_tpu_torch.utils import native
+
+    seen = []
+    monkeypatch.setattr(native, "cuobjdump", lambda: "/toolkit/bin/cuobjdump")
+    monkeypatch.setattr(native, "_sass_text",
+                        lambda tool, lib, name: seen.append(name) or ELL_SASS_DUMP)
+    assert ga.slot_loads("lib.so") == {("full", 2): 3, ("full", 4): 2, ("nogather", 2): 2,
+                                       ("nofma", 4): 1}
+    assert seen == ["ell_spmm_t_kernel"]
+
+
+@pytest.mark.parametrize("case,faults", [
+    ("kept", 0),
+    ("index loads gone", 2),   # nogather below K2 at both widths
+    ("slot loop gone", 2),     # nofma at its epilogue's 6 at both widths
+    ("one width missing", 1),
+])
+def test_slot_load_rule(case, faults):
+    """The rule the card holds the built library to: ``nogather`` exactly
+    K2's global loads, ``nofma`` at least two beyond its epilogue's six,
+    at each index width; a missing instantiation is a fault too. The counts
+    are those of the built library on sm_90a, before and after the repair
+    (1,261 for K2, 334 and 6 for the first ``nogather`` and ``nofma``)."""
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+
+    kept = {("full", 2): 1261, ("full", 4): 1261, ("nogather", 2): 1261, ("nogather", 4): 1261,
+            ("nodyn", 2): 1126, ("nodyn", 4): 1126, ("nofma", 2): 65, ("nofma", 4): 65}
+    loads = dict(kept)
+    if case == "index loads gone":
+        loads.update({("nogather", 2): 334, ("nogather", 4): 334})
+    elif case == "slot loop gone":
+        loads.update({("nofma", 2): 6, ("nofma", 4): 6})
+    elif case == "one width missing":
+        del loads[("nodyn", 4)]
+    found = ga.slot_load_faults(loads)
+    assert len(found) == faults, found
+    assert ga.NOFMA_EPILOGUE_LOADS == 6
+    if case == "kept":  # the rule's edge: two loads beyond the epilogue
+        assert ga.slot_load_faults({**loads, ("nofma", 2): 8, ("nofma", 4): 8}) == []
+        assert len(ga.slot_load_faults({**loads, ("nofma", 2): 7})) == 1
+
+
+@pytest.mark.parametrize("index_bytes", [2, 4])
+def test_variant_streamed_bytes_counts_slots_to_the_warp_counts(index_bytes):
+    """What each ablation body moves, against a hand count on n = 70 rows
+    (warps of 32, 32 and 6 rows) whose warp counts are 4, 0 and 5 of k = 5
+    slots: 158 slots in all; ``nofma`` reads ``data[i, 0]`` in the empty
+    warp too (32 more coefficients); X and Y once at m = 3."""
+    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
+
+    n, k, m = 70, 5, 3
+    own = np.arange(n)
+    data = np.zeros((n, k), np.float32)
+    cols = np.repeat(own[:, None], k, axis=1)
+    data[:32, 0] = 1.0  # warp 0: one entry a row, and row 3 four
+    data[3, :4] = 2.0
+    cols[3, 1:4] = [10, 20, 30]
+    data[66, :] = 3.0  # warp 2: row 66 five
+    cols[66, 1:] = [1, 2, 3, 4]
+    A = ell_from_numpy(data, cols, (n, n), nnz=int((data != 0).sum()), device="cpu")
+    assert A.warp_slots.tolist() == [4, 0, 5]
+    slots, xy = 32 * 4 + 6 * 5, m * (n + n)
+    want = {"full": 4 * (slots + xy) + index_bytes * slots,
+            "nogather": 4 * (slots + xy) + index_bytes * slots,
+            "nodyn": 4 * (slots + xy),
+            "nofma": 4 * (slots + 32 + xy) + index_bytes * slots}
+    for variant in ga.VARIANTS:
+        got = ga.variant_streamed_bytes(A, m, variant, index_bytes)
+        assert got == want[variant], variant
+        assert got >= ga.variant_bytes(A, m, variant, index_bytes) or variant == "full"
+    with pytest.raises(ValueError, match="unknown variant"):
+        ga.variant_streamed_bytes(A, m, "nothing")
+
+
+def _asm_load_faults(texts):
+    """Inline-asm loads whose value nothing reads, in ``{file: source}``: an
+    ``asm volatile("ld.`` whose output is neither read later in its
+    function nor returned, or a helper that returns it called as a
+    statement of its own. ptxas removes such a load, volatile or not."""
+    import re
+
+    faults, helpers = [], []
+    for path, text in texts.items():
+        for m in re.finditer(r'asm\s+volatile\s*\(\s*"ld\.[^"]*"[^;]*;', text):
+            out = re.search(r'"=\w+"\s*\(\s*(\w+)\s*\)', m.group(0))
+            heads = [h for h in re.finditer(r"\b(\w+)\s*\([^;{}]*\)\s*\{", text[:m.start()])
+                     if h.group(1) not in ("if", "for", "while", "switch")]
+            end = text.find("\n}", m.end())
+            rest = text[m.end():end if end >= 0 else len(text)]
+            where = f"{os.path.basename(path)}:{text.count(chr(10), 0, m.start()) + 1}"
+            if out is None or not heads:
+                faults.append(f"{where}: an asm load with no output")
+            elif re.search(rf"\breturn\s+{out.group(1)}\s*;", rest):
+                helpers.append(heads[-1].group(1))
+            elif not re.search(rf"\b{out.group(1)}\b", rest):
+                faults.append(f"{where}: the value of an asm load is never read")
+    for name in set(helpers):
+        for path, text in texts.items():
+            for c in re.finditer(rf"\b{name}\s*\(", text):
+                before = text[:c.start()].rstrip()
+                if not before or before[-1] in ";{})" or before.endswith("else"):
+                    line = text.count("\n", 0, c.start()) + 1
+                    faults.append(f"{os.path.basename(path)}:{line}: {name}'s value dropped")
+    return faults
+
+
+def test_no_discarded_inline_asm_loads_in_the_sources():
+    """No source of the port's kernels loads through inline asm without
+    reading the value: the fault that left ``identd``'s coefficient rows
+    and the ablation's slot loads out of the SASS."""
+    from dune_eigensolver_tpu_torch.utils import native
+
+    csrc = os.path.dirname(native._headers()[0])
+    texts = {}
+    for root, _, files in os.walk(csrc):
+        for f in files:
+            if f.endswith((".cu", ".cuh", ".h")):
+                with open(os.path.join(root, f)) as fh:
+                    texts[os.path.join(root, f)] = fh.read()
+    assert any(p.endswith("ell_body.cuh") for p in texts)
+    assert _asm_load_faults(texts) == []
+
+
+@pytest.mark.parametrize("body,faults", [
+    # a helper that returns the value, called as a statement (the fault)
+    ("__device__ float kept(const float* p) {\n  float v;\n"
+     '  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));\n  return v;\n}\n'
+     "__global__ void k(const float* p, float* y) {\n  kept(p);\n"
+     "  for (int j = 0; j < 4; ++j) {\n    if (j) kept(p + j);\n  }\n}\n", 2),
+    # the same helper whose value is read
+    ("__device__ float kept(const float* p) {\n  float v;\n"
+     '  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));\n  return v;\n}\n'
+     "__global__ void k(const float* p, float* y) {\n  y[0] = kept(p) + 1.f;\n}\n", 0),
+    # a load in the kernel whose register nothing reads, and one that is read
+    ("__global__ void k(const float* p, float* y) {\n  float v, w;\n"
+     '  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));\n'
+     '  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(w) : "l"(p));\n  y[0] = w;\n}\n', 1),
+], ids=["helper-dropped", "helper-read", "inline-one-dropped"])
+def test_asm_load_scan_finds_dropped_values(body, faults):
+    """The source scan flags the forms ptxas removes (the first ``identd``
+    and ablation bodies used the first) and passes loads whose value is
+    read."""
+    assert len(_asm_load_faults({"k.cu": body})) == faults
+
+
 def test_lib_path_hashes_headers(tmp_path):
     """The library's name changes when a header the sources include
     changes, not only when a source does, so an edited ``bulk_copy.cuh`` is
