@@ -328,6 +328,7 @@ name and power limit as nvidia-smi reports them, then the last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -619,16 +620,17 @@ def set_counts(kernels, value=0):
             F64_TOTAL[name] += count
     for fn in kernels.values():
         fn.launches = value
-        if hasattr(fn, "by_dtype"):
-            fn.by_dtype.clear()
+        if hasattr(fn, "calls"):
+            fn.calls.clear()
 
 
 def f64_counts(kernels):
-    """The f64 launches of each SpMM kernel since ``set_counts``."""
+    """The f64 launches of each SpMM kernel since ``set_counts`` (from its
+    by-shape tally ``calls``)."""
     import torch
 
-    return {name: fn.by_dtype[torch.float64] for name, fn in kernels.items()
-            if hasattr(fn, "by_dtype")}
+    return {name: sum(c for call, c in fn.calls.items() if call.dtype == torch.float64)
+            for name, fn in kernels.items() if hasattr(fn, "calls")}
 
 
 def read_counts(kernels):
@@ -2987,15 +2989,17 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     set_counts(kernels)
-    kd.dia_spmm_t_cuda.taken.clear()
     t0 = time.perf_counter()
     res = run()
     res.eigenvalues.cpu()
     t_solve = time.perf_counter() - t0
     launches = kd.dia_spmm_t_cuda.launches
-    taken = {f"n={n} width={w}": c for (n, w), c in sorted(kd.dia_spmm_t_cuda.taken.items())}
-    fine = {w: c for (n, w), c in kd.dia_spmm_t_cuda.taken.items() if n == N3**3}
-    if set(fine) != {4} or sum(kd.dia_spmm_t_cuda.taken.values()) != launches:
+    by_width = collections.Counter()
+    for call, c in kd.dia_spmm_t_cuda.calls.items():
+        by_width[call.n, call.width] += c
+    taken = {f"n={n} width={w}": c for (n, w), c in sorted(by_width.items())}
+    fine = {w: c for (n, w), c in by_width.items() if n == N3**3}
+    if set(fine) != {4} or sum(by_width.values()) != launches:
         raise RuntimeError(f"the 216^3 solve's fine-level launches did not all take 4 columns "
                            f"a thread: {taken} of {launches} launches")
     peak = torch.cuda.max_memory_allocated()

@@ -48,7 +48,11 @@ natively on the card (the kernels have f64 instantiations), so
 ``ev.refine=auto`` never refines. ``ev.paranoid=1`` turns on the NaN
 tripwire (``utils/paranoid.py``; its alarms print after each test);
 ``ev.profile_dir=<dir>`` writes a ``torch.profiler`` Chrome trace of the
-tests there.
+tests there, with the program's spans on (``utils/vlog.py``): each solver
+call is a ``solve`` range holding its phases, ``lobpcg.setup``,
+``lobpcg.spmm``, ``lobpcg.precond``, ``lobpcg.ortho``, ``lobpcg.rr``,
+``lobpcg.stop``, and each Jacobi-CG solve a ``cg.apply`` range with one
+``cg.stop`` range a step.
 
 Everything runs on the current CUDA device unless ``ev.device=cpu``.
 ``scaling`` and ``ev.method=dist|dist_general`` need a process group: in a

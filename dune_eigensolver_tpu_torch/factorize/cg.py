@@ -11,7 +11,10 @@ The reference's ``lax.while_loop`` is a Python loop here. Its condition,
 ``k < maxiter and any(row residual > rtol * row rhs norm)``, is read to the
 host once per iteration, exactly as the reference decides it: no check is
 skipped and no converged row is frozen, so the iterates are the
-reference's. That is one host sync per CG iteration.
+reference's. That is one host sync per CG iteration. While tracing is on
+(``utils/vlog.py``) each solve is a ``cg.apply`` span and each read of the
+condition a ``cg.stop`` span; ``cg_solve_t.calls`` and ``cg_solve_t.steps``
+count the solves and their iterations, always.
 
 ``gram_reduce`` (JAX ``factorize/cg.py:40``): for a row-sharded
 multivector every row dot goes through it (an ``all_reduce`` SUM in the
@@ -30,6 +33,7 @@ import torch
 
 from dune_eigensolver_tpu_torch.sparse.formats import BSRMatrix, DIAMatrix, ELLMatrix
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
+from dune_eigensolver_tpu_torch.utils.vlog import span
 
 _DATA_FIELD = {DIAMatrix: "data", ELLMatrix: "data", BSRMatrix: "bdata"}
 
@@ -51,8 +55,22 @@ def cg_solve_t(
     Jacobi preconditioning. precond_apply: R -> M^-1 R, a fixed SPD
     preconditioner application; overrides the Jacobi default.
     gram_reduce: the reduction of every row dot for a sharded B.
-    Returns (X, iterations).
+    Returns (X, iterations), and adds 1 to ``cg_solve_t.calls`` and the
+    iterations to ``cg_solve_t.steps``.
     """
+    with span("cg.apply"):
+        X, k = _cg_loop(apply_a, B, inv_diag, rtol, maxiter, x0, precond_apply, gram_reduce)
+    cg_solve_t.calls += 1
+    cg_solve_t.steps += k
+    return X, k
+
+
+cg_solve_t.calls = 0
+cg_solve_t.steps = 0
+
+
+def _cg_loop(apply_a, B, inv_diag, rtol, maxiter, x0, precond_apply, gram_reduce):
+    """``cg_solve_t``'s iteration."""
     if precond_apply is not None:
         precond = precond_apply
     else:
@@ -77,8 +95,14 @@ def cg_solve_t(
     bnorm = torch.sqrt(rowdot(B, B))
     # rows with zero rhs are converged by definition
     target = rtol * torch.where(bnorm > 0, bnorm, 1.0)
+
+    def unconverged(R):
+        going = torch.any(torch.sqrt(rowdot(R, R)) > target)
+        with span("cg.stop"):
+            return bool(going)
+
     k = 0
-    while k < maxiter and bool(torch.any(torch.sqrt(rowdot(R, R)) > target)):
+    while k < maxiter and unconverged(R):
         AP = apply_a(P)
         pap = rowdot(P, AP)
         alpha = torch.where(pap > 0, rz / torch.where(pap > 0, pap, 1.0), 0.0)

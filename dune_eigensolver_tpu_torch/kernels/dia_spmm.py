@@ -8,10 +8,10 @@ Counterpart of ``dune_eigensolver_tpu/kernels/dia_spmm.py``:
   input's dtype).
 * ``dia_spmm_t_cuda`` — wrapper of the hand-written CUDA kernel
   ``csrc/dia_spmm.cu`` (replaces the Pallas ``_kernel``/``padded_spmm``).
-  It counts its launches in ``dia_spmm_t_cuda.launches`` and records the
-  vector width of the last one in ``dia_spmm_t_cuda.width``, a tally by
-  ``(n, width)`` in ``dia_spmm_t_cuda.taken`` and one by dtype in
-  ``dia_spmm_t_cuda.by_dtype``.
+  It counts its launches in ``dia_spmm_t_cuda.launches``, records the
+  vector width of the last one in ``dia_spmm_t_cuda.width`` and tallies
+  them by shape in ``dia_spmm_t_cuda.calls``, a ``collections.Counter``
+  keyed by ``DiaCall(n, m, dtype, ndiag, width)``.
 * ``dia_vector_width`` — which of the kernel's specialisations (4, 2 or 1
   columns a thread) an operand takes, from its shape alone.
 
@@ -35,6 +35,9 @@ from dune_eigensolver_tpu_torch.sparse.formats import DIAMatrix
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _MAX_DIAG = 16  # DIA_MAX_DIAG in csrc/dia_spmm.cu
+
+#: the key of ``dia_spmm_t_cuda.calls``: what sets a launch's bytes
+DiaCall = collections.namedtuple("DiaCall", "n m dtype ndiag width")
 
 
 def dia_spmm_t_reference(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
@@ -138,13 +141,11 @@ def dia_spmm_t_cuda(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
     native.check(err, "dia_spmm_t_launch")
     dia_spmm_t_cuda.launches += 1
     dia_spmm_t_cuda.width = width
-    dia_spmm_t_cuda.taken[n, width] += 1
-    dia_spmm_t_cuda.by_dtype[Xt.dtype] += 1
+    dia_spmm_t_cuda.calls[DiaCall(n, m, Xt.dtype, ndiag, width)] += 1
     return Y
 
 
 dia_spmm_t_cuda.launches = 0
 dia_spmm_t_cuda.width = None  # of the last launch
-dia_spmm_t_cuda.taken = collections.Counter()  # launches by (n, width)
-dia_spmm_t_cuda.by_dtype = collections.Counter()  # launches by dtype
+dia_spmm_t_cuda.calls = collections.Counter()  # launches by DiaCall
 

@@ -13,8 +13,10 @@ Counterpart of ``dune_eigensolver_tpu/kernels/gather_spmm.py``:
   Pallas ``_blk_kernel`` (same launcher), for square b x b blocks with
   b in ``BSR_KERNEL_BLOCKS``.
 
-Each wrapper counts its launches in ``<wrapper>.launches`` (and by dtype
-in ``<wrapper>.by_dtype``);
+Each wrapper counts its launches in ``<wrapper>.launches`` and tallies
+them by shape in ``<wrapper>.calls``, a ``collections.Counter`` keyed by
+``EllCall(n, n_cols, k, m, dtype, index_bytes)`` or
+``BsrCall(n, nbr, k, block, m, dtype)``;
 ``sparse/spmm.py::spmm_t`` dispatches between plain version and kernel by
 device. The TPU side's windowed/segment planner (``WindowedELL``,
 ``WindowedBSR``, the COO tail, ``WindowedLayout``) is not ported: a CUDA
@@ -36,6 +38,11 @@ BSR_KERNEL_BLOCKS = (2, 4)  # the b the BSR kernel is instantiated for
 #: the value types the ELL and BSR kernels are instantiated for (the TPU
 #: gather kernels stream f32; the card adds f64)
 GATHER_KERNEL_DTYPES = (torch.float32, torch.float64)
+
+#: the keys of ``ell_spmm_t_cuda.calls`` and ``bsr_spmm_t_cuda.calls``: what
+#: sets a launch's bytes
+EllCall = collections.namedtuple("EllCall", "n n_cols k m dtype index_bytes")
+BsrCall = collections.namedtuple("BsrCall", "n nbr k block m dtype")
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -117,7 +124,8 @@ def ell_spmm_t_cuda(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
                 index_t.data_ptr(), index_t.element_size(), A.warp_slots.data_ptr(), n, A.k,
                 n_cols)
     ell_spmm_t_cuda.launches += 1
-    ell_spmm_t_cuda.by_dtype[Xt.dtype] += 1
+    ell_spmm_t_cuda.calls[EllCall(n, n_cols, A.k, Xt.shape[0], Xt.dtype,
+                                  index_t.element_size())] += 1
     return Y
 
 
@@ -142,11 +150,12 @@ def bsr_spmm_t_cuda(A: BSRMatrix, Xt: torch.Tensor) -> torch.Tensor:
                 bdata_t.data_ptr(), bcols_t.data_ptr(), A.nbr, A.bcols.shape[1],
                 A.shape[1])
     bsr_spmm_t_cuda.launches += 1
-    bsr_spmm_t_cuda.by_dtype[Xt.dtype] += 1
+    bsr_spmm_t_cuda.calls[BsrCall(A.shape[0], A.nbr, A.bcols.shape[1], br, Xt.shape[0],
+                                  Xt.dtype)] += 1
     return Y
 
 
 ell_spmm_t_cuda.launches = 0
 bsr_spmm_t_cuda.launches = 0
-ell_spmm_t_cuda.by_dtype = collections.Counter()
-bsr_spmm_t_cuda.by_dtype = collections.Counter()
+ell_spmm_t_cuda.calls = collections.Counter()  # launches by EllCall
+bsr_spmm_t_cuda.calls = collections.Counter()  # launches by BsrCall

@@ -15,6 +15,14 @@ The reference's ``lax.while_loop`` is a Python loop here that reads the
 stopping quantity to the host once per iteration. The stopping rule is
 the reference's: the largest relative change of the Ritz values, not a
 residual norm.
+
+While tracing is on (``utils/vlog.py``) the loop's phases are spans:
+``lobpcg.setup`` (the memoized set-up, on a miss), ``lobpcg.spmm`` (A' and
+B on X with the residual; A' on P with its normalisation; the last B on X
+that B-normalises the eigenvectors),
+``lobpcg.precond``, ``lobpcg.ortho`` (each blocked CholeskyQR),
+``lobpcg.rr`` (Gram, ``eigh`` and the rotations of X and P) and
+``lobpcg.stop`` (the host read of the stopping test alone).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from dune_eigensolver_tpu_torch.solvers.standard import (
 )
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
 from dune_eigensolver_tpu_torch.utils.paranoid import b_identity_check, reporting
+from dune_eigensolver_tpu_torch.utils.vlog import span
 
 
 def _identity_apply(X):
@@ -73,10 +82,11 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
         # Otherwise the block is clamped: the iteration-0 ortho sees the
         # (m, n) start block, the loop the (3m, n) search basis
         blk = S.shape[0] if ortho_block == "full" else min(ortho_block, S.shape[0])
-        S, _ = b_orthonormalize_blocked_t(
-            apply_a, S, block=blk, iterations=ortho_iters, eps=ortho_eps,
-            gram_reduce=gram_reduce,
-        )
+        with span("lobpcg.ortho"):
+            S, _ = b_orthonormalize_blocked_t(
+                apply_a, S, block=blk, iterations=ortho_iters, eps=ortho_eps,
+                gram_reduce=gram_reduce,
+            )
         return S
 
     def ritz(S, k):
@@ -90,21 +100,29 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
     def lam_of(nu):
         return 1.0 / torch.maximum(nu, tiny) - shift_
 
+    def unconverged(relerror):
+        going = relerror >= tol
+        with span("lobpcg.stop"):
+            return bool(going)
+
     # --- iteration 0: Rayleigh-Ritz on the start block alone ---
     X = a_ortho(Q0)
-    nu, V = ritz(X, m)
-    X = V.T @ X
+    with span("lobpcg.rr"):
+        nu, V = ritz(X, m)
+        X = V.T @ X
     lam = lam_of(nu)
     P = None  # no search direction before the first update
     it = 0
     relerror = torch.tensor(float("inf"), dtype=dtype, device=dev)
-    while it < maxiter and (it <= min_iter or bool(relerror >= tol)):
-        AX = apply_a(X)
-        BX = apply_b(X)
-        nu = reduce_(torch.sum(X * BX, dim=1))  # X is A'-orthonormal
-        R = BX - AX * nu[:, None]
-        del AX, BX
-        W = prec_fn(prec_aux, R)
+    while it < maxiter and (it <= min_iter or unconverged(relerror)):
+        with span("lobpcg.spmm"):
+            AX = apply_a(X)
+            BX = apply_b(X)
+            nu = reduce_(torch.sum(X * BX, dim=1))  # X is A'-orthonormal
+            R = BX - AX * nu[:, None]
+            del AX, BX
+        with span("lobpcg.precond"):
+            W = prec_fn(prec_aux, R)
         del R
         # Row-normalize the preconditioned residuals: per-pair convergence
         # differs by orders of magnitude, and the blocked CholeskyQR's Gram
@@ -116,16 +134,18 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
         S = torch.cat([X, W, W * 0.5 if P is None else P], dim=0)  # (3m, n)
         del W, P
         S = a_ortho(S)
-        nu_all, Vx = ritz(S, m)
-        X = Vx.T @ S
-        # LOBPCG direction: the Ritz rotation restricted to the [W, P] block
-        Vp = Vx.clone()
-        Vp[:m] = 0.0
-        P = Vp.T @ S
+        with span("lobpcg.rr"):
+            nu_all, Vx = ritz(S, m)
+            X = Vx.T @ S
+            # LOBPCG direction: the Ritz rotation restricted to the [W, P] block
+            Vp = Vx.clone()
+            Vp[:m] = 0.0
+            P = Vp.T @ S
         del S
         # A'-normalize P rows (guard against zero rows)
-        pn = reduce_(torch.sum(P * apply_a(P), dim=1))
-        P = P / torch.sqrt(torch.maximum(pn, tiny))[:, None]
+        with span("lobpcg.spmm"):
+            pn = reduce_(torch.sum(P * apply_a(P), dim=1))
+            P = P / torch.sqrt(torch.maximum(pn, tiny))[:, None]
         lam_n = lam_of(nu_all)
         relerror = torch.max(torch.abs(lam_n - lam)) / torch.maximum(
             torch.max(torch.abs(lam_n)), tiny
@@ -133,8 +153,9 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
         lam = lam_n
         it += 1
     # X rows are A'-orthonormal; rescale to B-normalized eigenvectors
-    bmass = reduce_(torch.sum(X * apply_b(X), dim=1))
-    X = X / torch.sqrt(torch.maximum(bmass, tiny))[:, None]
+    with span("lobpcg.spmm"):
+        bmass = reduce_(torch.sum(X * apply_b(X), dim=1))
+        X = X / torch.sqrt(torch.maximum(bmass, tiny))[:, None]
     evals, evecs_t = sort_result_t(lam, X, nev, descending=False)
     return EigenResult(
         eigenvalues=evals,
@@ -222,12 +243,13 @@ def lobpcg_generalized(
             precond = default_inverse_factory
 
         def _build():
-            A_sh = shifted_operand(A, B, shift, reg)
-            A_int, B_int = make_engine(A_sh, B)
-            if precond is False:
-                aux, fn = None, _identity_prec
-            else:
-                aux, fn = adapt_inverse(*normalize_inverse(precond(A_int)))
+            with span("lobpcg.setup"):
+                A_sh = shifted_operand(A, B, shift, reg)
+                A_int, B_int = make_engine(A_sh, B)
+                if precond is False:
+                    aux, fn = None, _identity_prec
+                else:
+                    aux, fn = adapt_inverse(*normalize_inverse(precond(A_int)))
             return A_int, B_int, aux, fn
 
         # setup memoized on operand identities: repeated solves on one pencil

@@ -25,6 +25,8 @@ import functools
 
 import torch
 
+from dune_eigensolver_tpu_torch.utils.vlog import span
+
 _PARANOID = False
 _DEPTH = 0  # entry points running; the outermost one reports
 # (kind, tag or tolerance, device) -> 0-d bool tensor on that device
@@ -115,7 +117,9 @@ def report() -> list:
 
 def reporting(fn):
     """Decorate a solver entry point: when the outermost decorated call
-    returns (or raises), ``report`` runs if paranoid mode is on. Off, the
+    returns (or raises), ``report`` runs if paranoid mode is on. The
+    outermost call is the ``solve`` span (``utils/vlog.py::span``, attr
+    ``entry`` the function's name) while tracing is on. Off, the
     wrapper costs a counter and nothing on the device."""
 
     @functools.wraps(fn)
@@ -123,6 +127,9 @@ def reporting(fn):
         global _DEPTH
         _DEPTH += 1
         try:
+            if _DEPTH == 1:
+                with span("solve", entry=fn.__name__):
+                    return fn(*args, **kwargs)
             return fn(*args, **kwargs)
         finally:
             _DEPTH -= 1

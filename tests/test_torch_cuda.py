@@ -7,6 +7,7 @@ no JAX, so on a machine without JAX it runs without the suite's conftest
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import collections
 import importlib
 
 import numpy as np
@@ -1617,11 +1618,18 @@ def test_dist_world1_nccl_solves_run_the_kernels(nccl_world1):
     mesh = tdist.make_mesh()
     assert (mesh.size, mesh.rank, mesh.device.type) == (1, 0, "cuda")
     sharded.COUNTS.clear()
-    before = dict(kd.dia_spmm_t_cuda.by_dtype)
+    def by_dtype():
+        out = collections.Counter()
+        for call, c in kd.dia_spmm_t_cuda.calls.items():
+            out[call.dtype] += c
+        return out
+
+    before = by_dtype()
     r = tdist.sharded_lobpcg_generalized(A, B, mesh=mesh, precond="mg",
                                          prec_dtype=torch.bfloat16, **kw)
+    after = by_dtype()
     for dt in (torch.float32, torch.bfloat16):
-        assert kd.dia_spmm_t_cuda.by_dtype[dt] > before.get(dt, 0)
+        assert after[dt] > before[dt]
     assert sharded.COUNTS["all_reduce"] > 0 and sharded.COUNTS["all_gather"] > int(r.iterations)
     r1 = lobpcg_generalized(A, B, precond=mg_inverse_factory(nu1=1, nu2=1, dtype=torch.bfloat16),
                             **kw)
@@ -1732,11 +1740,109 @@ def test_transposed_gather_products_run_their_kernels(cuda, kind):
         fn, wrapper, plain = bsr_spmm_t, kg.bsr_spmm_t_cuda, kg.bsr_spmm_t_reference
     X = torch.randn((8, A.shape[1]), generator=torch.Generator(device=cuda).manual_seed(1),
                     device=cuda)
-    before = wrapper.launches
+    before, calls = wrapper.launches, collections.Counter(wrapper.calls)
     Y = fn(A, X)
     assert wrapper.launches == before + 1
+    (key,) = wrapper.calls - calls  # one launch, tallied by its shape
+    assert (key.n, key.m, key.dtype, key.k) == (A.shape[0], 8, torch.float32, A.k if kind == "ell"
+                                                else A.bcols.shape[1])
     assert torch.equal(Y, spmm_t(A, X))
     field = "bdata" if kind == "bsr" else "data"
     absA = dataclasses.replace(A, **{field: getattr(A, field).abs()})
     bound = 1e-5 * plain(absA, X.abs()).max().item()
     assert (Y - plain(A, X)).abs().max().item() <= bound
+
+
+def _trace(prof, tmp_path):
+    import json
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())
+
+
+def test_spans_hold_every_k3_launch_on_the_trace_clock(cuda, tmp_path):
+    """The program's spans on the card (``utils/vlog.py``), in one solve of
+    the elasticity pencil with Jacobi-CG profiled with the card's activity
+    alone: every K3 operation's launch record (its correlation id) falls
+    inside a ``cg.apply``, ``lobpcg.spmm``, ``lobpcg.ortho`` or ``lobpcg.rr``
+    (B in the Gram) span on the trace's clock (``baseTimeNanoseconds`` +
+    ``ts`` * 1000), and the spans leave the bits. Then, with the host's
+    activity too, every span holds its own ``record_function`` range to 20
+    us. Prints a ``TRACECLOCK`` line of the margins, with each device
+    operation's start against its launch record: the card's clock against
+    the host's, whose offset the profiler sets anew in each process (-65 to
+    +9 us on an H100), so it is reported and not held to a bound."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
+    from dune_eigensolver_tpu_torch.solvers import lobpcg_generalized
+    from dune_eigensolver_tpu_torch.utils import vlog
+
+    A, B = problems.elasticity_2d(96, dtype=torch.float32, device=cuda)
+    kw = dict(nev=8, tol=2e-3, maxiter=300, shift=1e-3, seed=3,
+              precond=cg_inverse_factory(rtol=1e-2, maxiter=25))
+    off = lobpcg_generalized(A, B, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with vlog.tracing() as spans:
+            on = lobpcg_generalized(A, B, **kw)
+            on.eigenvalues.cpu()
+    assert torch.equal(off.eigenvalues, on.eigenvalues)
+    assert torch.equal(off.eigenvectors, on.eigenvectors)
+    trace = _trace(prof, tmp_path)
+    base = int(trace["baseTimeNanoseconds"])
+    events = trace["traceEvents"]
+    launches = {}  # correlation id -> the earliest launch record's start
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
+            t = base + round(float(e["ts"]) * 1000)
+            launches[corr] = min(t, launches.get(corr, t))
+    ops = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    linked = [(e, launches[e["args"]["correlation"]]) for e in ops
+              if e.get("args", {}).get("correlation") in launches]
+    lags = [base + round(float(e["ts"]) * 1000) - t for e, t in linked]
+    held = [(s.start_ns, s.end_ns) for s in spans
+            if s.name in ("cg.apply", "lobpcg.spmm", "lobpcg.ortho", "lobpcg.rr")]
+    k3_ops = [e for e in ops if "bsr_spmm_t_kernel" in e["name"]]
+    k3 = [(base + round(float(e["ts"]) * 1000), t) for e, t in linked
+          if "bsr_spmm_t_kernel" in e["name"]]
+    assert len(k3) == len(k3_ops) > 0  # every K3 operation has its launch record
+    k3 = [t for _, t in k3]
+    outside = [t for t in k3 if not any(a <= t <= b for a, b in held)]
+    assert not outside, f"{len(outside)} of {len(k3)} K3 launches outside the spans"
+    margin = [min(t - a for a, b in held if a <= t <= b) for t in k3]
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with vlog.tracing() as spans:
+            lobpcg_generalized(A, B, **kw).eigenvalues.cpu()
+    trace = _trace(prof, tmp_path)
+    base = int(trace["baseTimeNanoseconds"])
+    ranges = collections.defaultdict(list)
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+            r0 = base + round(float(e["ts"]) * 1000)
+            ranges[e["name"]].append((r0, r0 + round(float(e["dur"]) * 1000)))
+    mine = collections.defaultdict(list)
+    for s in spans:
+        mine[s.name].append((s.start_ns, s.end_ns))
+    opening, closing = [], []
+    for name, held in mine.items():
+        theirs = sorted(ranges[name])
+        assert len(theirs) == len(held), name
+        for (start, end), (r0, r1) in zip(held, theirs):
+            assert start - 20_000 <= r0 <= r1 <= end + 20_000, (name, r0 - start, end - r1)
+            opening.append(r0 - start)
+            closing.append(end - r1)
+    q = lambda v, f: sorted(v)[min(int(f * len(v)), len(v) - 1)] / 1e3  # noqa: E731
+    print("TRACECLOCK " + json.dumps(dict(
+        k3_launches=len(k3), device_ops=len(ops), linked=len(linked),
+        launch_to_start_us_min=min(lags) / 1e3, launch_to_start_us_median=q(lags, 0.5),
+        started_before_launch=sum(lag <= 0 for lag in lags),
+        k3_after_span_start_us_min=min(margin) / 1e3,
+        spans=len(opening), range_opening_us_median=q(opening, 0.5),
+        range_opening_us_max=q(opening, 1.0), range_closing_us_median=q(closing, 0.5),
+        range_closing_us_max=q(closing, 1.0))))
