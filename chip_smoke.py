@@ -70,13 +70,15 @@ Phases (any failure raises and exits non-zero; there is no fallback):
 7. geneo    — the GenEO elasticity pencil at full size: elasticity_2d(512)
               f32 (n = 522,242) through ``lobpcg_generalized`` with the
               cg25 Jacobi-CG preconditioner, twice, timing the second run;
-              converged, finite, BSR kernel launched, and the smallest 8
+              converged, finite, BSR kernel and the four CG step kernels
+              launched, and the smallest 8
               within 1e-2 (relative) of scipy/ARPACK shift-invert, which a
               worker process computes on the host from phase 3 on.
 8. flagship — ``generalized_inverse`` on elasticity_2d(96) at nev=124
               (the m=128 production GenEO block) with a CG inverse, twice,
               timing the second; within 5e-2 of the oracle; then nev=4 on
-              the same pencil within 1e-2.
+              the same pencil within 1e-2; the BSR kernel and the four CG
+              step kernels launched in both.
 9. graph    — the RCM-ordered 2^20-node unstructured graph Laplacian (ELL)
               through ``lobpcg_generalized`` with the cg25 preconditioner
               and an identity ELL mass, twice, timing the second; every
@@ -263,9 +265,22 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               relative; (b) ``generalized_inverse`` with ``gram_reduce``
               alone on the flagship pencil at nev 4 (K3): the plain call's
               bits; (c) ``cg_inverse_factory(apply_a=, gram_reduce=)`` on
-              the 2^20 graph (K2): the plain factory's bits.
+              the 2^20 graph (K2): the bits of the plain loop
+              (``factorize/cg.py::_cg_loop``) on the same operand, and
+              within ``HOOKS_CG_Y_TOL`` of the plain factory's result
+              (its CG takes the fused step, ``kernels/cg_step.py``, whose
+              dots are summed in another order).
+22. cg step — the CG step's four kernels (``csrc/cg_step.cu``) against
+              their plain versions on the card at the GenEO cell's shape,
+              (8, 522,242) f32 on elasticity_2d(512)'s A + 1e-3 B with the
+              Jacobi diagonal and AP from K3 (``CGSTEP`` lines): X, R and P
+              bit for bit, the dots (rz, the targets, alpha, beta) within
+              ``CG_STEP_DOT_TOL`` relative, the flag equal; then each
+              kernel's device time by CUDA-graph replay in turns with its
+              plain version's, and its time launched in a loop.
 
-Phases 15-21 run before phase 14, the kernel table, which comes last.
+Phase 22 runs between phases 6 and 7; phases 15-21 run before phase 14,
+the kernel table, which comes last.
 
 Each solve phase zeroes every kernel's launch counter just before its
 timed run and reads the counters just after; a phase whose kernel was not
@@ -275,7 +290,8 @@ change-based stopping tolerance (the reference's own flag).
 Output: progress lines, then one JSON line with the kernel table (each
 kernel's launches from the timed run of its own path: DIA phase 4, BSR
 phase 7, ELL phase 9, the probe and variant kernels phase 12, the ablation
-and gather-probe kernels phase 16; the K1, K2 and K3 rows that the
+and gather-probe kernels phase 16, the CG step kernels phase 7, with
+``flagship_launches``, phase 8's nev=124 run's, beside; the K1, K2 and K3 rows that the
 direct engines drive add ``direct_launches``, those of phase 18's runs;
 three f64 rows (K1 at 3D N=216 m=24, K2 on the graph, K3 on
 elasticity_2d(512), m=8) carry the f64 launches of phase 19; the f32 K1
@@ -288,6 +304,9 @@ one index per scalar (ELL: 2 bytes where K2 reads int16 offsets, else 4)
 or per block (BSR, 4 bytes), X and Y once; row 0 of the
 copy probe's ``d``, whose other rows the kernel streams by design;
 ``copy_bound_ms`` is the same bytes over the measured ``copy_gbps``; the
+four CG step rows' ``ms`` is their device time by replay (phase 22), with
+``eager_ms``, the plain version's device time by replay as ``plain_ms``
+and the dots' largest relative difference (``dot_relerr``) beside; the
 DIA row and the two BSR rows, at elasticity_2d(512) m=8 and at the
 flagship's elasticity_2d(96) m=128, carry ``device_ms`` beside ``ms``;
 so do the four ELL rows: the 2^20 graph at m=8 (the graph solve's
@@ -778,6 +797,105 @@ def geneo_oracle(Nel=512):
     return ref, time.perf_counter() - t0
 
 
+#: the CG step's kernels (``kernels/cg_step.py``: ``<name>_cuda``)
+CG_STEP_KERNELS = ("cg_setup", "cg_pap", "cg_update", "cg_direction")
+#: phase 22: a dot's largest difference from the plain version's over its
+#: largest value (``tests/test_torch_cg_fused.py``'s f32 ``DOT_TOL``): the
+#: kernels sum in another order
+CG_STEP_DOT_TOL = 1e-5
+
+
+def phase_cg_step(torch, A, B):
+    """Phase 22: the CG step's kernels against their plain versions at the
+    GenEO cell's shape: (8, n) f32 right-hand sides (seeded) on
+    ``elasticity_2d(512)``'s A + 1e-3 B, the Jacobi diagonal, rtol 1e-2 (the
+    cell's cg25), AP by K3. Setup, pap, update and direction in turn, each
+    pair fed the same tensors and, from pap on, the same step lengths: X, R
+    and P must equal bit for bit, the dots (rz, the targets, alpha, beta,
+    the new rz) lie within ``CG_STEP_DOT_TOL`` of the plain version's, and
+    the flags equal. Then each kernel's device time by CUDA-graph replay in
+    turns with its plain version's, and its time launched in a loop. Returns
+    {name: record} for the kernel table."""
+    from dune_eigensolver_tpu_torch.bench.timing import in_turns
+    from dune_eigensolver_tpu_torch.kernels import cg_step as cs
+    from dune_eigensolver_tpu_torch.sparse import spmm_t
+
+    t0 = time.perf_counter()
+    Ash = A.axpy(1e-3, B)
+    n, m, rtol = Ash.shape[0], 8, 1e-2
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    Bm = torch.randn((m, n), generator=gen, device="cuda")
+    d = 1.0 / Ash.diagonal()
+    dots = {}
+
+    def dot(what, st, sr, row):
+        got, ref = st.vec[row], sr.vec[row]
+        dots[what] = rel = float(((got - ref).abs().max() / ref.abs().max()).item())
+        if not rel <= CG_STEP_DOT_TOL:
+            raise RuntimeError(f"cg step {what}: relative {rel:.3e} > {CG_STEP_DOT_TOL:.0e}")
+
+    def same(what, got, ref):
+        if not torch.equal(got, ref):
+            err = (got - ref).abs().max().item()
+            raise RuntimeError(f"cg step {what}: the kernel's bits differ from the plain "
+                               f"version's (max abs {err:.3e})")
+
+    def flags(what, st, sr):
+        if st.going() != sr.going():
+            raise RuntimeError(f"cg step {what}: flag {st.going()} against {sr.going()}")
+
+    X, R, P, st = cs.cg_setup_cuda(Bm, d, rtol)
+    Xr, Rr, Pr, sr = cs.cg_setup_reference(Bm, d, rtol)
+    for what, got, ref in (("setup X", X, Xr), ("setup R", R, Rr), ("setup P", P, Pr)):
+        same(what, got, ref)
+    dot("setup rz", st, sr, cs.RZ)
+    dot("setup target", st, sr, cs.TARGET)
+    flags("setup", st, sr)
+    AP = spmm_t(Ash, P)
+    cs.cg_pap_cuda(P, AP, st)
+    cs.cg_pap_reference(Pr, AP, sr)
+    dot("pap alpha", st, sr, cs.ALPHA)
+    sr.vec.copy_(st.vec)  # the same step lengths on both sides from here
+    cs.cg_update_cuda(X, R, P, AP, d, st)
+    cs.cg_update_reference(Xr, Rr, Pr, AP, d, sr)
+    same("update X", X, Xr)
+    same("update R", R, Rr)
+    dot("update beta", st, sr, cs.BETA)
+    dot("update rz", st, sr, cs.RZ)
+    flags("update", st, sr)
+    sr.vec.copy_(st.vec)
+    cs.cg_direction_cuda(R, P, d, st)
+    cs.cg_direction_reference(Rr, Pr, d, sr)
+    same("direction P", P, Pr)
+
+    # least bytes: each (m, n) array read or written once, d once; flops:
+    # setup P = B d and three dots, update two axpys, Z and two dots
+    mn, ds = m * n * 4, n * 4
+    cases = {
+        "cg_setup": (4 * mn + ds, 7 * m * n, lambda: cs.cg_setup_cuda(Bm, d, rtol),
+                     lambda: cs.cg_setup_reference(Bm, d, rtol)),
+        "cg_pap": (2 * mn, 2 * m * n, lambda: cs.cg_pap_cuda(P, AP, st),
+                   lambda: cs.cg_pap_reference(Pr, AP, sr)),
+        "cg_update": (6 * mn + ds, 9 * m * n, lambda: cs.cg_update_cuda(X, R, P, AP, d, st),
+                      lambda: cs.cg_update_reference(Xr, Rr, Pr, AP, d, sr)),
+        "cg_direction": (3 * mn + ds, 3 * m * n, lambda: cs.cg_direction_cuda(R, P, d, st),
+                         lambda: cs.cg_direction_reference(Rr, Pr, d, sr)),
+    }
+    out = {}
+    for name, (nbytes, flops, kernel, plain) in cases.items():
+        ms, plain_ms = in_turns([kernel, plain], replay_ms)
+        out[name] = rec = dict(
+            case=f"({m}, {n}) f32, elasticity_2d(512) A + 1e-3 B, Jacobi, AP by K3",
+            dtype="float32", max_abs_err=0.0, ms=ms, eager_ms=median_ms(kernel),
+            plain_ms=plain_ms, nbytes=nbytes, flops=flops,
+            dot_relerr={k: v for k, v in dots.items() if k.startswith(name[3:])})
+        log("CGSTEP " + json.dumps(dict(kernel=name, **rec)))
+    log("CGSTEP " + json.dumps(dict(seconds=time.perf_counter() - t0, dot_relerr=dots)))
+    del Ash, Bm, d, X, R, P, AP, Xr, Rr, Pr
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_geneo(torch, kernels, A, B, oracle):
     """Phase 7: bench.py's fast-path recipe on the 522k elasticity pencil,
     against scipy/ARPACK shift-invert on the host (``oracle``: the future of
@@ -794,8 +912,9 @@ def phase_geneo(torch, kernels, A, B, oracle):
 
     res, rec = timed_twice(torch, run, kernels)
     ev = check_solve(torch, "geneo", res, A.shape[0], 8)
-    if rec["launches"]["bsr_spmm_t"] <= 0:
-        raise RuntimeError("geneo: the solve launched the BSR kernel no time")
+    idle = [k for k in ("bsr_spmm_t", *CG_STEP_KERNELS) if rec["launches"][k] <= 0]
+    if idle:
+        raise RuntimeError(f"geneo: the solve launched these kernels no time: {idle}")
     del res
     t0 = time.perf_counter()
     ref, oracle_seconds = oracle.result()
@@ -825,8 +944,10 @@ def phase_flagship(torch, kernels, A, B):
 
         res, rec = timed_twice(torch, run, kernels)
         ev = check_solve(torch, f"flagship nev={nev}", res, A.shape[0], nev)
-        if rec["launches"]["bsr_spmm_t"] <= 0:
-            raise RuntimeError(f"flagship nev={nev}: the solve launched the BSR kernel no time")
+        idle = [k for k in ("bsr_spmm_t", *CG_STEP_KERNELS) if rec["launches"][k] <= 0]
+        if idle:
+            raise RuntimeError(f"flagship nev={nev}: the solve launched these kernels no "
+                               f"time: {idle}")
         del res
         t0 = time.perf_counter()
         ref, _ = smallest_generalized(A, B, nev=nev, sigma=-1e-3)
@@ -1181,7 +1302,9 @@ def phase_measure(torch, kernels, pp, kv):
     bad = {k: v for k, v in results.items() if not all(np.isfinite(x) and x > 0 for x in v)}
     if bad:
         raise RuntimeError(f"cli: non-finite or non-positive results {bad}")
-    idle = [name for name, count in launches.items() if count <= 0]
+    # the CG step's kernels run on the solve paths (phases 7 and 8), not here
+    idle = [name for name, count in launches.items()
+            if count <= 0 and name not in CG_STEP_KERNELS]
     if idle:
         raise RuntimeError(f"cli: kernels launched no time on the measurement path: {idle}")
     log("CLI " + json.dumps(dict(seconds=seconds, launches=launches, results=results)))
@@ -2765,6 +2888,13 @@ def phase_dist(torch, kernels, problems, DIAMatrix, refs):
     return out, launches
 
 
+#: phase 21 (c): the hooked CG inverse (the plain loop) against the plain
+#: factory's (the fused step), f32 cg25, relative to Y's largest value: the
+#: dots' summation order alone differs (tests/test_torch_cg_fused.py's X_TOL);
+#: against the plain loop itself the bits must be equal
+HOOKS_CG_Y_TOL = 1e-5
+
+
 def phase_hooks(torch, kernels, problems, DIAMatrix, mg_inverse_factory, A96, B96, graph):
     """Phase 21: the JAX package's public hook keywords at full width
     (``HOOKS`` lines), each call beside the same call without hooks.
@@ -2781,10 +2911,15 @@ def phase_hooks(torch, kernels, problems, DIAMatrix, mg_inverse_factory, A96, B9
     the north star's 1e-5 of the closed form. (b) ``generalized_inverse`` on
     the flagship pencil ``elasticity_2d(96)`` at nev 4 (phase 8's call, K3
     in the inner CG) with ``gram_reduce`` alone and q0 transposed: the
-    plain call's iterations and bits. (c) ``cg_inverse_factory(apply_a=,
+    plain call's iterations and bits (the inner CG takes no ``gram_reduce``,
+    so both run the fused step). (c) ``cg_inverse_factory(apply_a=,
     gram_reduce=)`` (K2 through ``spmm_t``) on the 2^20 graph, cg25 (rtol
-    1e-2, 25 steps), against the factory without hooks: the same bits. No
-    product of the phase may take a plain version."""
+    1e-2, 25 steps): the bits of the plain loop ``_cg_loop`` on the same
+    operand and block, which the hooked call runs with ``gram_reduce``; and
+    within ``HOOKS_CG_Y_TOL`` of the largest value of the factory without
+    hooks, whose CG takes the fused step (``cg_solve_t.fused`` counts it)
+    and sums its dots in another order. No product of the phase may take a
+    plain version."""
     from dune_eigensolver_tpu_torch import (
         cg_inverse_factory,
         ell_from_scipy,
@@ -2792,6 +2927,7 @@ def phase_hooks(torch, kernels, problems, DIAMatrix, mg_inverse_factory, A96, B9
         lobpcg_generalized,
         spmm_t,
     )
+    from dune_eigensolver_tpu_torch.factorize.cg import _cg_loop, cg_solve_t
     from dune_eigensolver_tpu_torch.oracle.analytic import eigenvalues_laplace_dirichlet_3d
 
     t_phase = time.perf_counter()
@@ -2877,18 +3013,27 @@ def phase_hooks(torch, kernels, problems, DIAMatrix, mg_inverse_factory, A96, B9
         solve = cg_inverse_factory(rtol=1e-2, maxiter=25, apply_a=lambda V: spmm_t(Ag, V),
                                    gram_reduce=identity)(Ag)
         Y = {}
-        for name, run in (("plain", lambda: fn(aux, Xt)), ("hooks", lambda: solve(Xt))):
+        for name, run in (("plain", lambda: fn(aux, Xt)), ("hooks", lambda: solve(Xt)),
+                          ("loop", lambda: _cg_loop(lambda V: spmm_t(Ag, V), Xt, aux[1], 1e-2,
+                                                    25, None, None, None)[0])):
             torch.cuda.synchronize()
             set_counts(kernels)
+            fused = cg_solve_t.fused
             t0 = time.perf_counter()
             Y[name] = run()
             torch.cuda.synchronize()
             out[f"cg_{name}"] = rec = dict(seconds=time.perf_counter() - t0,
-                                          launches=read_counts(kernels))
+                                          launches=read_counts(kernels),
+                                          cg_fused=cg_solve_t.fused - fused)
             log(f"HOOKS cg graph n=2^20 m=8 {name} " + json.dumps(rec))
-        if not (torch.equal(Y["plain"], Y["hooks"]) and torch.isfinite(Y["hooks"]).all()
-                and out["cg_hooks"]["launches"]["ell_spmm_t"] > 0):
-            raise RuntimeError(f"hooks cg: the hooked solve differs or launched no K2 {out}")
+        same = bool(torch.equal(Y["hooks"], Y["loop"]))
+        rel = float(((Y["hooks"] - Y["plain"]).abs().max() / Y["plain"].abs().max()).item())
+        log("HOOKS cg " + json.dumps(dict(loop_equal_bits=same, fused_relative_difference=rel)))
+        if not (same and rel <= HOOKS_CG_Y_TOL and torch.isfinite(Y["hooks"]).all()
+                and out["cg_hooks"]["launches"]["ell_spmm_t"] > 0
+                and out["cg_plain"]["cg_fused"] == 1 and out["cg_hooks"]["cg_fused"] == 0):
+            raise RuntimeError(f"hooks cg: loop bits equal {same}, fused relative {rel:.3e}, "
+                               f"or no K2 or no fused step {out}")
         del Ag, Xt, aux, fn, solve, Y
     out["seconds"] = time.perf_counter() - t_phase
     log("HOOKS " + json.dumps(dict(seconds=out["seconds"],
@@ -2914,6 +3059,7 @@ def main():
     import dune_eigensolver_tpu_torch  # noqa: F401  (sets TF32 off)
     from dune_eigensolver_tpu_torch import cli
     from dune_eigensolver_tpu_torch.factorize import mg_inverse_factory
+    from dune_eigensolver_tpu_torch.kernels import cg_step as cs
     from dune_eigensolver_tpu_torch.kernels import dia_spmm as kd
     from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
     from dune_eigensolver_tpu_torch.oracle.analytic import eigenvalues_laplace_dirichlet_3d
@@ -2931,7 +3077,8 @@ def main():
                "ident": pp.ident,
                "identd": pp.identd,
                "ident_alias": pp.ident_alias, "ident_first": pp.ident_first,
-               "ident_alias_first": pp.ident_alias_first}
+               "ident_alias_first": pp.ident_alias_first,
+               **{name: getattr(cs, name + "_cuda") for name in CG_STEP_KERNELS}}
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -3098,6 +3245,10 @@ def main():
     torch.cuda.empty_cache()
 
     phase_done("phase 6")
+    # --- phase 22: the CG step's kernels against their plain versions ---
+    cg_rows = phase_cg_step(torch, A512, B512)
+
+    phase_done("phase 22")
     # --- phases 7-9: the general-sparsity path ---
     geneo = phase_geneo(torch, kernels, A512, B512, geneo_ref)
     oracle_pool.shutdown()
@@ -3283,6 +3434,16 @@ def main():
                      gathered["bsr elasticity N=512 m=8 f64"], 4,
                      device_ms=gathered["bsr elasticity N=512 m=8 f64"]["device_ms"]),
     ]
+    # the CG step: launches from the GenEO solve (the cell's path), the
+    # flagship's nev=124 run beside
+    for name in CG_STEP_KERNELS:
+        rec = cg_rows[name]
+        table.append(entry(name, csrc + "cg_step.cu",
+                           "none: dune_eigensolver_tpu/factorize/cg.py's loop is XLA operations",
+                           geneo["launches"][name], rec, rec["nbytes"], rec["flops"], None,
+                           device_ms=rec["ms"], eager_ms=rec["eager_ms"],
+                           dot_relerr=rec["dot_relerr"],
+                           flagship_launches=flagship[0]["launches"][name]))
     n2, m2 = 2048**2, 8
     v_bytes = (5 * n2 + 2 * n2 * m2) * 4  # bytes_spmm_dia
     v_flops = 2.0 * (5 * n2 - 2 * 2048 - 2) * m2

@@ -14,7 +14,17 @@ skipped and no converged row is frozen, so the iterates are the
 reference's. That is one host sync per CG iteration. While tracing is on
 (``utils/vlog.py``) each solve is a ``cg.apply`` span and each read of the
 condition a ``cg.stop`` span; ``cg_solve_t.calls`` and ``cg_solve_t.steps``
-count the solves and their iterations, always.
+count the solves and their iterations, always, and ``cg_solve_t.fused`` the
+solves that took the fused path.
+
+The fused path (``_cg_fused``): for a CUDA iterate of f32 or f64 with the
+Jacobi or no preconditioner, no ``gram_reduce`` and no ``x0``, the step's
+vector algebra runs in the hand-written kernels of ``kernels/cg_step.py``,
+with the step lengths and the stop flag kept on the card: a step is the
+operator's SpMM, three kernels and the read of one flag. The arithmetic is
+``_cg_loop``'s; only the summation order of the dots differs. Everything else
+(the CPU, the distributed layer's hooks, a multigrid or Chebyshev
+``precond_apply``, a bf16 inner solve) runs ``_cg_loop``.
 
 ``gram_reduce`` (JAX ``factorize/cg.py:40``): for a row-sharded
 multivector every row dot goes through it (an ``all_reduce`` SUM in the
@@ -31,6 +41,7 @@ from typing import Callable, Optional
 
 import torch
 
+from dune_eigensolver_tpu_torch.kernels import cg_step
 from dune_eigensolver_tpu_torch.sparse.formats import BSRMatrix, DIAMatrix, ELLMatrix
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
 from dune_eigensolver_tpu_torch.utils.vlog import span
@@ -55,18 +66,50 @@ def cg_solve_t(
     Jacobi preconditioning. precond_apply: R -> M^-1 R, a fixed SPD
     preconditioner application; overrides the Jacobi default.
     gram_reduce: the reduction of every row dot for a sharded B.
-    Returns (X, iterations), and adds 1 to ``cg_solve_t.calls`` and the
-    iterations to ``cg_solve_t.steps``.
+    Returns (X, iterations), and adds 1 to ``cg_solve_t.calls`` (and to
+    ``cg_solve_t.fused`` on the fused path) and the iterations to
+    ``cg_solve_t.steps``.
     """
+    fused = (precond_apply is None and gram_reduce is None and x0 is None
+             and cg_step.takes(B, inv_diag))
     with span("cg.apply"):
-        X, k = _cg_loop(apply_a, B, inv_diag, rtol, maxiter, x0, precond_apply, gram_reduce)
+        if fused:
+            X, k = _cg_fused(apply_a, B, inv_diag, rtol, maxiter)
+        else:
+            X, k = _cg_loop(apply_a, B, inv_diag, rtol, maxiter, x0, precond_apply,
+                            gram_reduce)
     cg_solve_t.calls += 1
+    cg_solve_t.fused += fused
     cg_solve_t.steps += k
     return X, k
 
 
 cg_solve_t.calls = 0
+cg_solve_t.fused = 0
 cg_solve_t.steps = 0
+
+
+def _cg_fused(apply_a, B, inv_diag, rtol, maxiter):
+    """``_cg_loop`` with the Jacobi or no preconditioner and no hooks, its
+    vector algebra in the kernels of ``kernels/cg_step.py``. The same
+    condition is read at the same place. The direction of a step is made at
+    its start, so the last step's, which nothing reads, is never made."""
+    d = None if inv_diag is None else inv_diag.contiguous()
+    X, R, P, st = cg_step.cg_setup_cuda(B, d, rtol)
+
+    def unconverged():
+        with span("cg.stop"):
+            return st.going()
+
+    k = 0
+    while k < maxiter and unconverged():
+        if k:
+            cg_step.cg_direction_cuda(R, P, d, st)
+        AP = apply_a(P)
+        cg_step.cg_pap_cuda(P, AP, st)
+        cg_step.cg_update_cuda(X, R, P, AP, d, st)
+        k += 1
+    return X, k
 
 
 def _cg_loop(apply_a, B, inv_diag, rtol, maxiter, x0, precond_apply, gram_reduce):

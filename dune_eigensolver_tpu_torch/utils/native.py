@@ -197,6 +197,22 @@ def load() -> ctypes.CDLL:
     lib.gather_axis0_launch.argtypes = [i32, vp, vp, vp, i32, i64, vp]
     lib.int8_widen_launch.restype = i32
     lib.int8_widen_launch.argtypes = [vp, vp, vp, i64, vp]
+    # the CG step: (value_bytes, b, b_sr, b_sc, d, x, r, p, state, part, ctl, n, m, rtol,
+    # stream), (value_bytes, p, ap, ap_sr, ap_sc, state, part, ctl, n, m, stream),
+    # (value_bytes, x, r, p, ap, ap_sr, ap_sc, d, state, part, ctl, n, m, stream),
+    # (value_bytes, r, p, d, state, n, m, stream); the partial sums' room a row
+    f64 = ctypes.c_double
+    lib.cg_setup_launch.restype = i32
+    lib.cg_setup_launch.argtypes = [i32, vp, i64, i64, vp, vp, vp, vp, vp, vp, vp, i64, i32, f64,
+                                    vp]
+    lib.cg_pap_launch.restype = i32
+    lib.cg_pap_launch.argtypes = [i32, vp, vp, i64, i64, vp, vp, vp, i64, i32, vp]
+    lib.cg_update_launch.restype = i32
+    lib.cg_update_launch.argtypes = [i32, vp, vp, vp, vp, i64, i64, vp, vp, vp, vp, i64, i32, vp]
+    lib.cg_direction_launch.restype = i32
+    lib.cg_direction_launch.argtypes = [i32, vp, vp, vp, vp, i64, i32, vp]
+    lib.cg_max_blocks.restype = i32
+    lib.cg_max_blocks.argtypes = []
     lib.dune_cuda_error_string.restype = ctypes.c_char_p
     lib.dune_cuda_error_string.argtypes = [i32]
     _LIB = lib
