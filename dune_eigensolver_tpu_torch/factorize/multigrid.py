@@ -19,6 +19,11 @@ preconditioner of a CG that converges in an n-independent number of steps
   ``dtype=torch.bfloat16`` it streams bf16 (the kernel accumulates in f32).
 * Smoother: damped Jacobi, symmetric pre/post; coarsest level:
   fixed-iteration CG in f32.
+
+While tracing is on (``utils/vlog.py``) each V-cycle apply is an
+``mg.apply`` span holding ``mg.smooth`` spans (the fine level's smoothing
+and residual: its ``spmm_t`` calls) and an ``mg.coarse`` span (restriction,
+the levels below the fine one with the coarsest CG, and prolongation).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from dune_eigensolver_tpu_torch.factorize.cg import _cast_floating, _inv_diag_of, cg_solve_t
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
+from dune_eigensolver_tpu_torch.utils.vlog import span
 
 
 def detect_grid_dims(offsets, n: int) -> Optional[Tuple[int, ...]]:
@@ -235,33 +241,38 @@ def _mg_solve_fn(geom, levels, cycles, nu1, nu2, omega, coarse_iters, dtype):
     dims, n = geom
 
     def solve(aux, Xt):
-        A_, inv_d = aux
-        out_dt = Xt.dtype
-        _, a_fine, sigma = _sampled_coeffs(A_, dims)
-        if dtype is not None:
-            A_, inv_d, Xt = (
-                _cast_floating(A_, dtype),
-                inv_d.to(dtype),
-                Xt.to(dtype),
-            )
-        m = Xt.shape[0]
-        omega_t = torch.tensor(omega, dtype=Xt.dtype, device=Xt.device)
-        wdiag = (omega_t * inv_d)[None, :]
-        b = Xt
-        x = wdiag * b  # first Jacobi sweep from x = 0
-        for cyc in range(cycles):
-            for _ in range(nu1 - 1 if cyc == 0 else nu1):
-                x = x + wdiag * (b - spmm_t(A_, x))
-            if len(levels) > 1:
-                r = b - spmm_t(A_, x)
-                e = _vcycle_coarse(
-                    levels, 1, _restrict(r.reshape((m,) + dims)), a_fine,
-                    sigma, nu1, nu2, omega, coarse_iters,
+        with span("mg.apply"):
+            A_, inv_d = aux
+            out_dt = Xt.dtype
+            _, a_fine, sigma = _sampled_coeffs(A_, dims)
+            if dtype is not None:
+                A_, inv_d, Xt = (
+                    _cast_floating(A_, dtype),
+                    inv_d.to(dtype),
+                    Xt.to(dtype),
                 )
-                x = x + _prolong(e, dims).reshape(m, n)
-            for _ in range(nu2):
-                x = x + wdiag * (b - spmm_t(A_, x))
-        return x.to(out_dt)
+            m = Xt.shape[0]
+            omega_t = torch.tensor(omega, dtype=Xt.dtype, device=Xt.device)
+            wdiag = (omega_t * inv_d)[None, :]
+            b = Xt
+            x = wdiag * b  # first Jacobi sweep from x = 0
+            for cyc in range(cycles):
+                with span("mg.smooth"):
+                    for _ in range(nu1 - 1 if cyc == 0 else nu1):
+                        x = x + wdiag * (b - spmm_t(A_, x))
+                    if len(levels) > 1:
+                        r = b - spmm_t(A_, x)
+                if len(levels) > 1:
+                    with span("mg.coarse"):
+                        e = _vcycle_coarse(
+                            levels, 1, _restrict(r.reshape((m,) + dims)), a_fine,
+                            sigma, nu1, nu2, omega, coarse_iters,
+                        )
+                        x = x + _prolong(e, dims).reshape(m, n)
+                with span("mg.smooth"):
+                    for _ in range(nu2):
+                        x = x + wdiag * (b - spmm_t(A_, x))
+            return x.to(out_dt)
 
     solve.layout_t = True
     return solve

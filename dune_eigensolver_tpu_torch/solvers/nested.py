@@ -14,10 +14,20 @@ operator is assembled on the device with the same coefficients and
 Dirichlet masking.
 
 Scope: standard-problem embeddings (``b_identity=True``).
+
+While tracing is on (``utils/vlog.py``) each coarse level's solve and the
+prolongation of its block to the next level is a ``nested.coarse`` span
+(attr ``N``: the level's extent along the fastest axis). Always,
+``lobpcg_nested.calls`` counts the nested solves and
+``lobpcg_nested.iterations``, a ``collections.Counter`` keyed by a level's
+depth below the fine grid (0 the fine grid itself), adds up each level's
+LOBPCG iterations (host integers: ``EigenResult.iterations`` is a CPU
+tensor).
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional, Tuple
 
@@ -35,6 +45,7 @@ from dune_eigensolver_tpu_torch.solvers.result import EigenResult
 from dune_eigensolver_tpu_torch.solvers.standard import padded_width
 from dune_eigensolver_tpu_torch.sparse.formats import DIAMatrix
 from dune_eigensolver_tpu_torch.utils.paranoid import reporting
+from dune_eigensolver_tpu_torch.utils.vlog import span
 
 
 def prolong_vectors(Y: torch.Tensor, coarse_dims: Tuple[int, ...],
@@ -153,8 +164,7 @@ def lobpcg_nested(
         build_hierarchy,
     )
 
-    q0 = None
-    for lvl, dims_l in enumerate(levels):
+    def solve_level(lvl, q0):
         last = lvl == len(levels) - 1
         Al, Bl = (A, B) if last else coarse[lvl]
         res = lobpcg_generalized(
@@ -168,6 +178,18 @@ def lobpcg_nested(
             q0=q0,
             **lobpcg_kwargs,
         )
-        if not last:
+        lobpcg_nested.iterations[len(levels) - 1 - lvl] += int(res.iterations)
+        return res
+
+    q0 = None
+    for lvl, dims_l in enumerate(levels[:-1]):
+        with span("nested.coarse", N=dims_l[-1]):
+            res = solve_level(lvl, q0)
             q0 = prolong_vectors(res.eigenvectors, dims_l, levels[lvl + 1])
+    res = solve_level(len(levels) - 1, q0)
+    lobpcg_nested.calls += 1
     return res
+
+
+lobpcg_nested.calls = 0
+lobpcg_nested.iterations = collections.Counter()  # LOBPCG iterations by depth below the fine grid
