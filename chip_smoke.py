@@ -279,8 +279,16 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               kernel's device time by CUDA-graph replay in turns with its
               plain version's, and its time launched in a loop.
 
-Phase 22 runs between phases 6 and 7; phases 15-21 run before phase 14,
-the kernel table, which comes last.
+23. mg tail — the multigrid V-cycle's coarse tail as one kernel
+              (``csrc/mg_tail.cu``) against the eager tail at the north
+              star's entries (``bench/mg_tail.py``: m = 24 bf16 rows at 27^3
+              under the 54^3, 108^3 and 216^3 V-cycles), each within
+              ``MG_TAIL_TOL``; the kernel's device time by CUDA-graph replay
+              and in place, with no CG step, and the eager tail's device
+              time, wall time and device operations (``MGTAIL`` lines).
+
+Phases 22 and 23 run between phases 6 and 7; phases 15-21 run before phase
+14, the kernel table, which comes last.
 
 Each solve phase zeroes every kernel's launch counter just before its
 timed run and reads the counters just after; a phase whose kernel was not
@@ -896,6 +904,30 @@ def phase_cg_step(torch, A, B):
     return out
 
 
+#: phase 23: the tail's largest difference from the eager tail's over its
+#: largest value (``tests/test_torch_mg_tail.py``'s bf16 ``TAIL_TOL``: the
+#: coarsest CG sums its dots in another order, and a bf16 level may round
+#: its result one ulp apart)
+MG_TAIL_TOL = 2.0**-6
+
+
+def phase_mg_tail(torch):
+    """Phase 23: ``bench/mg_tail.py``'s records at the north star's three
+    entries, each held to ``MG_TAIL_TOL``. Returns them for the kernel
+    table."""
+    from dune_eigensolver_tpu_torch.bench import mg_tail as bm
+
+    t0 = time.perf_counter()
+    recs = bm.measure(24)
+    for rec in recs:
+        log("MGTAIL " + json.dumps(rec))
+        if not rec["relmax"] <= MG_TAIL_TOL:
+            raise RuntimeError(f"mg tail at {rec['vcycle']}: {rec['relmax']:.3e} of the eager "
+                               f"tail's largest value > {MG_TAIL_TOL:.3e}")
+    log(f"mg tail: {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def phase_geneo(torch, kernels, A, B, oracle):
     """Phase 7: bench.py's fast-path recipe on the 522k elasticity pencil,
     against scipy/ARPACK shift-invert on the host (``oracle``: the future of
@@ -1302,9 +1334,10 @@ def phase_measure(torch, kernels, pp, kv):
     bad = {k: v for k, v in results.items() if not all(np.isfinite(x) and x > 0 for x in v)}
     if bad:
         raise RuntimeError(f"cli: non-finite or non-positive results {bad}")
-    # the CG step's kernels run on the solve paths (phases 7 and 8), not here
+    # the CG step's kernels run on the solve paths (phases 7 and 8), the
+    # multigrid tail on the north star's (phase 4), not here
     idle = [name for name, count in launches.items()
-            if count <= 0 and name not in CG_STEP_KERNELS]
+            if count <= 0 and name not in (*CG_STEP_KERNELS, "mg_tail")]
     if idle:
         raise RuntimeError(f"cli: kernels launched no time on the measurement path: {idle}")
     log("CLI " + json.dumps(dict(seconds=seconds, launches=launches, results=results)))
@@ -2446,9 +2479,10 @@ def extras_cli(torch, kernels, cli):
 def extras_ortho_full(torch, kernels, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory):
     """Phase 19 (f): ``ortho_block='full'`` in the north-star recipe: at N=24
     finite and within the N=24 gate (3e-4), whether or not its change-based
-    stop fires within maxiter (with 'full' the reference itself needs 163
-    iterations at N=24 on the CPU, against 9 with ortho_block=24); one
-    108^3 solve recorded, not gated (the
+    stop fires within maxiter (the port accumulates and whitens the
+    whole-basis Gram in f64 and converges in about as many iterations as
+    with ortho_block=24; the reference's f32 Gram needs 163 at N=24 on the
+    CPU); one 108^3 solve recorded, not gated (the
     reference keeps 'full' outside its validated envelope): finite or not,
     max_err, iterations, seconds, and the time inside the
     orthonormalization, by CUDA events around each call (a profiler would
@@ -2466,7 +2500,7 @@ def extras_ortho_full(torch, kernels, problems, DIAMatrix, lobpcg_nested, mg_inv
                n24_converged=bool(res.converged), n24_criterion=float(res.criterion))
     if not (np.isfinite(ev24).all() and err24 <= 3e-4):
         raise RuntimeError(f"ortho full N=24: {n24} (gate 3e-4)")
-    N = 108  # the solve runs to maxiter: 50-74 s at 216^3 for the same reading
+    N = 108
     run = north_star(torch, N, problems, DIAMatrix, lobpcg_nested, mg_inverse_factory,
                      ortho_block="full")
     orig, ranges = lob.b_orthonormalize_blocked_t, []
@@ -3062,6 +3096,7 @@ def main():
     from dune_eigensolver_tpu_torch.kernels import cg_step as cs
     from dune_eigensolver_tpu_torch.kernels import dia_spmm as kd
     from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
+    from dune_eigensolver_tpu_torch.kernels import mg_tail as mt
     from dune_eigensolver_tpu_torch.oracle.analytic import eigenvalues_laplace_dirichlet_3d
     from dune_eigensolver_tpu_torch.solvers import lobpcg_nested
     from dune_eigensolver_tpu_torch.sparse import DIAMatrix, ell_from_scipy, problems, rcm_pencil
@@ -3078,7 +3113,8 @@ def main():
                "identd": pp.identd,
                "ident_alias": pp.ident_alias, "ident_first": pp.ident_first,
                "ident_alias_first": pp.ident_alias_first,
-               **{name: getattr(cs, name + "_cuda") for name in CG_STEP_KERNELS}}
+               **{name: getattr(cs, name + "_cuda") for name in CG_STEP_KERNELS},
+               "mg_tail": mt.mg_tail_cuda}
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -3154,11 +3190,14 @@ def main():
     err = check_result(torch, res, N3, 20, 1e-5, exact)
     if launches <= 0:
         raise RuntimeError("the 216^3 solve launched the DIA kernel no time")
+    mg_tail_launches = mt.mg_tail_cuda.launches
+    if mg_tail_launches <= 0:
+        raise RuntimeError("the 216^3 solve launched the multigrid tail kernel no time")
     log("SOLVE " + json.dumps(dict(
         n=N3**3, nev=20, seconds=t_solve, first_run_seconds=t_first,
         iterations=int(res.iterations), converged=bool(res.converged),
         max_err=err, dia_spmm_launches=launches, dia_spmm_taken=taken, peak_bytes=peak,
-        first_run_peak_bytes=peak_first,
+        first_run_peak_bytes=peak_first, mg_tail_launches=mg_tail_launches,
     )))
     # the timed result's block, kept on the host for phase 19's refinement
     north = dict(V=res.eigenvectors.cpu(), max_err=err, N=N3)
@@ -3249,6 +3288,10 @@ def main():
     cg_rows = phase_cg_step(torch, A512, B512)
 
     phase_done("phase 22")
+    # --- phase 23: the multigrid tail's kernel against the eager tail ---
+    mg_rows = phase_mg_tail(torch)
+
+    phase_done("phase 23")
     # --- phases 7-9: the general-sparsity path ---
     geneo = phase_geneo(torch, kernels, A512, B512, geneo_ref)
     oracle_pool.shutdown()
@@ -3444,6 +3487,19 @@ def main():
                            device_ms=rec["ms"], eager_ms=rec["eager_ms"],
                            dot_relerr=rec["dot_relerr"],
                            flagship_launches=flagship[0]["launches"][name]))
+    # the multigrid tail: launches from the 216^3 solve (phase 4), time by
+    # replay at its three entries (phase 23); the bytes b in and out once
+    for rec in mg_rows:
+        table.append(entry("mg_tail", csrc + "mg_tail.cu",
+                           "none: dune_eigensolver_tpu/factorize/multigrid.py's levels are XLA "
+                           "operations", mg_tail_launches,
+                           dict(rec, case=f"{rec['vcycle']} V-cycle, (24, 27^3) bf16",
+                                ms=rec["replay_ms"], plain_ms=rec["eager_device_ms"],
+                                max_abs_err=None),
+                           rec["bytes"], 0, None, relmax=rec["relmax"],
+                           inplace_ms=rec["inplace_ms"], levels_ms=rec["levels_replay_ms"],
+                           eager_wall_ms=rec["eager_wall_ms"],
+                           eager_device_ops=rec["eager_device_ops"]))
     n2, m2 = 2048**2, 8
     v_bytes = (5 * n2 + 2 * n2 * m2) * 4  # bytes_spmm_dia
     v_flops = 2.0 * (5 * n2 - 2 * 2048 - 2) * m2

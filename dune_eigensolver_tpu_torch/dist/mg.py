@@ -13,7 +13,7 @@ into z-slabs, one per rank, and each cycle issues ONE collective:
 * one ``all_gather`` along the slab axis gives every rank the whole
   semi-coarse residual (m, Nz, Ny/2, Nx/2);
 * coarse levels, replicated: the slab-axis restriction and the single-card
-  coarse V-cycle (``factorize/multigrid.py::_vcycle_coarse``) run the same
+  coarse V-cycle (``factorize/multigrid.py::coarse_correction``) run the same
   on every rank; the rank slices its slab back out of the prolonged
   correction (the rank replaces ``lax.axis_index``) and interpolates it up
   the local axes.
@@ -44,7 +44,7 @@ from dune_eigensolver_tpu_torch.factorize.multigrid import (
     _restrict,
     _restrict1,
     _sampled_coeffs,
-    _vcycle_coarse,
+    coarse_correction,
     detect_grid_dims,
 )
 
@@ -139,7 +139,7 @@ def make_sharded_mg_prec_fn(
             r_full = all_gather_cat(r_grid, mesh, dim=1)
             # replicated: slab-axis restriction
             r1 = _restrict1(r_full, 1)
-        e1 = _vcycle_coarse(levels, 1, r1, a_fine, sigma, nu1, nu2, omega, coarse_iters)
+        e1 = coarse_correction(levels, r1, a_fine, sigma, nu1, nu2, omega, coarse_iters)
         ez = _prolong1(e1, 1, dims[0])
         e_loc = ez.narrow(1, mesh.rank * lnz, lnz)
         # local prolongation up the axes that are not split

@@ -13,12 +13,20 @@ preconditioner of a CG that converges in an n-independent number of steps
   0-d tensors on its device (no host read).
 * Level l applies the same stencil with each axis coupling scaled by
   4^-l and the zeroth-order term held fixed, matrix-free as shifted adds on
-  (m, *dims) blocks (plain PyTorch: the coarse work is a geometric tail).
+  (m, *dims) blocks.
 * The fine level smooths with the operand itself through ``spmm_t``, so on
   a CUDA tensor every fine residual runs the DIA kernel; with
   ``dtype=torch.bfloat16`` it streams bf16 (the kernel accumulates in f32).
 * Smoother: damped Jacobi, symmetric pre/post; coarsest level:
   fixed-iteration CG in f32.
+* On a CUDA block the levels from the first one whose working set fits one
+  thread block's shared memory down to the coarsest run as one kernel
+  (``kernels/mg_tail.py``, ``csrc/mg_tail.cu``): the same operations, one
+  launch in place of ~2,400. The fit rule reads the device's limit and the
+  shapes; a CPU block, or a type the kernel lacks, stays eager.
+
+``coarse_correction`` counts, always, its calls (``.applies``, one a V-cycle);
+the kernel's wrapper counts its launches (``mg_tail_cuda.launches``).
 
 While tracing is on (``utils/vlog.py``) each V-cycle apply is an
 ``mg.apply`` span holding ``mg.smooth`` spans (the fine level's smoothing
@@ -33,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from dune_eigensolver_tpu_torch.factorize.cg import _cast_floating, _inv_diag_of, cg_solve_t
+from dune_eigensolver_tpu_torch.kernels import mg_tail
 from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
 from dune_eigensolver_tpu_torch.utils.vlog import span
 
@@ -204,10 +213,15 @@ def _sampled_coeffs(A_int, dims):
 
 
 def _vcycle_coarse(levels, level, b, a_fine, sigma, nu1, nu2, omega,
-                   coarse_iters):
+                   coarse_iters, tail=True):
     """Coarse-level V-cycle recursion on (m, *dims) blocks: matrix-free
     rediscretized stencils, damped-Jacobi smoothing, fixed-iteration f32
-    CG at the coarsest level."""
+    CG at the coarsest level. From the first level whose tail the kernel
+    takes (``mg_tail.takes``) the rest is one launch; ``tail=False`` keeps
+    the recursion eager to the end (the kernel's plain version)."""
+    if tail and mg_tail.takes(b, levels, level):
+        return mg_tail.mg_tail_cuda(levels, level, b, a_fine, sigma, nu1, nu2, omega,
+                                    coarse_iters)
     dims_l = levels[level]
     a_l = tuple(a * (0.25**level) for a in a_fine)
     c0_l = sigma - 2.0 * sum(a_l)
@@ -229,11 +243,21 @@ def _vcycle_coarse(levels, level, b, a_fine, sigma, nu1, nu2, omega,
         x = x + inv_c * (b - apply_l(x))
     r = b - apply_l(x)
     e = _vcycle_coarse(levels, level + 1, _restrict(r), a_fine, sigma,
-                       nu1, nu2, omega, coarse_iters)
+                       nu1, nu2, omega, coarse_iters, tail)
     x = x + _prolong(e, dims_l)
     for _ in range(nu2):
         x = x + inv_c * (b - apply_l(x))
     return x
+
+
+def coarse_correction(levels, r1, a_fine, sigma, nu1, nu2, omega, coarse_iters):
+    """One V-cycle's correction from the levels below the fine one, at
+    ``levels[1]``, for the restricted residual ``r1`` (m, *levels[1])."""
+    coarse_correction.applies += 1
+    return _vcycle_coarse(levels, 1, r1, a_fine, sigma, nu1, nu2, omega, coarse_iters)
+
+
+coarse_correction.applies = 0
 
 
 def _mg_solve_fn(geom, levels, cycles, nu1, nu2, omega, coarse_iters, dtype):
@@ -264,8 +288,8 @@ def _mg_solve_fn(geom, levels, cycles, nu1, nu2, omega, coarse_iters, dtype):
                         r = b - spmm_t(A_, x)
                 if len(levels) > 1:
                     with span("mg.coarse"):
-                        e = _vcycle_coarse(
-                            levels, 1, _restrict(r.reshape((m,) + dims)), a_fine,
+                        e = coarse_correction(
+                            levels, _restrict(r.reshape((m,) + dims)), a_fine,
                             sigma, nu1, nu2, omega, coarse_iters,
                         )
                         x = x + _prolong(e, dims).reshape(m, n)

@@ -19,7 +19,11 @@ roundoff:
   around TPU-specific XLA lowering);
 * the fallback selects between the two (b, b) transforms with
   ``torch.where`` instead of ``lax.cond``; only the (b, b) transform
-  branches, never the (b, n) blocks.
+  branches, never the (b, n) blocks;
+* ``gram_dtype`` accumulates each block's Gram, and computes its (b, b)
+  whitening, in a wider type than the rows (the LOBPCG core's whole-basis
+  ``ortho_block='full'`` asks for float64). The rows and their products
+  stay in their own type.
 
 ``gram_reduce`` (JAX ``ops/ortho.py:141, 189``): for a row-sharded
 multivector, every Gram and projection matrix goes through it (the
@@ -65,7 +69,7 @@ def _whiten_apply(Gr: torch.Tensor, eps: float, Xs: tuple) -> tuple:
     t_eig = (V / torch.sqrt(torch.maximum(w, floor))[None, :]).T
     ok = (info == 0) & torch.isfinite(L).all()
     T = torch.where(ok, t_chol, t_eig)
-    return tuple(T @ Xi for Xi in Xs)
+    return tuple(T.to(Xi.dtype) @ Xi for Xi in Xs)
 
 
 def _floored(G: torch.Tensor, eps: float) -> torch.Tensor:
@@ -139,6 +143,7 @@ def b_orthonormalize_blocked_t(
     eps: float = 0.0,
     return_mass: bool = False,
     gram_reduce=None,
+    gram_dtype=None,
 ):
     """B-orthonormalize the rows of Xt (m, n): on return X B X^T = I.
 
@@ -150,7 +155,9 @@ def b_orthonormalize_blocked_t(
     normalization, from the first sweep. ``P = B @ (block)`` is recomputed
     per block, so it reflects earlier projections, and kept consistent
     through the block's normalization. ``gram_reduce``: applied to every
-    Gram and projection matrix of a row-sharded Xt.
+    Gram and projection matrix of a row-sharded Xt. ``gram_dtype``: the
+    type each block's Gram is accumulated in and its whitening computed in
+    (default Xt's).
     """
     from dune_eigensolver_tpu_torch.sparse.spmm import spmm_t
 
@@ -159,6 +166,7 @@ def b_orthonormalize_blocked_t(
     if m % block != 0:
         raise ValueError(f"b_orthonormalize_blocked_t: m={m} not multiple of {block}")
     reduce_ = gram_reduce or _identity
+    gd = gram_dtype or Xt.dtype
     offdiag = ~torch.eye(block, dtype=torch.bool, device=Xt.device)
     norm = torch.zeros((), dtype=Xt.dtype, device=Xt.device)
     mass = torch.zeros((m,), dtype=Xt.dtype, device=Xt.device)
@@ -175,8 +183,8 @@ def b_orthonormalize_blocked_t(
                 norm = torch.maximum(norm, S.abs().max())
                 Xk = Xk - S.T @ bufx[:k]
             Pk = apply_b(Xk)
-            G = reduce_(Pk @ Xk.T)
-            norm = torch.maximum(norm, torch.where(offdiag, G, 0).abs().max())
+            G = reduce_(Pk.to(gd) @ Xk.to(gd).T)
+            norm = torch.maximum(norm, torch.where(offdiag, G, 0).abs().max().to(norm.dtype))
             mass_sweep[k : k + block] = torch.diagonal(G)
             Xk, Pk = _whiten_apply(_floored(G, eps), eps, (Xk, Pk))
             bufx[k : k + block] = Xk

@@ -78,14 +78,18 @@ def _lobpcg_core(apply_a, apply_b, prec_aux, prec_fn, Q0, nev, tol, maxiter,
         # CholeskyQR in the A'-inner product; A' is PD so no junk handling
         # is needed (the eps floor only guards W -> 0 at convergence).
         # ortho_block='full' is one whole-basis CholeskyQR: one Gram and one
-        # trisolve instead of a prefix sweep, but its Gram sees cond(S)^2.
+        # trisolve instead of a prefix sweep, but its Gram sees cond(S)^2,
+        # so it is accumulated and whitened in f64: in f32 the rank-deficient
+        # first basis [X, W, W/2] and the near-dependent ones after it leave
+        # Gram eigenvalues of rounding noise above the whitening's floor.
         # Otherwise the block is clamped: the iteration-0 ortho sees the
         # (m, n) start block, the loop the (3m, n) search basis
-        blk = S.shape[0] if ortho_block == "full" else min(ortho_block, S.shape[0])
+        full = ortho_block == "full"
+        blk = S.shape[0] if full else min(ortho_block, S.shape[0])
         with span("lobpcg.ortho"):
             S, _ = b_orthonormalize_blocked_t(
                 apply_a, S, block=blk, iterations=ortho_iters, eps=ortho_eps,
-                gram_reduce=gram_reduce,
+                gram_reduce=gram_reduce, gram_dtype=torch.float64 if full else None,
             )
         return S
 

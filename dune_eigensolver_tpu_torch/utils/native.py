@@ -213,6 +213,13 @@ def load() -> ctypes.CDLL:
     lib.cg_direction_launch.argtypes = [i32, vp, vp, vp, vp, i64, i32, vp]
     lib.cg_max_blocks.restype = i32
     lib.cg_max_blocks.argtypes = []
+    # the multigrid tail: (dtype, b, out, m, nd, nlev, level0, dims, a0, a1, a2, sigma, nu1,
+    # nu2, omega, iters, bytes, stream); (device) -> opt-in shared memory a block
+    lib.mg_tail_launch.restype = i32
+    lib.mg_tail_launch.argtypes = [i32, vp, vp, i32, i32, i32, i32, ctypes.POINTER(i32), vp, vp,
+                                   vp, vp, i32, i32, f64, i32, i64, vp]
+    lib.mg_tail_smem_optin.restype = i32
+    lib.mg_tail_smem_optin.argtypes = [i32]
     lib.dune_cuda_error_string.restype = ctypes.c_char_p
     lib.dune_cuda_error_string.argtypes = [i32]
     _LIB = lib
