@@ -6,13 +6,15 @@
 Phases (any failure raises and exits non-zero; there is no fallback):
 
 1. device   — requires ``torch.cuda.is_available()``; prints the card.
-2. build    — compiles ``dune_eigensolver_tpu_torch/csrc/*.cu`` with nvcc
-              into the package's ``_build/`` and prints ptxas' report, and
+2. build    — compiles the two kernel libraries with nvcc into the
+              package's ``_build/``, the solver's
+              (``dune_eigensolver_tpu_torch/csrc/*.cu``) and the studies'
+              (``csrc/experiments/*.cu``), and prints ptxas' report, and
               one ``REGISTERS`` line: the registers and spill stores of
               every instantiation of the ELL body (``csrc/ell_body.cuh``),
-              K2's four (f32 and f64, int32 and int16 indices) apart;
-              then the host-setup helper (``csrc/host/dunetpu.cpp``) with
-              g++.
+              K2's four (f32 and f64, int32 and int16 indices, from the
+              solver's build) apart; then the host-setup helper
+              (``csrc/host/dunetpu.cpp``) with g++.
 3. kernel   — the CUDA DIA SpMM against its plain PyTorch version on the
               card, at the main path's shapes (2D N=2048 m=8; 3D N=216
               m=24/72 in f32 and bf16; the nested solve's coarser grids
@@ -53,17 +55,11 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               version's median time and GFLOP/s as 2*nnz*m/t. The ELL
               kernel stops each warp at its last stored entry
               (``ELLMatrix.warp_slots``; the graph's mean count is logged,
-              4.00 against k = 7) and must give, on every ELL case, the
-              bits of its first version, which the ablation source keeps
-              (``gather_ablate.ablate_first``: KC from k, 256 threads),
-              whose device time is taken in turns with K2's
-              (``first_version_device_ms``, ``in_turns_device_ms``);
-              it reads int32 columns on the graph and int16 offsets on
-              the elasticity operands (the index stream of
-              ``ELLMatrix.kernel_streams``), asserted. Then float64: K2 on
-              the graph and on elasticity_2d(512) scalar, K3 on
-              elasticity_2d(512), m=8, held at 1e-12 of the row's |A|.|X|
-              (the first version, the bit check, is f32 only).
+              4.00 against k = 7); it reads int32 columns on the graph and
+              int16 offsets on the elasticity operands (the index stream
+              of ``ELLMatrix.kernel_streams``), asserted. Then float64: K2
+              on the graph and on elasticity_2d(512) scalar, K3 on
+              elasticity_2d(512), m=8, held at 1e-12 of the row's |A|.|X|.
               Then one
               ``REREAD`` line per operand of ``phase_reread``: what the far
               re-reads of X cost the DIA and the BSR kernel.
@@ -83,21 +79,19 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               through ``lobpcg_generalized`` with the cg25 preconditioner
               and an identity ELL mass, twice, timing the second; every
               Ritz pair's relative residual within 0.1; then under
-              torch.profiler twice, as it stands and with K2's first
-              version (``gather_ablate.ablate_first``, the same bits) in
-              K2's place (``PROFILE graph``: the solve's device time and
-              K2's share of it, each way); the same recipe at n = 20,000
-              within 2e-2 of the oracle.
+              torch.profiler (``PROFILE graph``: the solve's device time
+              and K2's share of it); the same recipe at n = 20,000 within
+              2e-2 of the oracle.
 
-10. copy    — the copy probe's three kernels (csrc/copy_probe.cu) and the
-              first versions of ``ident``/``ident_alias`` against their
-              plain versions (exact), at an odd width (where the wrappers
-              take the first version) and at the multivector's shape (the
-              bulk copies, asserted); then the SASS check (``SASS`` line,
-              where the toolkit has ``cuobjdump``): every instantiation of
+10. copy    — the copy probe's three kernels (csrc/experiments/copy_probe.cu)
+              against their plain versions (exact), at an odd width (where
+              the wrappers take the first version) and at the multivector's
+              shape (the bulk copies, asserted); then the SASS check
+              (``SASS`` line, where the toolkit has ``cuobjdump``, on the
+              studies' library): every instantiation of
               ``copy_add_row_kernel`` that streams rows 1.. of ``identd``'s
               d has at least 4 global loads more than without them.
-11. variants — the DIA staging variants (csrc/dia_variants.cu,
+11. variants — the DIA staging variants (csrc/experiments/dia_variants.cu,
               dia_stage_c.cu, dia_stage_d.cu: C, B at (2,1), (3,2), (4,3),
               D, D in place) against the plain DIA product at three n that
               are no multiple of the tile (2025 odd: the cp.async bodies;
@@ -105,20 +99,18 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               four), one application and the 2-chain (1e-5 of max|R|),
               after a launch on X of 1e30; every staged body (C, D, B on
               the grid) must give the shipped kernel's bits and take the
-              route and width the rules give it; the first versions of C,
-              B and D are held to the plain version (whether they give
-              K1's bits is printed); then B, C and D at every setting of
-              their sweeps that fits, with random coefficients on every
-              diagonal, at each n.
+              route and width the rules give it, and B off the grid (its
+              first version) is held to the plain version; then B, C and D
+              at every setting of their sweeps that fits, with random
+              coefficients on every diagonal, at each n.
 12. measure — the measurement path through its entry points, every launch
               counter zeroed just before and read just after:
               ``cli.main`` with ``--test matvec ev.N=2048 mv.m=8`` and
               ``--test mgs`` (n = 2^20, m = 16), then the tables the two
               experiment modules' ``main`` print: ``copy_table`` (the
               library's 1-D and 2-D copies, the hand-written copy over its
-              tile sweep in turns with its first version, copy +
-              coefficient stream, in place in turns with its first version)
-              as ``COPY`` lines and one ``ROOFLINE`` line with
+              tile sweep, copy + coefficient stream, in place) as ``COPY``
+              lines and one ``ROOFLINE`` line with
               ``copy_gbps``, the best out-of-place rate; ``variant_table`` (2D N=2048 m=8 f32, each
               variant held to the plain product at 1e-5 of max|R| over one
               application and the 2-chain, the staged bodies to the shipped
@@ -129,18 +121,15 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               B's rings (3,2) and (4,3) one, as their coefficient tiles
               leave room) names its route (bulk copies, asserted at
               n = 2048^2), width (4, asserted), threads and staged bytes per
-              consumed, and carries its first version timed in turns with
-              it (``first_seconds``); the sweeps of B
+              consumed; the sweeps of B
               (``kernel_variants.ring_settings``), C and D
               (``stage_settings``) and each ring's, C's and D's best
               setting follow. Every ``RESULT`` number must be finite and every
               kernel's counter must have moved. Then the copy kernels'
               rows of the kernel table: ``ident`` and ``ident_alias`` at
               the tile the bulk body does best at in the sweep
-              (``best_ident_tile``) in turns with their first versions at
-              the first version's own best (``best_first_tile``; both in
-              ``ROOFLINE``), ``identd`` at its own best tile, by replay too,
-              in turns with ``x + d[0]``. Any reading of a kernel's
+              (``best_ident_tile``, in ``ROOFLINE``), ``identd`` at its own
+              best tile, by replay too, in turns with the library call. Any reading of a kernel's
               streamed bytes (over 100 MB) above 1.05 x ``copy_gbps`` fails
               the script (``check_streamed``; phase 16's ``FORM`` rows
               too): the L2 cannot hold them.
@@ -154,19 +143,20 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               the library's constructor and first product alone).
 
 15. study check — every ablation variant of the ELL kernel (K2's body,
-              csrc/ell_body.cuh, instantiated by csrc/ell_ablate.cu and
-              ell_sweep_r{1,4,8}.cu) against its plain version at odd sizes
-              (n no multiple of a block; k = 17, 33, 51 from requested 7,
-              18, 33 plus the diagonal; m = 1, 8, 24): K2's first version
-              (``ablate_first``) and K2's body at every (rows, kc) of
+              csrc/ell_body.cuh, instantiated by csrc/experiments/
+              ell_ablate.cu and ell_sweep_r{1,4,8}.cu) against its plain
+              version at odd sizes (n no multiple of a block; k = 17, 33,
+              51 from requested 7, 18, 33 plus the diagonal; m = 1, 8, 24):
+              K2's body at every (rows, kc) of
               ``gather_ablate.SWEEP`` must give ``ell_spmm_t_cuda``'s bits,
               ``nogather``/``nodyn`` stay within 1e-5 of the row's
               |data|.|X|, ``nofma`` is exact; then what ptxas kept of
-              their slot loads (``SASS`` line for ``ell_spmm_t_kernel``,
+              their slot loads (``SASS`` line for ``ell_spmm_t_kernel`` in the studies'
+              library,
               ``gather_ablate.slot_load_faults``: ``nogather`` as many
               global loads as K2, ``nofma`` at least 8, at both index
               widths); then the eleven gather
-              probes (csrc/gather_probe.cu) and the shuffle form of the
+              probes (csrc/experiments/gather_probe.cu) and the shuffle form of the
               first, none of which may print anything but OK.
 16. study   — the gather-kernel study path through its entry points, every
               launch counter of its kernels zeroed just before and read just
@@ -174,15 +164,12 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               the 2^20 graph (``ABLATE`` lines: the four variants with their
               shares of K2's time and of the copy bound over phase 12's
               ``copy_gbps`` and the bytes their bodies stream, each held to
-              ``check_streamed``, K2's first version, then the (rows, kc)
-              sweep; K2's launches counted per operand),
-              ``gather_probe.form_table`` at
+              ``check_streamed``, then the (rows, kc) sweep; K2's launches
+              counted per operand), ``gather_probe.form_table`` at
               (8, 4,194,304) (``FORM`` lines), where ``lane_slice`` and
-              ``block_select``, one row-copy kernel, and
-              ``block_select_scratch`` are timed in turns with their first
-              versions and must have taken float4 moves or, the scratch
-              form, its bulk copies, as must ``gather_axis0``, timed in
-              turns with its first version too (``REDESIGN`` lines: both times, the
+              ``block_select``, one row-copy kernel, must have taken float4
+              moves and ``block_select_scratch`` and ``gather_axis0`` their
+              bulk bodies (``REDESIGN`` lines: the kernel's time, the
               library call's, the shares of the table's ``x + 1.0`` rate;
               device times by CUDA-graph replay, the kernel's and the
               library call's eager times beside).
@@ -326,28 +313,20 @@ kernels take less time than the host's launch through a wrapper),
 ``eager_ms`` and ``library_eager_ms`` beside it (their ``launches``
 count the wrapper's calls: a graph replay re-runs the launches it
 captured without a call, uncounted); the ``lane_slice``, ``block_select``,
-``block_select_scratch`` and ``gather_axis0`` rows carry
-``first_version_ms`` and ``first_version_launches``, their first
-versions' time in turns, by replay too (phase 16), and the body or width
-taken, and
-so do the ``ident`` and ``ident_alias`` rows (phase 12; with
-``device_ms``, ``first_version_device_ms`` and ``library_device_ms`` by
-replay, in turns; each body at its own best tile, ``tile`` and
-``first_version_tile``); the ``identd`` row carries ``device_ms`` and
+``block_select_scratch`` and ``gather_axis0`` rows carry the body or width
+taken (phase 16), and so do the ``ident`` and ``ident_alias`` rows (phase
+12; with ``device_ms`` and ``library_device_ms`` by replay, in turns, at
+``tile``); the ``identd`` row carries ``device_ms`` and
 ``library_device_ms`` (``x + d[0]``) by replay; the ``spmm_c``, ``spmm_b`` (ring (2,1)) and
 ``spmm_d`` rows (tile 2048, two rows) carry ``device_ms`` (their ``ms``, by
-replay), their route, width, threads and staged bytes per consumed, their
-first version's time in turns (``first_version_ms``) and launches, and
+replay), their route, width, threads and staged bytes per consumed, and
 their best setting of the sweep with its copy share; ``spmm_b`` the three
-rings' times and rows beside their first versions', ``spmm_d`` its
-in-place form's; the
-ablation rows (``ablate_full``: K2's body at K2's setting from the
-ablation source, with the whole sweep in ``sweep_ms``; ``ablate_first``:
-K2's first version; the three degraded variants) take ``ms`` by
-CUDA-graph replay, ``eager_ms`` (a chain of launches) beside, and carry
+rings' times and rows, ``spmm_d`` its in-place form's; the ablation rows
+(``ablate_full``: K2's body at K2's setting from the ablation source, with
+the whole sweep in ``sweep_ms``; the three degraded variants) take ``ms``
+by CUDA-graph replay, ``eager_ms`` (a chain of launches) beside, and carry
 K2's time and their share of it, the graph operand's numbers beside, and
-(all but ``ablate_first``) the bytes their bodies stream
-(``streamed_bytes``, ``streamed_gbps``); ``ablate_nofma``'s
+the bytes their bodies stream (``streamed_bytes``, ``streamed_gbps``); ``ablate_nofma``'s
 ``library_ms`` is its function as one PyTorch call, ``Xt + data_t[0]``.
 A ``PHASES`` line before the table gives each phase's seconds. Then
 the card's
@@ -718,7 +697,6 @@ def to_f64(A):
 def phase_gather(torch, kg, cases):
     """Phase 6: the ELL and BSR kernels against their plain versions (f32,
     and f64 where the operand is f64)."""
-    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
     from dune_eigensolver_tpu_torch.sparse import BSRMatrix
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -729,7 +707,6 @@ def phase_gather(torch, kg, cases):
         else:
             kernel, plain, field = kg.ell_spmm_t_cuda, kg.ell_spmm_t_reference, "data"
         n = A.shape[0]
-        f32 = A.dtype == torch.float32  # K2's first version, the bit check, is f32 only
         X = torch.randn((m, n), generator=gen, device="cuda", dtype=A.dtype)
         before = kernel.launches
         Y = kernel(A, X)
@@ -747,26 +724,12 @@ def phase_gather(torch, kg, cases):
         if not err <= tol:
             raise RuntimeError(f"{name}: max_abs_err {err:.3e} > tol {tol:.3e}")
         more = {}
-        if kernel is kg.ell_spmm_t_cuda and not f32:
+        if kernel is kg.ell_spmm_t_cuda:
             more = dict(mean_warp_slots=A.warp_slots.float().mean().item(), k=A.k,
                         index_bytes=A.kernel_streams[1].element_size())
-        elif kernel is kg.ell_spmm_t_cuda:
-            # K2's first version, kept by the ablation source: the same bits
-            # on finite X (the slots a warp skips are padding, zero products)
-            if not torch.equal(Y, ga.ablate_first(A, X)):
-                raise RuntimeError(f"{name}: differs from K2's first version")
-            more = dict(bits_of_first_version=True, mean_warp_slots=A.warp_slots.float().mean().item(),
-                        k=A.k, index_bytes=A.kernel_streams[1].element_size())
         del Y, R, absA
         ms = median_ms(lambda: kernel(A, X))  # launched in a loop from the host
         device_ms = replay_ms(lambda: kernel(A, X))  # device time by graph replay
-        if kernel is kg.ell_spmm_t_cuda and f32:
-            # K2 against its first version, device times in turns: first,
-            # current, current, first
-            turns = [replay_ms(lambda: ga.ablate_first(A, X)), replay_ms(lambda: kernel(A, X)),
-                     replay_ms(lambda: kernel(A, X)), replay_ms(lambda: ga.ablate_first(A, X))]
-            more.update(first_version_device_ms=[turns[0], turns[3]],
-                        in_turns_device_ms=[turns[1], turns[2]])
         plain_ms = median_ms(lambda: plain(A, X), reps=5, inner=2)
         flops = 2.0 * A.nnz * m
         itemsize = X.element_size()
@@ -998,14 +961,10 @@ def phase_graph(torch, kernels, Au, small):
     """Phase 9: the RCM-ordered unstructured graph Laplacian (ELL)."""
     import scipy.sparse as sp
 
-    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
     from dune_eigensolver_tpu_torch.factorize import cg_inverse_factory
     from dune_eigensolver_tpu_torch.oracle import smallest_standard
     from dune_eigensolver_tpu_torch.solvers import lobpcg_generalized
-    from dune_eigensolver_tpu_torch.sparse import ELLMatrix, ell_from_scipy, spmm_t
-
-    # the module, not the function of that name the package exports
-    spmm_mod = importlib.import_module("dune_eigensolver_tpu_torch.sparse.spmm")
+    from dune_eigensolver_tpu_torch.sparse import ell_from_scipy, spmm_t
 
     def recipe(A_):
         B_ = ell_from_scipy(sp.eye(A_.shape[0]), dtype=A_.dtype, device=A_.device)
@@ -1027,27 +986,9 @@ def phase_graph(torch, kernels, Au, small):
     if not (resid <= 0.1).all():
         raise RuntimeError(f"graph: relative residuals {resid} > 0.1")
     del res, Xt, AX
-    # the solve's device time and K2's part of it, then the same with K2's
-    # first version in K2's place (it gives the same bits, so the same
-    # solve); that version's unprofiled wall time is one warm run's
+    # the solve's device time and K2's part of it
     busy, events = profile_solve(torch, "graph", run, rec["seconds"], rows=10)
-    route = spmm_mod._ROUTES[ELLMatrix]
-    spmm_mod._ROUTES[ELLMatrix] = (lambda A_, X_: ga.ablate_first(A_, X_), route[1])
-    try:
-        run().eigenvalues.cpu()  # makes the int32 columns the first version reads
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        iterations = int(run().iterations)
-        t_first = time.perf_counter() - t0
-        busy0, events0 = profile_solve(torch, "graph, K2's first version", run, t_first, rows=10)
-    finally:
-        spmm_mod._ROUTES[ELLMatrix] = route
-    if iterations != rec["iterations"]:
-        raise RuntimeError(f"graph: {iterations} iterations with K2's first version, "
-                           f"{rec['iterations']} with K2")
-    rec.update(device_s=busy, k2_device_s=kernel_device_s(events, "ell_spmm_t_kernel"),
-               first_version_seconds=t_first, first_version_device_s=busy0,
-               first_version_k2_device_s=kernel_device_s(events0, "ell_first_kernel"))
+    rec.update(device_s=busy, k2_device_s=kernel_device_s(events, "ell_spmm_t_kernel"))
     S, A20 = small
     res = recipe(A20)()
     ev20 = check_solve(torch, "graph n=20000", res, A20.shape[0], 4)
@@ -1087,7 +1028,7 @@ def check_streamed(what, streamed_bytes, seconds, copy_gbps):
 
 def sass_check(pp, native):
     """What ptxas kept of ``identd``'s coefficient stream: in the SASS of the
-    built library each instantiation of ``copy_add_row_kernel`` that loads
+    built studies' library each instantiation of ``copy_add_row_kernel`` that loads
     rows 1.. of d (STREAM) has at least CP_UNROLL = 4 global loads more than
     the same body without them. Returns the counts (None where the toolkit
     has no cuobjdump)."""
@@ -1104,7 +1045,7 @@ def sass_check(pp, native):
 
 def ablate_sass_check(ga, native):
     """What ptxas kept of the ablation's slot loads: in the SASS of the
-    built library, each degraded instantiation of K2's body at K2's setting
+    built studies' library, each degraded instantiation of K2's body at K2's setting
     keeps the coefficient and index loads it is credited with
     (``gather_ablate.slot_load_faults`` states the rule). Returns the counts
     (None where the toolkit has no cuobjdump)."""
@@ -1128,8 +1069,8 @@ def exact_or_raise(name, Y, R):
 
 
 def phase_copy_check(torch, pp):
-    """Phase 10: the copy kernels and the first versions of ``ident`` and
-    ``ident_alias`` against their plain versions, then ``sass_check``.
+    """Phase 10: the copy kernels against their plain versions, then
+    ``sass_check``.
     Returns the operands of the multivector's shape and each kernel's
     max_abs_err there."""
     from dune_eigensolver_tpu_torch.utils import native
@@ -1138,7 +1079,7 @@ def phase_copy_check(torch, pp):
     # an odd width (4-byte accesses: the wrappers take the first version)
     # first, then the multivector's shape (the bulk copies)
     for rows, width, tile, body in ((3, 100_003, 1000, "first"), (8, pp.WIDTH, 32768, "bulk")):
-        wrappers = (pp.ident, pp.identd, pp.ident_alias, *pp.FIRST_VERSIONS.values())
+        wrappers = (pp.ident, pp.identd, pp.ident_alias)
         x = torch.randn((rows, width), generator=gen, device="cuda")
         d = torch.randn((5, width), generator=gen, device="cuda")
         before = [fn.launches for fn in wrappers]
@@ -1147,15 +1088,12 @@ def phase_copy_check(torch, pp):
         errs = dict(
             ident=exact_or_raise("ident", pp.ident(tile, x), want),
             identd=exact_or_raise("identd", pp.identd(tile, d, x), pp.identd_reference(d, x)),
-            ident_first=exact_or_raise("ident_first", pp.ident_first(tile, x), want),
         )
-        for name, fn in (("ident_alias", pp.ident_alias),
-                         ("ident_alias_first", pp.ident_alias_first)):
-            xa = x.clone()
-            if fn(tile, xa) is not xa:
-                raise RuntimeError(f"{name} did not return its argument")
-            errs[name] = exact_or_raise(name, xa, want)
-            del xa
+        xa = x.clone()
+        if pp.ident_alias(tile, xa) is not xa:
+            raise RuntimeError("ident_alias did not return its argument")
+        errs["ident_alias"] = exact_or_raise("ident_alias", xa, want)
+        del xa
         torch.cuda.synchronize()
         after = [fn.launches for fn in wrappers]
         if after != [b + 1 for b in before]:
@@ -1163,8 +1101,7 @@ def phase_copy_check(torch, pp):
         if (pp.ident.body, pp.ident_alias.body) != (body, body):
             raise RuntimeError(f"copy kernels ({rows}, {width}): bodies "
                                f"{pp.ident.body}/{pp.ident_alias.body}, expected {body}")
-        log(f"copy check ({rows}, {width}) tile {tile}: exact, body {body}, first versions "
-            "exact")
+        log(f"copy check ({rows}, {width}) tile {tile}: exact, body {body}")
         del want
     sass_check(pp, native)
     return x, d, errs
@@ -1174,7 +1111,7 @@ def phase_variant_check(torch, kv, kd, problems, DIAMatrix):
     """Phase 11: the staging variants against the plain DIA product where n
     is no multiple of the tile (the full-size check is the table's own):
     every staged body (C, D, D in place, B where n % 4 == 0) must also give
-    the shipped kernel's bits, and the first versions of C, B and D are
+    the shipped kernel's bits, and B off the grid (its first version) is
     held to the plain version; then B, C and D at every setting of their
     sweeps that fits, on every route (bulk copies where n % 4 == 0, the
     cp.async bodies elsewhere) and width (4 columns a thread where the
@@ -1207,15 +1144,14 @@ def phase_variant_check(torch, kv, kd, problems, DIAMatrix):
             err = max((Y - R).abs().max().item(), (Y2 - R2).abs().max().item())
             if not err <= tol:  # a NaN fails too
                 raise RuntimeError(f"{name} N={N}: max_abs_err {err:.3e} > tol {tol:.3e}")
-            same = torch.equal(Y, K) and torch.equal(Y2, K2)
-            if bits and not same:
+            if bits and not (torch.equal(Y, K) and torch.equal(Y2, K2)):
                 raise RuntimeError(f"{name} N={N}: not the shipped kernel's bits")
-            return err, same
+            return err
 
-        for name, step, first in kv.variant_steps(tile=256)[1:]:
+        for name, step in kv.variant_steps(tile=256)[1:]:
             counts = {w: dict(w.taken) for w in (kv.spmm_b, kv.spmm_c, kv.spmm_d)}
             staged = not name.startswith("B ") or n % 4 == 0
-            err, _ = check(name, step, A, X, bits=staged)
+            err = check(name, step, A, X, bits=staged)
             wrapper = {"B": kv.spmm_b, "C": kv.spmm_c, "D": kv.spmm_d}[name[0]]
             if name[0] == "B":
                 key = "bulk" if n % 4 == 0 else "first"
@@ -1223,10 +1159,8 @@ def phase_variant_check(torch, kv, kd, problems, DIAMatrix):
                 key = (route, kv.stage_width(A.offsets, n, 256) if route == "bulk" else 1)
             if wrapper.taken[key] != counts[wrapper].get(key, 0) + 3:
                 raise RuntimeError(f"{name} N={N}: did not take {key}")
-            first_err, first_bits = check(name + " first", first, A, X, bits=False)
             log(f"variant check {name} n={n} tile 256 {key}: max_abs_err {err:.3e}"
-                f"{', bits of K1' if staged else ''}; first version {first_err:.3e}"
-                f"{', bits of K1' if first_bits else ''}")
+                f"{', bits of K1' if staged else ''}")
         Ar = DIAMatrix(data=torch.randn(A.data.shape, generator=gen, device="cuda"),
                        offsets=A.offsets, shape=A.shape)
         X5 = X[:5].contiguous()
@@ -1236,14 +1170,14 @@ def phase_variant_check(torch, kv, kd, problems, DIAMatrix):
                 errs[f"B s={sl} d={q} T={T} rows={r}"] = check(
                     f"B s={sl} d={q} T={T} rows={r}",
                     lambda x, A_, sl=sl, q=q, T=T, r=r: kv.spmm_b(A_, x, sl, q, tile=T, rows=r),
-                    Ar, X5, bits=n % 4 == 0)[0]
+                    Ar, X5, bits=n % 4 == 0)
         for variant, fn in (("c", kv.spmm_c), ("d", kv.spmm_d)):
             for (T, r), g in kv.stage_settings(variant, Ar.offsets, n):
                 if g.fits:
                     errs[f"{variant} T={T} rows={r}"] = check(
                         f"{variant.upper()} T={T} rows={r}",
                         lambda x, A_, fn=fn, T=T, r=r: fn(A_, x, tile=T, rows=r), Ar, X5,
-                        bits=True)[0]
+                        bits=True)
         log(f"variant check sweeps n={n} route {route}, random diagonals, m=5: "
             f"{len(errs)} settings, max_abs_err {max(errs.values()):.3e}, the staged bodies "
             "K1's bits")
@@ -1286,17 +1220,13 @@ def phase_measure(torch, kernels, pp, kv):
     copy_gbps = max(g for label, _, g, _ in copy_rows if "ALIASED" not in label)
     for label, t, g, _ in copy_rows:  # each row counts its own bytes, 136 MB or more
         check_streamed(f"COPY {label}", g * t * 1e9, t, copy_gbps)
-    # the kernel table's copy rows hold each body at its own best tile in
-    # the sweep (both timed in turns at every tile there); identd, which
-    # the sweep does not time, finds its own in copy_kernel_rows
-    def best(kind):
-        return int(max((g, label) for label, _, g, k in copy_rows
-                       if k == kind and label.startswith(("ident T=", "ident first T=")))[1]
-                   .split("=")[1])
-
-    best_tile, best_ident_tile = best("first"), best("kernel")
-    log("ROOFLINE " + json.dumps(dict(copy_gbps=copy_gbps, best_ident_tile=best_ident_tile,
-                                      best_first_tile=best_tile)))
+    # the kernel table's copy rows hold the kernel at its best tile in the
+    # sweep; identd, which the sweep does not time, finds its own in
+    # copy_kernel_rows
+    best_ident_tile = int(max((g, label) for label, _, g, k in copy_rows
+                              if k == "kernel" and label.startswith("ident T="))[1]
+                          .split("=")[1])
+    log("ROOFLINE " + json.dumps(dict(copy_gbps=copy_gbps, best_ident_tile=best_ident_tile)))
     variants, sweep, best_rows = {}, [], {}
     for row in kv.variant_table(None):
         rec = {k: v for k, v in row.items() if k not in ("label", "seconds")}
@@ -1341,20 +1271,17 @@ def phase_measure(torch, kernels, pp, kv):
     if idle:
         raise RuntimeError(f"cli: kernels launched no time on the measurement path: {idle}")
     log("CLI " + json.dumps(dict(seconds=seconds, launches=launches, results=results)))
-    return launches, dict(copy_gbps=copy_gbps, best_tile=best_tile,
-                          best_ident_tile=best_ident_tile), variants
+    return launches, dict(copy_gbps=copy_gbps, best_ident_tile=best_ident_tile), variants
 
 
-def copy_kernel_rows(torch, pp, x, d, errs, tile, first_tile, copy_gbps):
+def copy_kernel_rows(torch, pp, x, d, errs, tile, copy_gbps):
     """The kernel table's rows of the three copy kernels at the
     multivector's shape, each beside its plain version (one PyTorch call,
     so the library call too), by the probe's own timing helpers; ``ident``
-    and ``ident_alias`` at ``tile`` in turns with their first versions at
-    ``first_tile`` (``first_version_ms``: each body at its own best tile),
-    and by CUDA-graph replay, the kernel, its first version and the library
-    call in turns (``device_ms``, ``first_version_device_ms``,
-    ``library_device_ms``); ``identd`` at its own best of ``pp.TILES``, by
-    replay in turns with ``x + d[0]`` too. Every reading of the streamed
+    and ``ident_alias`` at ``tile``, and by CUDA-graph replay, the kernel
+    and the library call in turns (``device_ms``, ``library_device_ms``);
+    ``identd`` at its own best of ``pp.TILES``, by replay in turns with
+    ``x + d[0]`` too. Every reading of the streamed
     bytes is held under 1.05 x ``copy_gbps`` (``check_streamed``)."""
     from dune_eigensolver_tpu_torch.bench.timing import bench_loop, in_turns, replay_ms
 
@@ -1374,22 +1301,12 @@ def copy_kernel_rows(torch, pp, x, d, errs, tile, first_tile, copy_gbps):
         def timed(fn):
             return bench_loop(fn, x.clone(), K=30) * 1e3
 
-        more = {}
-        if name in pp.FIRST_VERSIONS:
-            first = pp.FIRST_VERSIONS[name]
-            ms, more["first_version_ms"] = in_turns([step, lambda v: first(first_tile, v)],
-                                                    timed)
-            more.update(body=getattr(pp, name).body, first_version_tile=first_tile)
-            # the device times, by replaying a CUDA graph of ten calls, in turns
-            xr = x.clone()
-            (more["device_ms"], more["first_version_device_ms"],
-             more["library_device_ms"]) = in_turns(
-                [lambda: step(xr), lambda: first(first_tile, xr), lambda: plain(xr)], replay_ms)
-        else:
-            ms = timed(step)
-            xr = x.clone()
-            more["device_ms"], more["library_device_ms"] = in_turns(
-                [lambda: step(xr), lambda: plain(xr)], replay_ms)
+        ms = timed(step)
+        more = {} if name == "identd" else dict(body=getattr(pp, name).body)
+        # the device times, by replaying a CUDA graph of ten calls, in turns
+        xr = x.clone()
+        more["device_ms"], more["library_device_ms"] = in_turns(
+            [lambda: step(xr), lambda: plain(xr)], replay_ms)
         plain_ms = timed(plain)
         at = d_tile if name == "identd" else tile
         gbps = check_streamed(f"COPYKERNEL {name}", streamed, ms * 1e-3, copy_gbps)
@@ -1468,7 +1385,7 @@ def phase_library(torch, cases):
     return out
 
 
-#: kernel of csrc/gather_probe.cu -> the lines of the TPU probes it serves
+#: kernel of csrc/experiments/gather_probe.cu -> the lines of the TPU probes it serves
 #: (experiments/mosaic_gather_probe.py)
 PROBE_LINES = {
     "gather_lanes_smem": "31,44,147", "gather_lanes_shfl": "31", "gather_lanes_global": "31",
@@ -1493,8 +1410,8 @@ def phase_study_check(torch, ga, gp):
             errs = ga.check_variants(A, X)  # raises on a mismatch; full: bit for bit
             torch.cuda.synchronize()
             log(f"ablate check n={n} k={A.k} m={m} index {A.kernel_streams[1].element_size()} "
-                f"bytes: K2's first version and the full body at {len(ga.SWEEP)} (rows, kc) "
-                "settings == ell_spmm_t_cuda; max_abs_err " + json.dumps(errs))
+                f"bytes: the full body at {len(ga.SWEEP)} (rows, kc) settings == "
+                "ell_spmm_t_cuda; max_abs_err " + json.dumps(errs))
     from dune_eigensolver_tpu_torch.utils import native
 
     ablate_sass_check(ga, native)
@@ -1530,11 +1447,8 @@ def phase_study(torch, study_kernels, ga, gp, copy_gbps):
         raise RuntimeError(f"study: kernels launched no time on the study path: {idle}")
     variants = [r for r in ablate_rows if "variant" in r]
     sweep = [r for r in ablate_rows if "kc" in r]
-    firsts = [r for r in ablate_rows if r.get("first")]
-    if (len(variants) != 2 * len(ga.VARIANTS) or len(sweep) != 2 * len(ga.SWEEP)
-            or len(firsts) != 2):
-        raise RuntimeError(f"study: {len(variants)} variant rows, {len(sweep)} sweep rows, "
-                           f"{len(firsts)} first-version rows")
+    if len(variants) != 2 * len(ga.VARIANTS) or len(sweep) != 2 * len(ga.SWEEP):
+        raise RuntimeError(f"study: {len(variants)} variant rows, {len(sweep)} sweep rows")
     numbers = [r["us"] for r in ablate_rows] + [r["us"] for r in forms.values()]
     if not all(np.isfinite(x) and x > 0 for x in numbers):
         raise RuntimeError(f"study: non-finite or non-positive times {numbers}")
@@ -1549,24 +1463,20 @@ def phase_study(torch, study_kernels, ga, gp, copy_gbps):
             if row[key] is not None:
                 check_streamed(f"FORM {row['name']} {key}", row["streamed_bytes"],
                                row[key] * 1e-6, copy_gbps)
-    # each redesigned kernel, timed in turns with its first version; the
-    # timed shape lies on 16 bytes everywhere, so the row copy must take
-    # float4 moves and the scratch form and the gather across rows their
-    # bulk copies
+    # each redesigned kernel: the timed shape lies on 16 bytes everywhere,
+    # so the row copy must take float4 moves and the scratch form and the
+    # gather across rows their bulk copies
     expect = {"lane_slice": ("width", 4), "block_select": ("width", 4),
               "block_select_scratch": ("body", "bulk"), "gather_axis0": ("body", "bulk")}
-    if set(expect) != set(gp.FIRST_VERSIONS):
-        raise RuntimeError(f"study: first versions {sorted(gp.FIRST_VERSIONS)}")
     for name, (attr, want) in expect.items():
         row, fn = forms[name], gp.KERNELS[name]
         taken = getattr(fn, attr)
-        if taken != want or not row["first_us"] > 0:
-            raise RuntimeError(f"study: {name} took {taken}, first version {row['first_us']} us")
+        if taken != want:
+            raise RuntimeError(f"study: {name} took {taken}, expected {want}")
         log("REDESIGN " + json.dumps(dict(
             name=name, shape=row["shape"], taken=taken, us=row["us"], eager_us=row["eager_us"],
-            first_us=row["first_us"], library_us=row["library_us"],
-            library_eager_us=row["library_eager_us"], plain_us=row["plain_us"], share=row["share"],
-            first_share=row["share"] * row["us"] / row["first_us"],
+            library_us=row["library_us"], library_eager_us=row["library_eager_us"],
+            plain_us=row["plain_us"], share=row["share"],
             vs_library=row["us"] / row["library_us"],
             eager_vs_library_eager=row["eager_us"] / row["library_eager_us"])))
     best = {}
@@ -1577,10 +1487,10 @@ def phase_study(torch, study_kernels, ga, gp, copy_gbps):
         seconds=time.perf_counter() - t0, launches=launches, ell_spmm_t_by_operand=k2_by_operand,
         best_sweep={k: dict(rows=r["rows"], kc=r["kc"], us=r["us"], share=r["share"])
                     for k, r in best.items()},
-        k2_shares={r["operand"]: {v["variant"]: dict(share=v["share"], copy_share=v["copy_share"],
-                                                     streamed_gbps=v["streamed_gbps"])
-                                  for v in variants if v["operand"] == r["operand"]}
-                   for r in firsts},
+        k2_shares={name: {v["variant"]: dict(share=v["share"], copy_share=v["copy_share"],
+                                             streamed_gbps=v["streamed_gbps"])
+                          for v in variants if v["operand"] == name}
+                   for name, _ in operands},
     )))
     return launches, k2_by_operand, operands, ablate_rows, forms
 
@@ -3107,12 +3017,8 @@ def main():
 
     kernels = {"dia_spmm_t": kd.dia_spmm_t_cuda, "ell_spmm_t": kg.ell_spmm_t_cuda,
                "bsr_spmm_t": kg.bsr_spmm_t_cuda, "spmm_c": kv.spmm_c, "spmm_b": kv.spmm_b,
-               "spmm_d": kv.spmm_d,
-               **{name + "_first": fn for name, fn in kv.FIRST_VERSIONS.items()},
-               "ident": pp.ident,
-               "identd": pp.identd,
-               "ident_alias": pp.ident_alias, "ident_first": pp.ident_first,
-               "ident_alias_first": pp.ident_alias_first,
+               "spmm_d": kv.spmm_d, "ident": pp.ident, "identd": pp.identd,
+               "ident_alias": pp.ident_alias,
                **{name: getattr(cs, name + "_cuda") for name in CG_STEP_KERNELS},
                "mg_tail": mt.mg_tail_cuda}
 
@@ -3123,10 +3029,13 @@ def main():
 
     phase_done("phase 1")
     # --- phase 2: build ---
-    t0 = time.perf_counter()
-    path, build_log = native.build()
-    native.load()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)}")
+    logs = {}
+    for name, csrc in (("solver", native.SOLVER), ("studies", native.STUDIES)):
+        t0 = time.perf_counter()
+        path, logs[name] = native.build(csrc)
+        native.load(csrc)
+        log(f"build {name}: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)}")
+    build_log = logs["solver"] + logs["studies"]
     t0 = time.perf_counter()
     host_path, host_log = native.build_host()
     native.load_host()
@@ -3138,8 +3047,9 @@ def main():
             log("  ptxas: " + line.strip())
 
     regs = ell_registers(build_log)
-    k2 = {k: v for k, v in regs.items() if k.startswith("v=0 rows=8 kc=9 cap=6 f32 int32")
-          or k.startswith(("v=0 rows=8 kc=9 cap=5 f32 int16", "v=0 rows=4 kc=9 cap=3 f64"))}
+    k2 = {k: v for k, v in ell_registers(logs["solver"]).items()
+          if k.startswith(("v=0 rows=8 kc=9 cap=6 f32 int32", "v=0 rows=8 kc=9 cap=5 f32 int16",
+                           "v=0 rows=4 kc=9 cap=3 f64"))}
     log("REGISTERS " + json.dumps(dict(k2=k2, ell_body=regs)))
 
     phase_done("phase 2")
@@ -3318,7 +3228,7 @@ def main():
     cli_launches, roofline, variants = phase_measure(torch, kernels, pp, kv)
     copy_gbps = roofline["copy_gbps"]
     copies = copy_kernel_rows(torch, pp, x8, d5, copy_errs, roofline["best_ident_tile"],
-                              roofline["best_tile"], copy_gbps)
+                              copy_gbps)
     del x8, d5
     torch.cuda.empty_cache()
 
@@ -3341,9 +3251,7 @@ def main():
 
     study_kernels = {"ell_spmm_t": kg.ell_spmm_t_cuda, "ablate_full": ga.ablate_full,
                      "ablate_nogather": ga.ablate_nogather, "ablate_nodyn": ga.ablate_nodyn,
-                     "ablate_nofma": ga.ablate_nofma, "ablate_first": ga.ablate_first,
-                     **gp.KERNELS,
-                     **{name + "_first": fn for name, fn in gp.FIRST_VERSIONS.items()}}
+                     "ablate_nofma": ga.ablate_nofma, **gp.KERNELS}
     phase_study_check(torch, ga, gp)
     study_launches, k2_by_operand, ablate_ops, ablate_rows, forms = phase_study(
         torch, study_kernels, ga, gp, copy_gbps)
@@ -3413,6 +3321,7 @@ def main():
                      2.0 * rec["nnz"] * rec["m"], library[rec["case"]], **more)
 
     csrc = "dune_eigensolver_tpu_torch/csrc/"
+    studies = csrc + "experiments/"
     gathered = {r["case"]: r for r in gather}
     k1 = next(r for r in records if r["case"] == "3d N=216 m=24 f32")
     k1_bytes = (7 * k1["n"] + 2 * k1["n"] * k1["m"]) * 4
@@ -3504,13 +3413,10 @@ def main():
     v_bytes = (5 * n2 + 2 * n2 * m2) * 4  # bytes_spmm_dia
     v_flops = 2.0 * (5 * n2 - 2 * 2048 - 2) * m2
     def staged(rec):
-        # a staged body's setting and its first version's time in turns (replay)
+        # a staged body's setting and its time by replay
         return dict(device_ms=rec["ms"], route=rec["route"], width=rec["width"],
                     threads=rec["threads"], tile=rec["tile"], rows=rec["rows"],
-                    staged_per_consumed=rec["staged_per_consumed"], k1_bits=rec["k1_bits"],
-                    first_version_ms=rec["first_seconds"] * 1e3,
-                    first_version_max_abs_err=rec["first_max_abs_err"],
-                    first_version_k1_bits=rec["first_k1_bits"])
+                    staged_per_consumed=rec["staged_per_consumed"], k1_bits=rec["k1_bits"])
 
     def best_of(group):
         b = variants["best"][group]
@@ -3524,14 +3430,13 @@ def main():
         rec = dict(variants[variant], plain_ms=variants["plain"]["ms"],
                    case=f"2d N=2048 m=8 f32 tile {variants[variant]['tile']} rows "
                    f"{variants[variant]['rows']} ({variant})")
-        more = dict(staged(rec), first_version_launches=cli_launches[name + "_first"])
+        more = staged(rec)
         if name == "spmm_b":
             # the three rings at the table's tile, each at the rows that fit,
             # and each ring's fastest setting of the sweep
             rings = [f"B s={s} d={q}" for s, q in kv.B_RINGS]
             more.update(rings_ms={r: variants[r]["ms"] for r in rings},
                         rings_rows={r: variants[r]["rows"] for r in rings},
-                        first_version_ms={r: variants[r]["first_seconds"] * 1e3 for r in rings},
                         best={r: best_of(r) for r in rings})
         elif name == "spmm_c":
             more["best"] = best_of("C")
@@ -3539,44 +3444,36 @@ def main():
             inplace = variants["D in-place"]
             more.update(best=best_of("D"),
                         in_place=dict(ms=inplace["ms"], max_abs_err=inplace["max_abs_err"],
-                                      first_version_ms=inplace["first_seconds"] * 1e3,
                                       copy_share=v_bytes / copy_gbps / 1e6 / inplace["ms"]))
-        table.append(entry(name, csrc + "dia_stage_" + name[-1] + ".cu" if name != "spmm_b"
-                           else csrc + "dia_variants.cu", f"experiments/kernel_variants.py:{line}",
+        table.append(entry(name, studies + "dia_stage_" + name[-1] + ".cu" if name != "spmm_b"
+                           else studies + "dia_variants.cu", f"experiments/kernel_variants.py:{line}",
                            cli_launches[name], rec, v_bytes, v_flops,
                            library["2d N=2048 m=8 f32"], **more))
     for name, line in (("ident", 42), ("identd", 57), ("ident_alias", 113)):
         rec = copies[name]
-        more = {k: rec[k] for k in ("tile", "first_version_ms", "first_version_tile", "body",
-                                    "device_ms", "first_version_device_ms", "library_device_ms",
+        more = {k: rec[k] for k in ("tile", "body", "device_ms", "library_device_ms",
                                     "device_streamed_gbps")
                 if k in rec}
-        if name in pp.FIRST_VERSIONS:
-            more["first_version_launches"] = cli_launches[name + "_first"]
-        table.append(entry(name, csrc + "copy_probe.cu", f"experiments/pipeline_probe.py:{line}",
+        table.append(entry(name, studies + "copy_probe.cu", f"experiments/pipeline_probe.py:{line}",
                            cli_launches[name], rec, rec["nbytes"], rec["flops"],
                            rec["library_ms"], **more))
     # the ablation on the reference's operand (elasticity_2d(512) scaled,
     # int16 offsets); the graph's numbers beside. ``full``'s row in ABLATE
     # times K2 itself; the ablation source's full body is timed by the
-    # sweep, here at K2's setting, and K2's first version on its own
+    # sweep, here at K2's setting
     e_rows = {r["variant"]: r for r in ablate_rows
               if r["operand"] == "elasticity_512" and "variant" in r}
     sweep_ms = {}
     for r in (r for r in ablate_rows if "kc" in r):
         sweep_ms.setdefault(r["operand"], {})[f"rows={r['rows']} kc={r['kc']}"] = r["us"] / 1e3
-    first_ms = {r["operand"]: r["us"] / 1e3 for r in ablate_rows if r.get("first")}
-    first_eager_ms = {r["operand"]: r["eager_us"] / 1e3 for r in ablate_rows if r.get("first")}
     graph_rows = {r["variant"]: r for r in ablate_rows
                   if r["operand"] != "elasticity_512" and "variant" in r}
     full = e_rows["full"]
     k2_key = "rows={} kc={}".format(*ga.K2_SETTING)
-    for v in ("full", "nogather", "nodyn", "nofma", "first"):
-        row = full if v == "first" else e_rows[v]
-        ms = {"full": sweep_ms["elasticity_512"][k2_key],
-              "first": first_ms["elasticity_512"]}.get(v, row["us"] / 1e3)
-        what = {"full": f"K2's body at rows {ga.K2_SETTING[0]} kc {ga.K2_SETTING[1]}",
-                "first": "K2's first version"}.get(v, v)
+    for v in ga.VARIANTS:
+        row = e_rows[v]
+        ms = sweep_ms["elasticity_512"][k2_key] if v == "full" else row["us"] / 1e3
+        what = f"K2's body at rows {ga.K2_SETTING[0]} kc {ga.K2_SETTING[1]}" if v == "full" else v
         rec = dict(max_abs_err=row["max_abs_err"], ms=ms, plain_ms=row["plain_us"] / 1e3,
                    case=f"ell elasticity N=512 scalar scaled k={row['k']} m={row['m']} f32 "
                    f"({what}; {ms / (full['us'] / 1e3):.3f} of K2's time)")
@@ -3584,26 +3481,22 @@ def main():
         # ms: device time by replay; eager_ms: the reference's chain of
         # launches (K2's own for ``full``)
         more = dict(k2_ms=full["us"] / 1e3, share_of_k2=ms / (full["us"] / 1e3),
-                    index_bytes=row["index_bytes"],
-                    eager_ms=first_eager_ms["elasticity_512"] if v == "first"
-                    else row["eager_us"] / 1e3)
+                    index_bytes=row["index_bytes"], eager_ms=row["eager_us"] / 1e3)
         if v == "full":
             more["sweep_ms"] = sweep_ms
-        elif v == "first":
-            more["graph_ms"] = first_ms[graph_rows["full"]["operand"]]
         else:
             g = graph_rows[v]
             more.update(graph_ms=g["us"] / 1e3, graph_share_of_k2=g["share"],
                         graph_copy_share=g["copy_share"],
                         graph_streamed_bytes=g["streamed_bytes"],
                         graph_streamed_gbps=g["streamed_gbps"])
-        if v != "first":  # what the body moves (K2's body at (8, 9) moves K2's)
-            more.update(streamed_bytes=row["streamed_bytes"],
-                        streamed_gbps=row["streamed_bytes"] / ms / 1e6)
+        # what the body moves (K2's body at (8, 9) moves K2's)
+        more.update(streamed_bytes=row["streamed_bytes"],
+                    streamed_gbps=row["streamed_bytes"] / ms / 1e6)
         # nofma's function as one PyTorch call, Xt + data_t[0]
-        library_ms = (ablate_library if v in ("full", "first") else
+        library_ms = (ablate_library if v == "full" else
                       row["library_us"] / 1e3 if row["library_us"] is not None else None)
-        table.append(entry(f"ablate_{v}", csrc + "ell_ablate.cu", "experiments/gather_ablate.py:35",
+        table.append(entry(f"ablate_{v}", studies + "ell_ablate.cu", "experiments/gather_ablate.py:35",
                            study_launches[f"ablate_{v}"], rec, row["nbytes"], flops,
                            library_ms, **more))
     for name, lines in PROBE_LINES.items():
@@ -3614,19 +3507,12 @@ def main():
                    plain_ms=row["plain_us"] / 1e3,
                    case="x".join(str(d) for d in row["shape"]) + " f32")
         flops = row["nbytes"] // 9 if name == "int8_widen" else 0  # one add per 9 bytes
-        # nbytes: the function's (a block selection: one block in, one out);
-        # what the scratch form's first version staged beyond that stands
-        # beside its time
+        # nbytes: the function's (a block selection: one block in, one out)
         more = {"eager_ms": row["eager_us"] / 1e3,
                 "library_eager_ms": row["library_eager_us"] / 1e3}
-        if row["first_us"] is not None:
-            more.update(first_version_ms=row["first_us"] / 1e3,
-                        first_version_launches=study_launches[name + "_first"])
-            fn = gp.KERNELS[name]
-            more.update({k: getattr(fn, k) for k in ("body", "width") if hasattr(fn, k)})
-        if row["first_streamed_bytes"] is not None:
-            more["first_version_streamed_bytes"] = row["first_streamed_bytes"]
-        table.append(entry(name, csrc + "gather_probe.cu",
+        fn = gp.KERNELS[name]
+        more.update({k: getattr(fn, k) for k in ("body", "width") if hasattr(fn, k)})
+        table.append(entry(name, studies + "gather_probe.cu",
                            "experiments/mosaic_gather_probe.py:" + lines,
                            study_launches[name], rec, row["nbytes"], flops,
                            row["library_us"] / 1e3, share_of_form_copy=row["share"],

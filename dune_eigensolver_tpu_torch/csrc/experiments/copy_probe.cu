@@ -352,4 +352,9 @@ int copy_add_row_launch(const void* d, const void* x, void* y, int rows,
   return (int)cudaGetLastError();
 }
 
+// the study library's copy of csrc/dia_spmm.cu's, read by utils/native.py::check
+const char* dune_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
 }  // extern "C"

@@ -1,7 +1,7 @@
-// What the DIA staging variants (csrc/dia_variants.cu, dia_stage_c.cu,
-// dia_stage_d.cu) share: the offsets struct, the cp.async staging of the
-// first versions, and the compute body of the staged variants, for Hopper
-// (sm_90a).
+// What the DIA staging variants (dia_variants.cu, dia_stage_c.cu,
+// dia_stage_d.cu) share: the offsets struct, the cp.async staging (B's
+// first version and the async routes of C and D), and the compute body of
+// the staged variants, for Hopper (sm_90a).
 //
 // The body computes one output tile of
 //

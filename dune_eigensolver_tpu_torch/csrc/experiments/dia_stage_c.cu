@@ -5,15 +5,15 @@
 // (H the halo, rounded up) into one of two slots, the next tile's window in
 // flight while this one is consumed, so every tile re-reads its two halos.
 // That re-read is what variant C studies, and it stays. What this source
-// changes is everything else, which the first version
-// (csrc/dia_variants.cu::dia_c_kernel, `spmm_c_first`) took from a port and
+// changes is everything else, which the first version (since
+// deleted once this body had beaten it on the card) took from a port and
 // not from the reference, whose _kernel_c applies the pipelined (ndiag, T)
 // coefficient tile to all rows of the window at once:
 //   * the tile's coefficients are staged with its window, into the same
 //     slot, and serve every row the block holds (the first version read
 //     them from device memory once per row group and per column batch,
 //     a dependent round trip before the first product);
-//   * the compute body is K1's (csrc/dia_body.cuh::stage_tile: 4 columns a
+//   * the compute body is K1's (dia_body.cuh::stage_tile: 4 columns a
 //     thread as 16-byte loads, +-1 neighbours by shuffle, two rows in
 //     flight, one FMA chain in offset order), so the result is K1's bits;
 //   * the staging is off the compute threads. Route 1 (n on the 16-byte

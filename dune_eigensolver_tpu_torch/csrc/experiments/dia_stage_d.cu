@@ -8,12 +8,12 @@
 // every chunk's two boundary tiles into `side` first, and the in-place
 // kernel takes its halos from there, since the neighbouring block
 // overwrites them. That ring is what variant D studies, and it stays. As
-// for C (csrc/dia_stage_c.cu), what changes is what the first version
-// (csrc/dia_variants.cu::dia_d_kernel, `spmm_d_first`) took from a port:
+// for C (dia_stage_c.cu), what changes is what the first version
+// (deleted once this body had beaten it on the card) took from a port:
 //   * the (ndiag, T) coefficient tile of each step is staged, two slots
 //     deep, beside the ring (the reference pipelines it as a BlockSpec
 //     input), and serves every row the block holds;
-//   * the compute body is K1's (csrc/dia_body.cuh::stage_tile), so the
+//   * the compute body is K1's (dia_body.cuh::stage_tile), so the
 //     result is K1's bits;
 //   * route 1 (n on the 16-byte grid): a producer warp, one elected lane,
 //     fills ring slots and coefficient slots with bulk copies (one a row of

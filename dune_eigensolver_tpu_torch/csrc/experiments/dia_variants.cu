@@ -1,49 +1,37 @@
-// Three ways of staging X for the tall-skinny DIA SpMM, for Hopper (sm_90a).
+// Variant B of the DIA staging study, for Hopper (sm_90a), and the
+// occupancy queries of all three variants (dia_stage_c.cu, dia_stage_d.cu).
 //
-// Replace experiments/kernel_variants.py::_kernel_c (launched by spmm_c),
-// ::_kernel_b (spmm_b) and ::_kernel_d (spmm_d): the experiment that chose
-// the TPU kernel's design. All three compute the function of
-// csrc/dia_spmm.cu,
+// Replaces experiments/kernel_variants.py::_kernel_b (launched by spmm_b),
+// the experiment that chose the TPU kernel's design. It computes the
+// function of csrc/dia_spmm.cu,
 //
 //     Y[r, i] = sum_d data[d, i] * X[r, i + off_d],   zero outside [0, n)
 //
-// on X and Y contiguous (m, n) f32 and data (ndiag, n) f32, and differ only
-// in how a block brings X into shared memory:
+// on X and Y contiguous (m, n) f32 and data (ndiag, n) f32, staging X into
+// shared memory through a ring of `nslots` windows of width T + span + 256
+// starting at fl_base = floor(min offset / 128) * 128, with `depth` windows
+// in flight; a persistent block walks consecutive tiles.
 //
-//   C  a block stages the (rows, T + 2H) window of one tile (H = the halo,
-//      rounded up) into one of two slots; the next tile's window is in
-//      flight while this one is consumed. Every tile re-reads its two halos.
-//   B  the same through a ring of `nslots` windows of width T + span + 256
-//      starting at fl_base = floor(min offset / 128) * 128, with `depth`
-//      windows in flight. A persistent block walks consecutive tiles.
-//   D  a persistent block walks a contiguous chunk of tiles and keeps a
-//      rolling cache of X tiles (left, centre, right, and one being fetched
-//      ahead): each step asks for one new right-hand tile, so X crosses
-//      device memory once plus two warm-up tiles per chunk. Needs
-//      max|off| <= T. With `alias` Y is written over X.
-//
-// This source holds the first versions of all three (dia_c_kernel,
-// dia_b_first_kernel, dia_d_kernel: `spmm_c_first`, `spmm_b_first`,
-// `spmm_d_first`), whose every thread stages 16- or 4-byte pieces with
-// cp.async (zero-filling) and whose compute body, compute_tile, reads each
-// coefficient from device memory once per row group and column batch, one
-// column a thread, with a block barrier a tile; and B's ring on Hopper's
-// bulk copies (dia_b_kernel): the reference runs the ring on the DMA engine
-// (make_async_copy and DMA semaphores), its counterpart here is the bulk
-// copy (TMA without a tensor map, csrc/bulk_copy.cuh): one thread arms the
-// slot's mbarrier with the window's bytes and issues one bulk copy per row
-// of the window's part inside [0, n), and the coefficient tile of the next
-// step beside it; the compute threads wait on the slot's phase parity and
-// release the slot with a block barrier at the end of the step. Its compute
-// body is the staged one C and D run (csrc/dia_body.cuh, dia_stage_c.cu,
-// dia_stage_d.cu), so that the three staging schemes are compared on one
-// body. Bulk copies do not zero-fill: in a window that reaches outside [0,
-// n) the compute threads write zeros over those columns (the data of a DIA
-// operand may be non-zero there, and the function reads X as zero), then
-// fence them to the async proxy before the slot's next bulk copy. Bulk
-// copies need 16-byte addresses and sizes, so B's bulk body needs
-// n % 4 == 0; off that grid the launcher takes B's first version (`body`
-// 0).
+// The ring runs on Hopper's bulk copies (dia_b_kernel): the reference runs
+// it on the DMA engine (make_async_copy and DMA semaphores), its
+// counterpart here is the bulk copy (TMA without a tensor map,
+// bulk_copy.cuh): one thread arms the slot's mbarrier with
+// the window's bytes and issues one bulk copy per row of the window's part
+// inside [0, n), and the coefficient tile of the next step beside it; the
+// compute threads wait on the slot's phase parity and release the slot
+// with a block barrier at the end of the step. Its compute body is the
+// staged one C and D run (dia_body.cuh), so that the three
+// staging schemes are compared on one body. Bulk copies do not zero-fill:
+// in a window that reaches outside [0, n) the compute threads write zeros
+// over those columns (the data of a DIA operand may be non-zero there, and
+// the function reads X as zero), then fence them to the async proxy before
+// the slot's next bulk copy. Bulk copies need 16-byte addresses and sizes,
+// so the bulk body needs n % 4 == 0; off that grid the launcher takes the
+// ring's first version (`body` 0, dia_b_first_kernel), whose every thread
+// stages 16- or 4-byte pieces with cp.async (zero-filling) and whose
+// compute body, compute_tile, reads each coefficient from device memory
+// once per row group and column batch, one column a thread, with a block
+// barrier a tile.
 //
 // What differs from the TPU kernels, and why. The TPU grid runs its tiles
 // in order on one core; here blocks run concurrently, so the sequential
@@ -53,24 +41,18 @@
 // per block, blocks of one tile range adjacent in the grid so that the
 // coefficient tile they share is read from device memory once and from L2
 // after that) and the tile is 2048 or a few times that, where the halo
-// re-read of C and B is a multiple of the tile instead of 12%: those
-// re-reads are meant to hit in L2. The tiles are dealt out to exactly as
-// many blocks as the card holds at once (dia_variant_blocks_per_sm,
+// re-read is a multiple of the tile instead of 12%: those re-reads are
+// meant to hit in L2. The tiles are dealt out to exactly as many blocks as
+// the card holds at once (dia_variant_blocks_per_sm,
 // dia_stage_blocks_per_sm), since a persistent block that waits for a
 // second wave costs a whole share of the run. The pre-padded (m, n + 2H)
 // buffer is gone: cp.async zero-fills columns outside [0, n), and the bulk
 // bodies write those zeros themselves, so X stays a plain (m, n) tensor.
-// In place (D): on the TPU tile j-1 is written after tile j was read
-// because the grid is sequential; here the tile next to a chunk is
-// overwritten by the neighbouring block while this one still needs its old
-// values, so a pre-pass (dia_d_save_halo) copies every chunk's two boundary
-// tiles into a side buffer and the in-place kernel takes its halos from
-// there.
 //
-// What bounds them: device-memory bytes, (ndiag*n + 2*m*n) * 4 at least,
-// as for csrc/dia_spmm.cu. Copies are 16 bytes per cp.async when n, the
+// What bounds it: device-memory bytes, (ndiag*n + 2*m*n) * 4 at least, as
+// for csrc/dia_spmm.cu. Copies are 16 bytes per cp.async when n, the
 // window starts and the pointers allow it, else 4 bytes (any n works); the
-// bulk bodies move a window row in one bulk copy.
+// bulk body moves a window row in one bulk copy.
 //
 // Interface: plain C for ctypes; launches go on the caller's stream and
 // return cudaGetLastError() (or the error of the shared-memory opt-in).
@@ -126,35 +108,6 @@ __device__ __forceinline__ void compute_tile(Where where, int stride,
   }
 }
 
-// --- variant C: two slots, the window T + 2H re-read for every tile ---
-// Block b: row group b % G, walker b / G over tiles walker, walker + nwalk, ...
-template <int ND>
-__global__ void __launch_bounds__(DV_THREADS)
-dia_c_kernel(const float* __restrict__ data, const float* __restrict__ x,
-             float* __restrict__ y, int n, int m, int T, int H, int rows, int G,
-             int nwalk, int ntiles, DvOffsets offs, int vec) {
-  const int row0 = (blockIdx.x % G) * rows;
-  const int walker = blockIdx.x / G;
-  const int W = T + 2 * H;
-  const int slot = rows * W;
-  if (walker < ntiles)
-    stage(dv_smem, x, n, n, row0, rows, m, (long long)walker * T - H, W, vec);
-  cp_commit();
-  int k = 0;
-  for (int t = walker; t < ntiles; t += nwalk, ++k) {
-    const int next = t + nwalk;
-    if (next < ntiles)
-      stage(dv_smem + ((k + 1) & 1) * slot, x, n, n, row0, rows, m,
-            (long long)next * T - H, W, vec);
-    cp_commit();  // an empty group when there is no next tile
-    cp_wait(1);
-    __syncthreads();
-    compute_tile<ND>(WindowAt{(k & 1) * slot, -H}, W, data, y, n, m, row0, rows,
-                     (long long)t * T, T, offs);
-    __syncthreads();  // before the next step's copy lands in this slot
-  }
-}
-
 // --- variant B: ring of nslots windows fed by bulk copies, depth in flight ---
 // Block b: row group b % G, chunk b / G of tpc consecutive tiles. Window k
 // of the chunk holds columns g0 .. g0 + W - 1 of X, g0 = (t0 + k) * T + lo,
@@ -162,7 +115,7 @@ dia_c_kernel(const float* __restrict__ data, const float* __restrict__ x,
 // the window's bytes have landed; the coefficient tile of step k lands in
 // coefficient slot k % 2, one step ahead, on a barrier of its own. Thread 0
 // issues every copy; every thread computes with the staged body
-// (csrc/dia_body.cuh), so where the ring's shared memory leaves one block
+// (dia_body.cuh), so where the ring's shared memory leaves one block
 // an SM the block takes THREADS = 512, else 256
 // (experiments/kernel_variants.py::ring_geometry chooses).
 template <int V, int ND, int THREADS>
@@ -275,68 +228,10 @@ dia_b_first_kernel(const float* __restrict__ data, const float* __restrict__ x,
   }
 }
 
-// --- variant D: rolling cache of X tiles, optionally in place ---
-// Tile t of chunk [t0, t1) lives in ring slot (t - t0 + 1) % DV_D_RING. Step
-// j reads tiles j - 1, j, j + 1 and asks for tile j + 2, which takes the slot
-// of tile j - 2: one tile is in flight ahead of the three in use. (Rings of 6
-// and 8 tiles were timed on the H100: 6 ties with 4, 8 leaves one block per
-// SM and loses.)
-// x and y may be one buffer (alias): then the halos t0 - 1 and t1 come from
-// `side`, (nchunks, 2, m, T), filled by dia_d_save_halo before this kernel.
-template <int ND>
-__global__ void __launch_bounds__(DV_THREADS)
-dia_d_kernel(const float* __restrict__ data, const float* x, float* y,
-             const float* __restrict__ side, int n, int m, int T, int rows, int G,
-             int tpc, int ntiles, DvOffsets offs, int alias, int vec) {
-  constexpr int ring = DV_D_RING;
-  const int row0 = (blockIdx.x % G) * rows;
-  const int chunk = blockIdx.x / G;
-  const int t0 = chunk * tpc;
-  const int t1 = min(t0 + tpc, ntiles);
-  const int slot = rows * T;
-  constexpr int ahead = ring - 3;
-
-  // one commit group per tile, empty beyond the right halo t1
-  auto load = [&](int t) {
-    if (t <= t1) {
-      float* dst = dv_smem + ((t - t0 + 1) % ring) * slot;
-      if (alias && (t < t0 || t >= t1))
-        stage(dst, side + (size_t)(2 * chunk + (t >= t1)) * m * T, T, T, row0, rows,
-              m, 0, T, true);
-      else
-        stage(dst, x, n, n, row0, rows, m, (long long)t * T, T, vec);
-    }
-    cp_commit();
-  };
-
-  for (int t = t0 - 1; t <= t0 + ahead; ++t) load(t);
-  for (int j = t0; j < t1; ++j) {
-    load(j + 1 + ahead);
-    cp_wait(ahead);  // tiles up to j + 1 have landed
-    __syncthreads();
-    // column c + off lies in [-T, 2T): the left, centre or right tile. Tile
-    // j of X is in shared memory, so in place the store of Y's tile j is safe
-    const int centre = (j - t0 + 1) % ring;
-    const int left = (centre + ring - 1) % ring * slot, right = (centre + 1) % ring * slot;
-    auto where = [&](int p) {
-      return p < 0 ? left + p + T : (p >= T ? right + p - T : centre * slot + p);
-    };
-    compute_tile<ND>(where, T, data, y, n, m, row0, rows, (long long)j * T, T, offs);
-    __syncthreads();  // before the slot of tile j - 1 is refilled
-  }
-}
-
-// the first version of variant 0 (C), 2 (D) or 3 (B) for this many diagonals
-static const void* variant_kernel(int variant, int ndiag) {
-  const bool small = ndiag <= 8;
-  switch (variant) {
-    case 0: return small ? (const void*)dia_c_kernel<8> : (const void*)dia_c_kernel<DV_MAX_DIAG>;
-    case 2: return small ? (const void*)dia_d_kernel<8> : (const void*)dia_d_kernel<DV_MAX_DIAG>;
-    case 3:
-      return small ? (const void*)dia_b_first_kernel<8>
-                   : (const void*)dia_b_first_kernel<DV_MAX_DIAG>;
-    default: return nullptr;
-  }
+// B's first version for this many diagonals
+static const void* first_kernel(int ndiag) {
+  return ndiag <= 8 ? (const void*)dia_b_first_kernel<8>
+                    : (const void*)dia_b_first_kernel<DV_MAX_DIAG>;
 }
 
 using BKernel = void (*)(const float*, const float*, float*, int, int, int, int, int, int,
@@ -360,17 +255,16 @@ extern "C" {
 const void* dia_c_stage_kernel(int route, int width, int ndiag, int threads);
 const void* dia_d_stage_kernel(int route, int width, int ndiag, int threads);
 
-// How many blocks of a first version one SM holds (variant 0 C, 2 D, 3 B)
-// when a block stages `slots` windows of `rows` rows and `window` floats:
-// its registers and shared memory decide. 0: the windows exceed a block's
-// shared memory. Negative: a CUDA error code, negated. The callers deal
-// the tiles out to exactly as many blocks as the card holds at once, so
-// that no block waits for a second wave.
-int dia_variant_blocks_per_sm(int variant, int ndiag, int slots, int rows, int window) {
-  const void* kernel = variant_kernel(variant, ndiag);
-  if (kernel == nullptr || ndiag < 1 || ndiag > DV_MAX_DIAG || slots < 1 || rows < 1 ||
-      window < 1)
+// How many blocks of B's first version one SM holds when a block stages
+// `slots` windows of `rows` rows and `window` floats: its registers and
+// shared memory decide. 0: the windows exceed a block's shared memory.
+// Negative: a CUDA error code, negated. The callers deal the tiles out to
+// exactly as many blocks as the card holds at once, so that no block waits
+// for a second wave.
+int dia_variant_blocks_per_sm(int ndiag, int slots, int rows, int window) {
+  if (ndiag < 1 || ndiag > DV_MAX_DIAG || slots < 1 || rows < 1 || window < 1)
     return -(int)cudaErrorInvalidValue;
+  const void* kernel = first_kernel(ndiag);
   const size_t bytes = (size_t)slots * rows * window * sizeof(float);
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes) != cudaSuccess) {
@@ -408,30 +302,6 @@ int dia_stage_blocks_per_sm(int variant, int route, int width, int ndiag, int th
   const cudaError_t e =
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, (size_t)bytes);
   return e == cudaSuccess ? blocks : -(int)e;
-}
-
-// Variant C, first version. H: halo rounded up by the caller (>= max|off|,
-// multiple of 4); rows: rows of X per block; nwalk: walkers per row group.
-int dia_c_launch(const void* data, const void* x, void* y, long long n, int m,
-                 int ndiag, const int* offsets, int T, int H, int rows, int nwalk,
-                 void* stream) {
-  DvOffsets offs;
-  if (dv_fill_offsets(&offs, ndiag, offsets) || n < 1 || n > 0x7fffffffLL || m < 1 ||
-      T < 1 || H < 0 || rows < 1 || nwalk < 1 || x == y)
-    return (int)cudaErrorInvalidValue;
-  for (int d = 0; d < ndiag; ++d)
-    if (offsets[d] > H || offsets[d] < -H) return (int)cudaErrorInvalidValue;
-  const int G = (m + rows - 1) / rows;
-  const int ntiles = (int)((n + T - 1) / T);
-  const size_t bytes = (size_t)2 * rows * (T + 2 * H) * sizeof(float);
-  auto kernel = ndiag <= 8 ? dia_c_kernel<8> : dia_c_kernel<DV_MAX_DIAG>;
-  int e = dv_opt_in_shared(kernel, bytes);
-  if (e) return e;
-  const int vec = n % 4 == 0 && T % 4 == 0 && H % 4 == 0 && dv_aligned16(x);
-  kernel<<<(unsigned)(G * nwalk), DV_THREADS, bytes, (cudaStream_t)stream>>>(
-      (const float*)data, (const float*)x, (float*)y, (int)n, m, T, H, rows, G,
-      nwalk, ntiles, offs, vec);
-  return (int)cudaGetLastError();
 }
 
 // Variant B. lo: window start relative to the tile (fl_base <= min offset);
@@ -480,39 +350,6 @@ int dia_b_launch(const void* data, const void* x, void* y, long long n, int m,
   kernel<<<(unsigned)(G * nchunks), DV_THREADS, bytes, s>>>(
       (const float*)data, (const float*)x, (float*)y, (int)n, m, T, lo, W, rows, G,
       tpc, ntiles, nslots, depth, offs, vec);
-  return (int)cudaGetLastError();
-}
-
-// Variant D, first version. y == x asks for the in-place form and needs
-// side, a buffer of ceil(ntiles / tpc) * 2 * m * T floats, 16-byte aligned;
-// T a multiple of 4 and >= max|off|.
-int dia_d_launch(const void* data, const void* x, void* y, void* side, long long n,
-                 int m, int ndiag, const int* offsets, int T, int rows, int tpc,
-                 void* stream) {
-  DvOffsets offs;
-  if (dv_fill_offsets(&offs, ndiag, offsets) || n < 1 || n > 0x7fffffffLL || m < 1 ||
-      T < 4 || T % 4 || rows < 1 || tpc < 1)
-    return (int)cudaErrorInvalidValue;
-  for (int d = 0; d < ndiag; ++d)
-    if (offsets[d] > T || offsets[d] < -T) return (int)cudaErrorInvalidValue;
-  const int alias = x == y;
-  if (alias && (side == nullptr || !dv_aligned16(side))) return (int)cudaErrorInvalidValue;
-  const int G = (m + rows - 1) / rows;
-  const int ntiles = (int)((n + T - 1) / T);
-  const int nchunks = (ntiles + tpc - 1) / tpc;
-  const size_t bytes = (size_t)DV_D_RING * rows * T * sizeof(float);
-  auto kernel = ndiag <= 8 ? dia_d_kernel<8> : dia_d_kernel<DV_MAX_DIAG>;
-  int e = dv_opt_in_shared(kernel, bytes);
-  if (e) return e;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (alias) {
-    e = dv_save_halo(x, side, n, m, T, tpc, ntiles, nchunks, s);
-    if (e) return e;
-  }
-  const int vec = n % 4 == 0 && dv_aligned16(x);
-  kernel<<<(unsigned)(G * nchunks), DV_THREADS, bytes, s>>>(
-      (const float*)data, (const float*)x, (float*)y, (const float*)side, (int)n, m,
-      T, rows, G, tpc, ntiles, offs, alias, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-// One row count of the ELL ablation's sweep (csrc/ell_ablate.cu): K2's
+// One row count of the ELL ablation's sweep (ell_ablate.cu): K2's
 // body (csrc/ell_body.cuh, ELL_FULL) at ELL_SWEEP_ROWS rows of X in flight
 // and register chunks KC 6, 8, 9 and 12, on both index streams, at K2's
 // register caps. Included by ell_sweep_r1.cu, ell_sweep_r4.cu and
@@ -7,7 +7,7 @@
 
 #pragma once
 
-#include "ell_body.cuh"
+#include "../ell_body.cuh"
 
 #define ELL_SWEEP_CAT2(a, b) a##b
 #define ELL_SWEEP_CAT(a, b) ELL_SWEEP_CAT2(a, b)

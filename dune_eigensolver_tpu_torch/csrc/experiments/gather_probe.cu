@@ -41,15 +41,11 @@
 //                  store a stage, a stage refilled once its store has read
 //                  it, so one stage's store overlaps the next stages'
 //                  loads). Off the 16-byte grid the wrapper takes the
-//                  straight form's row copy instead. The first version, which stages all nb blocks a chunk at a
-//                  time, stays for timing in turns (block_select_launch,
-//                  form 1). The straight
-//                  form is a copy of `rows` runs of bw floats: one block of
-//                  the grid a (chunk of a row, row), float4 moves where the
+//                  straight form's row copy instead. The straight form is
+//                  a copy of `rows` runs of bw floats: one block of the
+//                  grid a (chunk of a row, row), float4 moves where the
 //                  addresses and strides allow, four moves in flight a
-//                  thread (slice_rows_launch). Its first version, one
-//                  float a thread with a division an element, stays for
-//                  timing in turns (block_select_launch, form 0).
+//                  thread (slice_rows_launch).
 //   roll_lanes     out[r, c] = x[r, seg(c) + (c + s) mod seg], s read from
 //                  device memory; through shared memory (dyn_roll_lane).
 //   gather_axis0   out[r, c] = x[idx[r, c], c]: a gather across rows
@@ -63,11 +59,10 @@
 //                  gathers four columns of a row from shared memory and
 //                  writes them with one 16-byte store. So x crosses device
 //                  memory once, where the first version (one float a thread
-//                  through L1/L2, gather_axis0_kernel, kept to be timed in
-//                  turns and for shapes off the grid) reads a row of x in
-//                  each of the up to `rows` rows a warp's indices name and
-//                  finds it evicted from L2 when the next output row comes
-//                  back to the same columns.
+//                  through L1/L2, gather_axis0_kernel, kept for shapes off
+//                  the grid) reads a row of x in each of the up to `rows`
+//                  rows a warp's indices name and finds it evicted from L2
+//                  when the next output row comes back to the same columns.
 //   int8_widen     out = x + float(i8): char4 loads widened in registers
 //                  (int8_widen).
 //
@@ -150,25 +145,6 @@ gather_lanes_global_kernel(const float* __restrict__ x, const IDX* __restrict__ 
 
 // --- a block chosen by an index the kernel reads from device memory --------
 
-// x is (rows, nb * bw); shared memory holds this block's columns of all nb
-// blocks (the scratch), then block p of the scratch is written out
-__global__ void __launch_bounds__(GP_THREADS)
-block_select_smem_kernel(const float* __restrict__ x, const int* __restrict__ p_ptr,
-                         float* __restrict__ out, int bw, int nb, int chunk) {
-  extern __shared__ float sm[];
-  const int c0 = blockIdx.x * chunk;
-  const int w = min(chunk, bw - c0);
-  const float* xr = x + (size_t)blockIdx.y * nb * bw;
-  for (int t = threadIdx.x; t < nb * w; t += GP_THREADS) {
-    const int b = t / w, c = t - b * w;
-    sm[b * chunk + c] = xr[(size_t)b * bw + c0 + c];
-  }
-  __syncthreads();
-  const int p = clampi(__ldg(p_ptr), nb - 1);
-  for (int c = threadIdx.x; c < w; c += GP_THREADS)
-    out[(size_t)blockIdx.y * bw + c0 + c] = sm[p * chunk + c];
-}
-
 #define BS_STAGES 8
 #define BS_STAGE_FLOATS 4096  // 16 KB a stage
 #define BS_SMEM (BS_STAGES * (BS_STAGE_FLOATS * 4 + 8))
@@ -225,22 +201,6 @@ block_select_bulk_kernel(const float* __restrict__ x, const int* __restrict__ p_
     }
   }
   bulk_wait<0>();  // the stores have landed before the block's memory goes
-}
-
-// out[r, c] = x[p * block_stride + r * row_stride + c]; the first version:
-// one float a thread over the flat output, a 64-bit division an element
-__global__ void __launch_bounds__(GP_THREADS)
-block_select_global_kernel(const float* __restrict__ x, const int* __restrict__ p_ptr,
-                           float* __restrict__ out, int rows, int bw, int nb,
-                           long long row_stride, long long block_stride) {
-  const int p = clampi(__ldg(p_ptr), nb - 1);
-  const float* src = x + (size_t)p * block_stride;
-  const long long total = (long long)rows * bw;
-  const long long stride = (long long)gridDim.x * GP_THREADS;
-  for (long long f = (long long)blockIdx.x * GP_THREADS + threadIdx.x; f < total; f += stride) {
-    const long long r = f / bw;
-    out[f] = src[(size_t)r * row_stride + (f - r * bw)];
-  }
 }
 
 template <int V> struct vec_of;
@@ -470,46 +430,21 @@ int gather_lanes_launch(int form, int idx_bytes, const void* x, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// form 0: block p at p * block_stride, its rows row_stride apart, one
-// float a thread over the flat output (the first version of
-// slice_rows_launch). Forms 1 and 2 take x (rows, nb * bw) and ignore the
-// strides: 1 stages all nb blocks (the scratch selection's first
-// version), 2 moves block p alone by bulk copies (refused unless bw is a
-// multiple of 4 and x and out lie on 16 bytes; the wrapper chooses it with
-// gather_probe.scratch_body, and slice_rows_launch elsewhere). p is read
-// from p_ptr[0].
-int block_select_launch(int form, const void* x, const void* p_ptr, void* out, int rows,
-                        int bw, int nb, long long row_stride, long long block_stride,
+// Block p of x (rows, nb * bw) by bulk copies, p read from p_ptr[0];
+// refused unless bw is a multiple of 4 and x and out lie on 16 bytes (the
+// wrapper chooses it with gather_probe.scratch_body, and slice_rows_launch
+// elsewhere).
+int block_select_launch(const void* x, const void* p_ptr, void* out, int rows, int bw, int nb,
                         void* stream) {
-  if (rows < 1 || rows > 65535 || bw < 1 || nb < 1 || form < 0 || form > 2)
+  if (rows < 1 || rows > 65535 || bw < 1 || nb < 1 || bw % 4 || !aligned16(x) ||
+      !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (form == 1) {
-    const int chunk = bw < GP_CHUNK ? bw : GP_CHUNK;
-    const size_t smem = (size_t)nb * chunk * sizeof(float);
-    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(block_select_smem_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    const dim3 grid((unsigned)((bw + chunk - 1) / chunk), (unsigned)rows);
-    block_select_smem_kernel<<<grid, GP_THREADS, smem, s>>>(
-        (const float*)x, (const int*)p_ptr, (float*)out, bw, nb, chunk);
-  } else if (form == 2) {
-    if (bw % 4 || !aligned16(x) || !aligned16(out)) return (int)cudaErrorInvalidValue;
-    const long long total = (long long)rows * bw;
-    unsigned grid;
-    int e = bulk_select_grid(total, &grid);
-    if (e) return e;
-    block_select_bulk_kernel<<<grid, 32, BS_SMEM, s>>>((const float*)x, (const int*)p_ptr,
-                                                       (float*)out, bw, nb, total);
-  } else {
-    block_select_global_kernel<<<stride_grid((long long)rows * bw), GP_THREADS, 0, s>>>(
-        (const float*)x, (const int*)p_ptr, (float*)out, rows, bw, nb, row_stride,
-        block_stride);
-  }
+  const long long total = (long long)rows * bw;
+  unsigned grid;
+  int e = bulk_select_grid(total, &grid);
+  if (e) return e;
+  block_select_bulk_kernel<<<grid, 32, BS_SMEM, (cudaStream_t)stream>>>(
+      (const float*)x, (const int*)p_ptr, (float*)out, bw, nb, total);
   return (int)cudaGetLastError();
 }
 

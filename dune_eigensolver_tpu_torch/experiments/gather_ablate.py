@@ -4,7 +4,8 @@ Counterpart of ``experiments/gather_ablate.py``, which times the shipped
 TPU gather kernel against degraded copies of its body. The TPU body's
 mechanisms do not exist on this card, so what is ablated is the body the
 port's K2 ships (``csrc/ell_body.cuh``, instantiated by
-``csrc/ell_ablate.cu``), one mechanism at a time. Unlike the reference's
+``csrc/experiments/ell_ablate.cu`` in the studies' library), one mechanism
+at a time. Unlike the reference's
 variants, each one here is a defined function with a plain version
 (``variant_reference``), so the card can check it:
 
@@ -23,10 +24,8 @@ indices into a value it stores only where no fold can reach. So ptxas
 keeps the loads; ``slot_loads`` counts them in the SASS and
 ``slot_load_faults`` states the rule they are held to. Where the TPU experiment swept the row tile, this one sweeps K2's
 two knobs on the same body (``ablate_full``): the rows of X in flight and
-the register chunk, ``SWEEP``; every setting gives K2's bits. K2's first
-version (``ablate_first``, int32 columns, 256 threads, KC from k) is timed
-beside them, outside the sweep. Shares are taken against K2's time and
-against the copy bound (the variant's least bytes over the measured copy
+the register chunk, ``SWEEP``; every setting gives K2's bits. Shares are
+taken against K2's time and against the copy bound (the variant's least bytes over the measured copy
 rate).
 
     python -m dune_eigensolver_tpu_torch.experiments.gather_ablate [Nel]
@@ -39,7 +38,6 @@ graph Laplacian (k = 7), greppable lines
     ABLATE variant=<v> us=<t> gbps=<least bytes of v's function / t>
            streamed_bytes=<bytes v's body moves> streamed_gbps=<those / t>
            share=<t / t of K2> copy_share=<copy bound / t> operand=<name>
-    ABLATE first us=<t> share=<t / t of K2> operand=<name>
     ABLATE rows=<R> kc=<KC> us=<t> share=<t / t of K2> operand=<name>
 
 (``us`` on the card: device time by CUDA-graph replay).
@@ -52,6 +50,7 @@ with ``copy_share=n/a``).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -60,13 +59,19 @@ import torch
 from dune_eigensolver_tpu_torch.bench.timing import bench_loop, copy_rate, replay_ms
 from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
 from dune_eigensolver_tpu_torch.sparse.formats import WARP_ROWS, ELLMatrix, ell_from_scipy
+from dune_eigensolver_tpu_torch.utils import native
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 VARIANTS = ("full", "nogather", "nodyn", "nofma")
 #: K2's (rows of X in flight, register chunk): ELL_ROWS, ELL_KC of csrc/ell_body.cuh
 K2_SETTING = (8, 9)
-#: the (rows, kc) settings of K2's body that csrc/ell_sweep_r{1,4,8}.cu build
+#: the (rows, kc) settings of K2's body that csrc/experiments/ell_sweep_r{1,4,8}.cu build
 SWEEP = tuple((rows, kc) for rows in (1, 4, 8) for kc in (6, 8, 9, 12))
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: (variant, rows, kc, data_t, index_t, index_bytes, warp_slots, n, k, ncols, x, y, m, stream)
+_lib = native.Launchers({"ell_ablate_launch": [_I, _I, _I, _P, _P, _I, _P, _L, _I, _L, _P, _P,
+                                               _I, _P]}, native.STUDIES)
 
 
 def _own_column(A: ELLMatrix) -> torch.Tensor:
@@ -125,16 +130,16 @@ def variant_streamed_bytes(A: ELLMatrix, m: int, variant: str, index_bytes: int 
 def slot_loads(path=None) -> dict:
     """The global loads ptxas kept in each instantiation of K2's body at
     K2's setting in f32, ``{(variant, index bytes): count}``, from the SASS
-    of the library at ``path`` (the built one by default;
-    ``utils/native.py::sass_global_loads``). The sweep's other settings and
-    the f64 body are left out. Raises without cuobjdump."""
+    of the library at ``path`` (the built studies' library by default, whose
+    sweep holds K2's own setting; ``utils/native.py::sass_global_loads``).
+    The sweep's other settings and the f64 body are left out. Raises
+    without cuobjdump."""
     import re
-
-    from dune_eigensolver_tpu_torch.utils import native
 
     pat = re.compile(r"ell_spmm_t_kernelILi(\d)ELi(\d+)ELi(\d+)ELi\d+E([fd])([si])E")
     loads = {}
-    for name, count in native.sass_global_loads("ell_spmm_t_kernel", path).items():
+    for name, count in native.sass_global_loads("ell_spmm_t_kernel", path,
+                                                native.STUDIES).items():
         v, rows, kc, value, index = pat.search(name).groups()
         if (int(rows), int(kc)) == K2_SETTING and value == "f":
             loads[(VARIANTS[int(v)], 2 if index == "s" else 4)] = count  # V: ell_body.cuh
@@ -193,7 +198,7 @@ def _launch(variant: str, A: ELLMatrix, Xt: torch.Tensor, rows: int, kc: int) ->
     data_t, index_t = A.kernel_streams  # the index stream K2 reads
     return kg._launch("ell_ablate_launch", Xt, (Xt.shape[0], n), VARIANTS.index(variant), rows,
                       kc, data_t.data_ptr(), index_t.data_ptr(), index_t.element_size(),
-                      A.warp_slots.data_ptr(), n, A.k, n_cols)
+                      A.warp_slots.data_ptr(), n, A.k, n_cols, lib=_lib)
 
 
 def ablate_full(A: ELLMatrix, Xt: torch.Tensor, rows: int = K2_SETTING[0],
@@ -226,23 +231,10 @@ def ablate_nofma(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
     return Y
 
 
-def ablate_first(A: ELLMatrix, Xt: torch.Tensor) -> torch.Tensor:
-    """Yt = (A @ Xt.T).T by K2's first version (csrc/ell_ablate.cu): every
-    slot to k, one row of X at a time, int32 columns, 256 threads, the
-    register chunk from k. K2's bits on finite X."""
-    _check("ablate_first", A, Xt)
-    n, n_cols = A.shape
-    Y = kg._launch("ell_first_launch", Xt, (Xt.shape[0], n), A.kernel_streams[0].data_ptr(),
-                   A.column_stream.data_ptr(), n, A.k, n_cols)
-    ablate_first.launches += 1
-    return Y
-
-
 ablate_full.launches = 0
 ablate_nogather.launches = 0
 ablate_nodyn.launches = 0
 ablate_nofma.launches = 0
-ablate_first.launches = 0
 
 #: the kernel each variant's row of the table times
 VARIANT_KERNELS = {"full": kg.ell_spmm_t_cuda, "nogather": ablate_nogather,
@@ -251,15 +243,13 @@ VARIANT_KERNELS = {"full": kg.ell_spmm_t_cuda, "nogather": ablate_nogather,
 
 def check_variants(A: ELLMatrix, Xt: torch.Tensor) -> dict:
     """Every variant's kernel against its plain version on the card;
-    returns ``{variant: max|err|}`` and raises on a mismatch. K2's first
-    version and the full body at every setting of ``SWEEP`` must give K2's
-    bits (on finite X: the slots K2 skips are padding); sums in another
+    returns ``{variant: max|err|}`` and raises on a mismatch. The full body
+    at every setting of ``SWEEP`` must give K2's bits (on finite X: the
+    slots K2 skips are padding); sums in another
     order than the plain version's stay within 1e-5 of the largest row's
     sum of |data| |X|; ``nofma`` is one add per entry, exact."""
     absA = dataclasses.replace(A, data=A.data.abs())
     current = kg.ell_spmm_t_cuda(A, Xt)
-    if not torch.equal(ablate_first(A, Xt), current):
-        raise RuntimeError("ablate_first: differs from ell_spmm_t_cuda")
     for rows, kc in SWEEP:
         if not torch.equal(ablate_full(A, Xt, rows, kc), current):
             raise RuntimeError(f"ablate_full rows={rows} kc={kc}: differs from ell_spmm_t_cuda")
@@ -305,8 +295,7 @@ def ablate_operands(device, Nel: int = 512, graph_n: int = 2**20):
 
 def ablate_table(device, Nel: int = 512, m: int = 8, graph_n: int = 2**20, operands=None,
                  copy_gbps=None):
-    """Time the four variants, K2's first version and the (rows, kc) sweep
-    of the full body on both operands (``operands``: those of
+    """Time the four variants and the (rows, kc) sweep of the full body on both operands (``operands``: those of
     ``ablate_operands``, for a caller that has built them); print the
     ``ABLATE`` lines and return the rows as dicts. On the card every
     variant is first held to its plain version (``check_variants``), whose
@@ -319,8 +308,8 @@ def ablate_table(device, Nel: int = 512, m: int = 8, graph_n: int = 2**20, opera
     holds what its body moves (``streamed_bytes``, ``streamed_gbps``) and,
     for ``nofma`` on a square operand, the device time of its function as
     one PyTorch call, ``Xt + data_t[0]`` (``library_us``). On the CPU the plain
-    versions are timed by ``run_variant``, with no copy share, no first
-    version and no sweep."""
+    versions are timed by ``run_variant``, with no copy share and no
+    sweep."""
     device = resolve(device)
     cuda = device.type == "cuda"
     if cuda and copy_gbps is None:
@@ -360,10 +349,6 @@ def ablate_table(device, Nel: int = 512, m: int = 8, graph_n: int = 2**20, opera
             rows.append(row)
         if not cuda:
             continue
-        t = replay_ms(lambda: ablate_first(A, Xt)) / 1e3
-        t_eager = bench_loop(lambda x, A_: ablate_first(A_, x), Xt, K=40, reps=4, op_args=(A,))
-        print(f"ABLATE first us={t * 1e6:.1f} share={t / t_full:.3f} operand={name}", flush=True)
-        rows.append(dict(base, first=True, us=t * 1e6, share=t / t_full, eager_us=t_eager * 1e6))
         for r, kc in SWEEP:
             t = replay_ms(lambda: ablate_full(A, Xt, r, kc)) / 1e3
             print(f"ABLATE rows={r} kc={kc} us={t * 1e6:.1f} share={t / t_full:.3f} "

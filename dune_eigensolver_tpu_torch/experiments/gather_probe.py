@@ -15,23 +15,21 @@ reference's names, inputs and functions:
   dyn_scratch_load_3d       ``block_select_scratch``: block p through a
                             shared-memory scratch, p read by the kernel and
                             put in the bulk copies' source address (where
-                            ``scratch_body`` says "bulk"; its first version,
-                            which stages all blocks, is timed beside)
+                            ``scratch_body`` says "bulk")
   dyn_input_load_3d, vmem_scalar_index   ``block_select``: x[p]
   dyn_lane_slice_aligned    ``lane_slice``: x[:, p*bw:(p+1)*bw]
                             (both one row-copy kernel, float4 moves where
-                            ``slice_vector_width`` allows; their first
-                            versions, ``FIRST_VERSIONS``, are timed beside)
+                            ``slice_vector_width`` allows)
   dyn_roll_lane             ``roll_lanes``: roll by a run-time shift
   gather_sublane_axis0      ``gather_axis0``: out[r, c] = x[idx[r, c], c]
                             (x's block of all rows staged in shared memory
                             by bulk copies where ``axis0_body`` says
-                            "bulk"; its first version, through L1/L2, is
-                            timed beside)
+                            "bulk", else its first version, through L1/L2)
   int8_widen                ``int8_widen``: x + float(int8)
   int8_gather_idx           ``gather_lanes_int8``: the same with int8 indices
 
-The kernels are in ``csrc/gather_probe.cu``. Each wrapper counts its
+The kernels are in ``csrc/experiments/gather_probe.cu``, in the studies'
+library. Each wrapper counts its
 launches and has no fallback: a CPU tensor raises. Beside each stands its
 plain PyTorch version (``*_reference``); ``main`` takes those, and only for
 ``--device cpu``. Indices outside their range are clamped by kernel and
@@ -49,11 +47,13 @@ lines at (8, W).
 from __future__ import annotations
 
 import argparse
+import ctypes
 
 import numpy as np
 import torch
 
-from dune_eigensolver_tpu_torch.bench.timing import bench_loop, in_turns, replay_ms
+from dune_eigensolver_tpu_torch.bench.timing import bench_loop, replay_ms
+from dune_eigensolver_tpu_torch.utils import native
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 FORMS = ("smem", "shfl", "global")  # how the row gather brings x to the thread
@@ -131,10 +131,25 @@ def _seg_ok(what: str, width: int, seg: int):
         raise ValueError(f"{what}: seg {seg} must be a power of two that divides {width}")
 
 
-def _run(name: str, x: torch.Tensor, *args) -> None:
-    from dune_eigensolver_tpu_torch.utils import native
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_lib = native.Launchers({
+    # (form, idx_bytes, x, idx, out, rows, width, seg, stream)
+    "gather_lanes_launch": [_I, _I, _P, _P, _P, _I, _L, _I, _P],
+    # (x, p, out, rows, bw, nb, stream)
+    "block_select_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # (vec, x, p, out, rows, bw, nb, row_stride, block_stride, stream)
+    "slice_rows_launch": [_I, _P, _P, _P, _I, _I, _I, _L, _L, _P],
+    # (x, s, out, rows, width, seg, stream)
+    "roll_lanes_launch": [_P, _P, _P, _I, _L, _I, _P],
+    # (body, x, idx, out, rows, width, stream)
+    "gather_axis0_launch": [_I, _P, _P, _P, _I, _L, _P],
+    # (x, i8, out, total, stream)
+    "int8_widen_launch": [_P, _P, _P, _L, _P],
+}, native.STUDIES)
 
-    lib = native.load()
+
+def _run(name: str, x: torch.Tensor, *args) -> None:
+    lib = _lib()
     with torch.cuda.device(x.device):
         err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     native.check(err, name)
@@ -193,10 +208,6 @@ def _index_ok(what: str, x: torch.Tensor, p: torch.Tensor):
         raise TypeError(f"{what}: the index must be a non-empty int32 tensor")
 
 
-#: ``block_select_launch``'s form of each body that takes x (rows, nb*bw)
-SCRATCH_FORMS = {"first": 1, "bulk": 2}
-
-
 def scratch_body(bw: int, align: int = 16) -> str:
     """Which body of the scratch selection runs: "bulk" (block p's row
     segments through a ring of shared-memory stages by bulk copies) where
@@ -211,42 +222,28 @@ def scratch_body(bw: int, align: int = 16) -> str:
     return "rows"
 
 
-def _scratch(fn, x: torch.Tensor, p: torch.Tensor, bw: int, first: bool) -> torch.Tensor:
-    what = fn.__name__
-    _index_ok(what, x, p)
-    if x.ndim != 2 or bw < 1 or x.shape[1] % bw:
-        raise ValueError(f"{what}: x {tuple(x.shape)} is not (rows, nb * {bw})")
-    nb = x.shape[1] // bw
-    if first and nb * min(bw, 2048) * 4 > 227 * 1024:
-        raise ValueError(f"{what}: {nb} blocks exceed a block's shared memory")
-    out = torch.empty((x.shape[0], bw), dtype=x.dtype, device=x.device)
-    ptrs = x.data_ptr() | out.data_ptr() | 16
-    fn.body = "first" if first else scratch_body(bw, align=ptrs & -ptrs)
-    if fn.body == "rows":
-        _run("slice_rows_launch", x, 1, x.data_ptr(), p.data_ptr(), out.data_ptr(), x.shape[0],
-             bw, nb, nb * bw, bw)
-    else:
-        _run("block_select_launch", x, SCRATCH_FORMS[fn.body], x.data_ptr(), p.data_ptr(),
-             out.data_ptr(), x.shape[0], bw, nb, 0, 0)
-    fn.launches += 1
-    return out
-
-
 def block_select_scratch(x: torch.Tensor, p: torch.Tensor, bw: int = 128) -> torch.Tensor:
     """x[:, p*bw:(p+1)*bw] for x (rows, nb*bw) through a shared-memory
     scratch that holds block p alone: the kernel reads p from ``p`` (int32,
     on the card) and puts it in the source address of the bulk copies that
     fill the scratch (the body ``scratch_body`` chooses, in
     ``block_select_scratch.body``)."""
-    return _scratch(block_select_scratch, x, p, bw, first=False)
-
-
-def block_select_scratch_first(x: torch.Tensor, p: torch.Tensor, bw: int = 128
-                               ) -> torch.Tensor:
-    """``block_select_scratch`` by its first version, which stages a chunk
-    of all nb blocks in shared memory and copies out block p; kept to be
-    timed in turns with the bulk copy."""
-    return _scratch(block_select_scratch_first, x, p, bw, first=True)
+    what = "block_select_scratch"
+    _index_ok(what, x, p)
+    if x.ndim != 2 or bw < 1 or x.shape[1] % bw:
+        raise ValueError(f"{what}: x {tuple(x.shape)} is not (rows, nb * {bw})")
+    nb = x.shape[1] // bw
+    out = torch.empty((x.shape[0], bw), dtype=x.dtype, device=x.device)
+    ptrs = x.data_ptr() | out.data_ptr() | 16
+    block_select_scratch.body = scratch_body(bw, align=ptrs & -ptrs)
+    if block_select_scratch.body == "rows":
+        _run("slice_rows_launch", x, 1, x.data_ptr(), p.data_ptr(), out.data_ptr(), x.shape[0],
+             bw, nb, nb * bw, bw)
+    else:
+        _run("block_select_launch", x, x.data_ptr(), p.data_ptr(), out.data_ptr(), x.shape[0],
+             bw, nb)
+    block_select_scratch.launches += 1
+    return out
 
 
 def slice_vector_width(bw: int, row_stride: int, block_stride: int, align: int = 16) -> int:
@@ -279,19 +276,15 @@ def _block_strides(what: str, x: torch.Tensor, p: torch.Tensor):
     return rows, bw, nb, bw, rows * bw
 
 
-def _select(fn, x, p, rows, bw, nb, row_stride, block_stride, first=False) -> torch.Tensor:
+def _select(fn, x, p, rows, bw, nb, row_stride, block_stride) -> torch.Tensor:
     """Block p of x, its rows ``row_stride`` apart, by the row copy
-    (``slice_rows_launch``; its width recorded in ``fn.width``) or, with
-    ``first``, by its first version; counted on wrapper ``fn``."""
+    (``slice_rows_launch``; its width recorded in ``fn.width``); counted on
+    wrapper ``fn``."""
     out = torch.empty((rows, bw), dtype=x.dtype, device=x.device)
-    if first:
-        _run("block_select_launch", x, 0, x.data_ptr(), p.data_ptr(), out.data_ptr(), rows, bw,
-             nb, row_stride, block_stride)
-    else:
-        ptrs = x.data_ptr() | out.data_ptr() | 16
-        fn.width = slice_vector_width(bw, row_stride, block_stride, align=ptrs & -ptrs)
-        _run("slice_rows_launch", x, fn.width, x.data_ptr(), p.data_ptr(), out.data_ptr(), rows,
-             bw, nb, row_stride, block_stride)
+    ptrs = x.data_ptr() | out.data_ptr() | 16
+    fn.width = slice_vector_width(bw, row_stride, block_stride, align=ptrs & -ptrs)
+    _run("slice_rows_launch", x, fn.width, x.data_ptr(), p.data_ptr(), out.data_ptr(), rows,
+         bw, nb, row_stride, block_stride)
     fn.launches += 1
     return out
 
@@ -308,19 +301,6 @@ def block_select(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     of ``p`` (int32, on the card; pass a view to read another entry); the
     same row-copy kernel as ``lane_slice``."""
     return _select(block_select, x, p, *_block_strides("block_select", x, p))
-
-
-def lane_slice_first(x: torch.Tensor, p: torch.Tensor, bw: int = 128) -> torch.Tensor:
-    """``lane_slice`` by its first version (one float a thread over the
-    flat output), kept to be timed in turns with the row copy."""
-    return _select(lane_slice_first, x, p, *_lane_strides("lane_slice_first", x, p, bw),
-                   first=True)
-
-
-def block_select_first(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """``block_select`` by its first version."""
-    return _select(block_select_first, x, p, *_block_strides("block_select_first", x, p),
-                   first=True)
 
 
 def roll_lanes(x: torch.Tensor, s: torch.Tensor, seg: int) -> torch.Tensor:
@@ -360,32 +340,21 @@ def axis0_body(rows: int, width: int, align: int = 16) -> str:
     return "first"
 
 
-def _axis0(fn, x: torch.Tensor, idx: torch.Tensor, first: bool) -> torch.Tensor:
-    what = fn.__name__
-    _check(what, x, ints=(idx,))
-    if x.ndim != 2 or idx.shape != x.shape or idx.dtype != torch.int32:
-        raise ValueError(f"{what}: x and int32 idx must be one 2-D shape")
-    out = torch.empty_like(x)
-    ptrs = x.data_ptr() | idx.data_ptr() | out.data_ptr() | 16
-    fn.body = "first" if first else axis0_body(x.shape[0], x.shape[1], align=ptrs & -ptrs)
-    _run("gather_axis0_launch", x, AXIS0_BODIES[fn.body], x.data_ptr(), idx.data_ptr(),
-         out.data_ptr(), x.shape[0], x.shape[1])
-    fn.launches += 1
-    return out
-
-
 def gather_axis0(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[r, c] = x[idx[r, c], c] by the CUDA kernel: x's block of all rows
     staged once in shared memory by bulk copies where ``axis0_body`` says
     "bulk", else the first version (the body taken in
     ``gather_axis0.body``)."""
-    return _axis0(gather_axis0, x, idx, first=False)
-
-
-def gather_axis0_first(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``gather_axis0`` by its first version (one float a thread, x read
-    through L1/L2), kept to be timed in turns with the bulk body."""
-    return _axis0(gather_axis0_first, x, idx, first=True)
+    _check("gather_axis0", x, ints=(idx,))
+    if x.ndim != 2 or idx.shape != x.shape or idx.dtype != torch.int32:
+        raise ValueError("gather_axis0: x and int32 idx must be one 2-D shape")
+    out = torch.empty_like(x)
+    ptrs = x.data_ptr() | idx.data_ptr() | out.data_ptr() | 16
+    gather_axis0.body = axis0_body(x.shape[0], x.shape[1], align=ptrs & -ptrs)
+    _run("gather_axis0_launch", x, AXIS0_BODIES[gather_axis0.body], x.data_ptr(),
+         idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1])
+    gather_axis0.launches += 1
+    return out
 
 
 def int8_widen(x: torch.Tensor, i8: torch.Tensor) -> torch.Tensor:
@@ -403,16 +372,10 @@ def int8_widen(x: torch.Tensor, i8: torch.Tensor) -> torch.Tensor:
 KERNELS = {fn.__name__: fn for fn in (
     gather_lanes_smem, gather_lanes_shfl, gather_lanes_global, gather_lanes_int8,
     block_select_scratch, lane_slice, block_select, roll_lanes, gather_axis0, int8_widen)}
-#: the first versions of the redesigned kernels, by the name of the kernel
-#: they preceded; no probe runs them, only ``form_table``'s timing in turns
-FIRST_VERSIONS = {"lane_slice": lane_slice_first, "block_select": block_select_first,
-                  "block_select_scratch": block_select_scratch_first,
-                  "gather_axis0": gather_axis0_first}
-for _fn in (*KERNELS.values(), *FIRST_VERSIONS.values()):
+for _fn in KERNELS.values():
     _fn.launches = 0
 lane_slice.width = block_select.width = None  # the vector width of the last launch
-for _fn in (block_select_scratch, block_select_scratch_first, gather_axis0, gather_axis0_first):
-    _fn.body = None  # the body of the last launch
+block_select_scratch.body = gather_axis0.body = None  # the body of the last launch
 
 
 # ---------------------------------------------------------------------------
@@ -605,17 +568,11 @@ def form_table(device, width: int = 4_194_304):
     the function must move (inputs read once, output written once; for a
     block selection one block in, one out), ``gbps`` those over the time and
     ``share`` that over the copy's; ``streamed_bytes``: what the kernel
-    moves by design (here the function's bytes for every form);
-    ``first_streamed_bytes``: what a first version moves beyond them (the
-    scratch form's stages all four blocks; None on the other rows). On the
+    moves by design (here the function's bytes for every form). On the
     card each kernel is first held to its plain version (``max_abs_err``,
     which must be 0: these kernels only move values, and the widen-add is
-    one f32 add); the three selections and the gather across rows are timed
-    in turns with their first versions (``FIRST_VERSIONS``, held to the same
-    bits): kernel, first, first, kernel, the best of each, the first's in
-    ``first_us`` (None on every other row), by replay too. On the CPU only
-    the plain versions run and ``us`` is None. Prints each row as a
-    ``FORM`` line."""
+    one f32 add). On the CPU only the plain versions run and ``us`` is
+    None. Prints each row as a ``FORM`` line."""
     device = resolve(device)
     on_card = device.type == "cuda"
     rng = np.random.default_rng(0)
@@ -641,11 +598,6 @@ def form_table(device, width: int = 4_194_304):
     def slice_library(v, q):
         return v[:, blk * bw:(blk + 1) * bw].clone()
 
-    firsts = {"lane_slice": lambda v, q: lane_slice_first(v, q, bw),
-              "block_select": block_select_first,
-              "block_select_scratch": lambda v, q: block_select_scratch_first(v, q, bw),
-              "gather_axis0": gather_axis0_first}
-
     # name, kernel, plain version, the one library call, x0, further
     # arguments, bytes the function moves, bytes the kernel streams
     forms = [
@@ -666,7 +618,7 @@ def form_table(device, width: int = 4_194_304):
         ("int8_widen", int8_widen, int8_widen_reference, int8_widen_reference, x, (i8,),
          2 * f4 + f4 // 4, 2 * f4 + f4 // 4),
         # the function is one block in, one out, and the scratch form moves
-        # just that; its first version stages all four blocks
+        # just that
         ("block_select_scratch", lambda v, q: block_select_scratch(v, q, bw),
          lambda v, q: lane_slice_reference(v, q, bw), slice_library, x, (p,),
          2 * (f4 // 4), 2 * (f4 // 4)),
@@ -696,26 +648,20 @@ def form_table(device, width: int = 4_194_304):
     copy_gbps = 2 * f4 / t_copy / 1e9
     row = dict(name="copy", shape=(ROWS, width), us=t_copy * 1e6 if on_card else None,
                eager_us=None, plain_us=t_copy * 1e6, library_us=t_copy * 1e6,
-               library_eager_us=eager_us(copy, x, ()) if on_card else None, first_us=None,
-               max_abs_err=None, nbytes=2 * f4, streamed_bytes=2 * f4, first_streamed_bytes=None,
-               gbps=copy_gbps, share=1.0)
+               library_eager_us=eager_us(copy, x, ()) if on_card else None, max_abs_err=None,
+               nbytes=2 * f4, streamed_bytes=2 * f4, gbps=copy_gbps, share=1.0)
     _print_form(row)
     yield row
     for name, kernel, plain, library, x0, args, nbytes, streamed in forms:
         want = plain(x0, *args)
         if not torch.equal(library(x0, *args).view(want.shape), want):
             raise RuntimeError(f"form {name}: library call and plain version differ")
-        t = err = t_first = t_eager = t_library_eager = None
+        t = err = t_eager = t_library_eager = None
         if on_card:
             err = (kernel(x0, *args) - want).abs().max().item()
             if err != 0.0:
                 raise RuntimeError(f"form {name}: kernel and plain version differ by {err:.3e}")
-            if name in firsts:
-                if not torch.equal(firsts[name](x0, *args), want):
-                    raise RuntimeError(f"form {name}: first version and plain version differ")
-                t, t_first = in_turns([kernel, firsts[name]], lambda fn: device_s(fn, x0, *args))
-            else:
-                t = device_s(kernel, x0, *args)
+            t = device_s(kernel, x0, *args)
             t_eager, t_library_eager = (eager_us(fn, x0, args) for fn in (kernel, library))
         del want
         t_plain = bench_loop(keep(plain), x0, K=30, op_args=args)
@@ -726,11 +672,8 @@ def form_table(device, width: int = 4_194_304):
         best = t if on_card else t_plain
         row = dict(name=name, shape=tuple(x0.shape), us=None if t is None else t * 1e6,
                    eager_us=t_eager, plain_us=t_plain * 1e6, library_us=t_library * 1e6,
-                   library_eager_us=t_library_eager,
-                   first_us=None if t_first is None else t_first * 1e6, max_abs_err=err,
-                   nbytes=nbytes, streamed_bytes=streamed,
-                   first_streamed_bytes=f4 + f4 // 4 if name == "block_select_scratch" else None,
-                   gbps=nbytes / best / 1e9,
+                   library_eager_us=t_library_eager, max_abs_err=err, nbytes=nbytes,
+                   streamed_bytes=streamed, gbps=nbytes / best / 1e9,
                    share=nbytes / best / 1e9 / copy_gbps)
         _print_form(row)
         yield row

@@ -15,18 +15,17 @@ chose the TPU kernel's design. All variants compute the function of
      once; ``alias=True`` writes Y over X
 
 C, D and B's bulk route run one compute body, K1's moved onto the staged
-window (csrc/dia_body.cuh): the tile's coefficients staged with it, 4 or 1
+window (csrc/experiments/dia_body.cuh): the tile's coefficients staged with it, 4 or 1
 columns a thread (``stage_width``), K1's bits. C and D stage with bulk
 copies from a producer warp where n % 4 == 0 (``route`` "bulk"), else with
 the compute threads' cp.async (``route`` "async"); their geometry is
-``stage_geometry``. The first versions, on the port's first compute body
-(coefficients from device memory per row group, one column a thread), stay
-as ``spmm_c_first``, ``spmm_b_first`` and ``spmm_d_first``
-(``FIRST_VERSIONS``) and are timed in turns with them.
+``stage_geometry``. B's first version, the route off the 16-byte grid,
+runs the port's first compute body (coefficients from device memory per row
+group, one column a thread).
 
-The kernels are in ``csrc/dia_variants.cu``, ``dia_stage_c.cu`` and
-``dia_stage_d.cu``. Each wrapper counts its launches and has no fallback:
-a CPU tensor raises. ``main`` prints the copy rate and every variant's
+The kernels are in ``csrc/experiments/dia_variants.cu``, ``dia_stage_c.cu``
+and ``dia_stage_d.cu``, in the studies' library. Each wrapper counts its
+launches and has no fallback: a CPU tensor raises. ``main`` prints the copy rate and every variant's
 time and GB/s under ``bytes_spmm_dia`` on the 2D N=2048 m=8 operand scaled
 by 1/8, the plain version among them; on ``--device cpu`` only the plain
 version runs (and the output says so).
@@ -54,17 +53,18 @@ import dataclasses
 import torch
 
 from dune_eigensolver_tpu_torch.bench.models import bytes_spmm_dia
-from dune_eigensolver_tpu_torch.bench.timing import bench_loop, copy_rate, in_turns, replay_ms
+from dune_eigensolver_tpu_torch.bench.timing import bench_loop, copy_rate, replay_ms
 from dune_eigensolver_tpu_torch.kernels.dia_spmm import (
     dia_spmm_t_cuda,
     dia_spmm_t_reference,
 )
 from dune_eigensolver_tpu_torch.sparse.formats import DIAMatrix
+from dune_eigensolver_tpu_torch.utils import native
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
-_MAX_DIAG = 16  # DV_MAX_DIAG in csrc/dia_body.cuh
-_D_RING = 4  # DV_D_RING in csrc/dia_body.cuh: tiles of X a block of D holds
-_MAX_SLOTS = 4  # DV_MAX_SLOTS in csrc/dia_body.cuh
+_MAX_DIAG = 16  # DV_MAX_DIAG in csrc/experiments/dia_body.cuh
+_D_RING = 4  # DV_D_RING there: tiles of X a block of D holds
+_MAX_SLOTS = 4  # DV_MAX_SLOTS there
 #: shared memory one block may have on sm_90 (227 KB), static and dynamic
 SMEM_BYTES = 232_448
 #: shared memory of one SM (228 KB) and what the card keeps back a block
@@ -84,6 +84,21 @@ RING_ROWS = (1, 2)
 C_TILES = (1024, 2048, 4096)
 D_TILES = (2048, 4096)
 STAGE_ROWS = (1, 2, 4, 8)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_OFFS = ctypes.POINTER(_I)
+_lib = native.Launchers({
+    # (data, x, y, [side,] n, m, ndiag, offsets, ...): C's T, H, rows, nwalk, route, width,
+    # threads, stream; B's T, lo, W, rows, tpc, nslots, depth, body, threads, width,
+    # stream; D's T, rows, tpc, route, width, threads, stream
+    "dia_c_stage_launch": [_P, _P, _P, _L, _I, _I, _OFFS, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dia_b_launch": [_P, _P, _P, _L, _I, _I, _OFFS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dia_d_stage_launch": [_P, _P, _P, _P, _L, _I, _I, _OFFS, _I, _I, _I, _I, _I, _I, _P],
+    # -> blocks per SM, 0, or -error: B's first version's (ndiag, slots, rows, window);
+    # a staged body's (variant, route, width, ndiag, threads, bytes)
+    "dia_variant_blocks_per_sm": [_I, _I, _I, _I],
+    "dia_stage_blocks_per_sm": [_I, _I, _I, _I, _I, _L],
+}, native.STUDIES)
 
 
 def _round_up(a: int, b: int) -> int:
@@ -145,7 +160,7 @@ class Ring:
     depth: int
     fl_base: int  # window start relative to its tile, floor(min offset / 128) * 128
     window: int  # W = round_up(T + span + 256, 128)
-    route: str  # "bulk": bulk copies (n % 4 == 0); "first": cp.async
+    route: str  # "bulk": bulk copies (n % 4 == 0); "first": its first version's cp.async
     slot_bytes: int  # one window of ``rows`` rows
     smem_bytes: int  # what a block holds: nslots windows (and the bulk body's coefficients)
     width: int = 1  # columns a thread of the bulk body (``stage_width``); the first version 1
@@ -174,15 +189,15 @@ class Ring:
 
 
 def ring_geometry(offsets, n: int, tile: int = 2048, rows: int = 2, nslots: int = 2,
-                  depth: int = 1, check: bool = True, route: str | None = None) -> Ring:
+                  depth: int = 1, check: bool = True) -> Ring:
     """Variant B's geometry, as the reference's ``spmm_b`` computes it
     (fl_base and W), with the route the launcher takes for n and the shared
     memory the ring needs: the bulk body stages two (ndiag, T) coefficient
     tiles beside the ring. Raises ``ValueError`` for a ring outside
     ``1 <= depth < nslots <= 4`` and, with ``check``, for one whose shared
     memory exceeds a block's (``Ring.fits``). The route is a rule on the
-    shape: bulk copies need 16-byte sizes and addresses, so n % 4 == 0;
-    ``route="first"`` asks for the first version's geometry at any n."""
+    shape: bulk copies need 16-byte sizes and addresses, so n % 4 == 0
+    takes them, any other n the first version's cp.async."""
     if not 1 <= depth < nslots <= _MAX_SLOTS:
         raise ValueError(f"spmm_b: need 1 <= depth < nslots <= {_MAX_SLOTS}, got "
                          f"({nslots}, {depth})")
@@ -191,8 +206,7 @@ def ring_geometry(offsets, n: int, tile: int = 2048, rows: int = 2, nslots: int 
     first = min(offsets)
     fl_base = (first // 128) * 128
     W = _round_up(tile + max(offsets) - first + 256, 128)
-    if route is None:
-        route = "bulk" if n % 4 == 0 else "first"
+    route = "bulk" if n % 4 == 0 else "first"
     slot_bytes = rows * W * 4
     smem = nslots * slot_bytes
     width = 1
@@ -304,8 +318,6 @@ def _sms(Xt: torch.Tensor) -> int:
 def _walkers(per_sm: int, what: str, nbytes: int, Xt: torch.Tensor, tile: int, rows: int) -> int:
     """How many blocks walk the tiles of one row group: as many as the card
     holds at once over all groups, at most one per tile."""
-    from dune_eigensolver_tpu_torch.utils import native
-
     if per_sm < 0:
         native.check(-per_sm, "blocks_per_sm")
     if per_sm == 0:
@@ -317,17 +329,14 @@ def _walkers(per_sm: int, what: str, nbytes: int, Xt: torch.Tensor, tile: int, r
     return min(ntiles, max(1, per_sm * _sms(Xt) // groups))
 
 
-def _blocks_per_group(what: str, variant: int, A: DIAMatrix, Xt: torch.Tensor, tile: int,
-                      rows: int, slots: int, window: int) -> int:
-    """``_walkers`` for a first version (variant 0 C, 2 D, 3 B), whose
-    registers and ``slots`` windows of ``rows * window`` floats decide how
-    many blocks an SM holds. Raises ``ValueError`` when the windows exceed a
-    block's shared memory."""
-    from dune_eigensolver_tpu_torch.utils import native
-
+def _first_walkers(what: str, A: DIAMatrix, Xt: torch.Tensor, tile: int, rows: int,
+                   slots: int, window: int) -> int:
+    """``_walkers`` for B's first version, whose registers and ``slots``
+    windows of ``rows * window`` floats decide how many blocks an SM holds.
+    Raises ``ValueError`` when the windows exceed a block's shared
+    memory."""
     with torch.cuda.device(Xt.device):
-        per_sm = native.load().dia_variant_blocks_per_sm(
-            variant, len(A.offsets), slots, rows, window)
+        per_sm = _lib().dia_variant_blocks_per_sm(len(A.offsets), slots, rows, window)
     return _walkers(per_sm, what, slots * rows * window * 4, Xt, tile, rows)
 
 
@@ -335,10 +344,8 @@ def _stage_blocks(what: str, variant: int, route: str, width: int, threads: int,
                   A: DIAMatrix, Xt: torch.Tensor, tile: int, rows: int) -> int:
     """``_walkers`` for a staged body (variant 0 C, 1 B, 2 D) whose block
     takes ``nbytes`` of dynamic shared memory."""
-    from dune_eigensolver_tpu_torch.utils import native
-
     with torch.cuda.device(Xt.device):
-        per_sm = native.load().dia_stage_blocks_per_sm(
+        per_sm = _lib().dia_stage_blocks_per_sm(
             variant, _ROUTES[route], width, len(A.offsets), threads, nbytes)
     return _walkers(per_sm, what, nbytes, Xt, tile, rows)
 
@@ -346,9 +353,7 @@ def _stage_blocks(what: str, variant: int, route: str, width: int, threads: int,
 def _run(name: str, A: DIAMatrix, Xt: torch.Tensor, out: torch.Tensor, head, tail):
     """Launch ``name`` as (data, x, y, *head, n, m, ndiag, offsets, *tail,
     stream); raise on a CUDA error."""
-    from dune_eigensolver_tpu_torch.utils import native
-
-    lib = native.load()
+    lib = _lib()
     offs = (ctypes.c_int * len(A.offsets))(*A.offsets)
     m, n = Xt.shape
     with torch.cuda.device(Xt.device):
@@ -377,37 +382,6 @@ def spmm_c(A: DIAMatrix, Xt: torch.Tensor, tile: int = 2048, rows: int = 2) -> t
     return Y
 
 
-def spmm_c_first(A: DIAMatrix, Xt: torch.Tensor, tile: int = 2048, rows: int = 2) -> torch.Tensor:
-    """Variant C by its first version (every thread stages with cp.async; the
-    coefficients from device memory per row group, one column a thread).
-    Raises if two windows exceed a block's shared memory."""
-    _check("spmm_c_first", A, Xt, tile, rows)
-    halo = max(abs(o) for o in A.offsets)
-    H = _round_up(max(halo, 32), 32)
-    nwalk = _blocks_per_group("spmm_c_first", 0, A, Xt, tile, rows, 2, tile + 2 * H)
-    Y = torch.empty_like(Xt)
-    _run("dia_c_launch", A, Xt, Y, (), (tile, H, rows, nwalk))
-    spmm_c_first.launches += 1
-    return Y
-
-
-def _ring(what: str, A: DIAMatrix, Xt: torch.Tensor, nslots: int, depth: int, tile: int,
-          rows: int, route: str) -> torch.Tensor:
-    _check(what, A, Xt, tile, rows)
-    n = Xt.shape[1]
-    g = ring_geometry(A.offsets, n, tile, rows, nslots, depth, route=route)
-    if route == "first":
-        walkers = _blocks_per_group(what, 3, A, Xt, tile, rows, nslots, g.window)
-    else:
-        walkers = _stage_blocks(what, 1, route, g.width, g.threads,
-                                g.smem_bytes - _BAR_BYTES["b"], A, Xt, tile, rows)
-    Y = torch.empty_like(Xt)
-    _run("dia_b_launch", A, Xt, Y, (), (tile, g.fl_base, g.window, rows,
-                                        g.tiles_per_chunk(n, walkers), nslots, depth,
-                                        int(route == "bulk"), g.threads, g.width))
-    return Y
-
-
 def spmm_b(A: DIAMatrix, Xt: torch.Tensor, nslots: int = 2, depth: int = 1,
            tile: int = 2048, rows: int = 2) -> torch.Tensor:
     """Yt = (A @ Xt.T).T by variant B: a ring of ``nslots`` windows of width
@@ -416,21 +390,21 @@ def spmm_b(A: DIAMatrix, Xt: torch.Tensor, nslots: int = 2, depth: int = 1,
     (``spmm_b.taken`` counts the routes, ``spmm_b.width`` holds the last
     launch's columns a thread). Raises if the ring exceeds a block's shared
     memory."""
-    route = "bulk" if Xt.shape[-1] % 4 == 0 else "first"
-    Y = _ring("spmm_b", A, Xt, nslots, depth, tile, rows, route)
+    _check("spmm_b", A, Xt, tile, rows)
+    n = Xt.shape[1]
+    g = ring_geometry(A.offsets, n, tile, rows, nslots, depth)
+    if g.route == "first":
+        walkers = _first_walkers("spmm_b", A, Xt, tile, rows, nslots, g.window)
+    else:
+        walkers = _stage_blocks("spmm_b", 1, g.route, g.width, g.threads,
+                                g.smem_bytes - _BAR_BYTES["b"], A, Xt, tile, rows)
+    Y = torch.empty_like(Xt)
+    _run("dia_b_launch", A, Xt, Y, (), (tile, g.fl_base, g.window, rows,
+                                        g.tiles_per_chunk(n, walkers), nslots, depth,
+                                        int(g.route == "bulk"), g.threads, g.width))
     spmm_b.launches += 1
-    spmm_b.taken[route] += 1
-    spmm_b.width = stage_width(A.offsets, Xt.shape[-1], tile) if route == "bulk" else 1
-    return Y
-
-
-def spmm_b_first(A: DIAMatrix, Xt: torch.Tensor, nslots: int = 2, depth: int = 1,
-                 tile: int = 2048, rows: int = 2) -> torch.Tensor:
-    """Variant B by its first version at any n (every thread stages with
-    cp.async): the body ``spmm_b`` takes off the 16-byte grid, called here
-    on the grid too so that the two are timed in turns."""
-    Y = _ring("spmm_b_first", A, Xt, nslots, depth, tile, rows, "first")
-    spmm_b_first.launches += 1
+    spmm_b.taken[g.route] += 1
+    spmm_b.width = g.width
     return Y
 
 
@@ -466,67 +440,32 @@ def spmm_d(A: DIAMatrix, Xt: torch.Tensor, alias: bool = False, tile: int = 2048
     return Y
 
 
-def spmm_d_first(A: DIAMatrix, Xt: torch.Tensor, alias: bool = False, tile: int = 2048,
-                 rows: int = 2) -> torch.Tensor:
-    """Variant D by its first version (every thread stages with cp.async; the
-    coefficients from device memory per row group, one column a thread);
-    ``alias`` as in ``spmm_d``. Raises ``ValueError`` when an offset
-    exceeds the tile."""
-    _check("spmm_d_first", A, Xt, tile, rows)
-    halo = max(abs(o) for o in A.offsets)
-    if halo > tile:
-        raise ValueError(
-            f"spmm_d_first: max|offset| {halo} exceeds the tile {tile}; the rolling cache "
-            "holds one tile to each side"
-        )
-    n = Xt.shape[1]
-    ntiles = -(-n // tile)
-    tpc = -(-ntiles // _blocks_per_group("spmm_d_first", 2, A, Xt, tile, rows, _D_RING, tile))
-    Y, side = (Xt, _side(Xt, tile, tpc)) if alias else (torch.empty_like(Xt), None)
-    _run("dia_d_launch", A, Xt, Y, (None if side is None else side.data_ptr(),),
-         (tile, rows, tpc))
-    spmm_d_first.launches += 1
-    return Y
-
-
 spmm_c.launches = 0
 spmm_c.taken = collections.Counter()
-spmm_c_first.launches = 0
 spmm_b.launches = 0
 spmm_b.taken = collections.Counter()
 spmm_b.width = None  # of the last launch
-spmm_b_first.launches = 0
 spmm_d.launches = 0
 spmm_d.taken = collections.Counter()
 spmm_d.tiles_per_chunk = None  # of the last launch
-spmm_d_first.launches = 0
-
-#: the first versions, each timed in turns with the staged body of its variant
-FIRST_VERSIONS = {"spmm_b": spmm_b_first, "spmm_c": spmm_c_first, "spmm_d": spmm_d_first}
 
 
 def variant_steps(tile: int = 2048, rows: int = 2, ring_rows=None):
-    """``[(label, step, first)]`` with ``step(Xt, A) -> Yt``: the shipped
-    kernel and every variant, in the order ``main`` prints them; ``first``
-    is the variant's first version at the same setting (``None`` for the
-    shipped kernel). B's ring (s, q) takes ``ring_rows[(s, q)]`` rows where
-    that is given (its coefficient tiles leave fewer rows room), else
-    ``rows``."""
+    """``[(label, step)]`` with ``step(Xt, A) -> Yt``: the shipped kernel
+    and every variant, in the order ``main`` prints them. B's ring (s, q)
+    takes ``ring_rows[(s, q)]`` rows where that is given (its coefficient
+    tiles leave fewer rows room), else ``rows``."""
     ring_rows = ring_rows or {}
     steps = [
-        ("A shipped", lambda x, A: dia_spmm_t_cuda(A, x), None),
-        ("D rolling", lambda x, A: spmm_d(A, x, tile=tile, rows=rows),
-         lambda x, A: spmm_d_first(A, x, tile=tile, rows=rows)),
-        ("D in-place", lambda x, A: spmm_d(A, x, alias=True, tile=tile, rows=rows),
-         lambda x, A: spmm_d_first(A, x, alias=True, tile=tile, rows=rows)),
+        ("A shipped", lambda x, A: dia_spmm_t_cuda(A, x)),
+        ("D rolling", lambda x, A: spmm_d(A, x, tile=tile, rows=rows)),
+        ("D in-place", lambda x, A: spmm_d(A, x, alias=True, tile=tile, rows=rows)),
     ]
     for s, q in B_RINGS:
         r = ring_rows.get((s, q), rows)
         steps.append((f"B s={s} d={q}",
-                      lambda x, A, s=s, q=q, r=r: spmm_b(A, x, s, q, tile=tile, rows=r),
-                      lambda x, A, s=s, q=q, r=r: spmm_b_first(A, x, s, q, tile=tile, rows=r)))
-    steps.append(("C r1-style", lambda x, A: spmm_c(A, x, tile=tile, rows=rows),
-                  lambda x, A: spmm_c_first(A, x, tile=tile, rows=rows)))
+                      lambda x, A, s=s, q=q, r=r: spmm_b(A, x, s, q, tile=tile, rows=r)))
+    steps.append(("C r1-style", lambda x, A: spmm_c(A, x, tile=tile, rows=rows)))
     return steps
 
 
@@ -559,15 +498,13 @@ def variant_table(device, N: int = 2048, m: int = 8, tile: int = 2048, rows: int
     fit): B over ``ring_settings``, C and D over ``stage_settings``; then
     each ring's, C's and D's fastest setting again (``best`` rows, not timed
     again). Every kernel row is timed by CUDA-graph replay (the plain
-    version by chains of launches); each variant's table row in turns with
-    its first version at the same setting (``first_seconds``), and carries
-    its ``scheme`` ("B", "C" or "D"), ``route``, ``width``, ``threads``, ``tile``, ``rows``
-    and ``staged_per_consumed``. ``max_abs_err`` is a kernel's largest
-    deviation from the plain version over one application and the 2-chain
-    (``None`` for the copy and plain rows); a kernel beyond 1e-5 of max|Y|
-    raises, and so does a staged body whose result is not the shipped
-    kernel's bits (``k1_bits``; the first versions' ``first_k1_bits`` is
-    recorded). On the CPU no kernel runs."""
+    version by chains of launches); each variant's row carries its
+    ``scheme`` ("B", "C" or "D"), ``route``, ``width``, ``threads``,
+    ``tile``, ``rows`` and ``staged_per_consumed``. ``max_abs_err`` is a
+    kernel's largest deviation from the plain version over one application
+    and the 2-chain (``None`` for the copy and plain rows); a kernel beyond
+    1e-5 of max|Y| raises, and so does a staged body whose result is not
+    the shipped kernel's bits (``k1_bits``). On the CPU no kernel runs."""
     from dune_eigensolver_tpu_torch.sparse import problems
 
     device = resolve(device)
@@ -589,7 +526,7 @@ def variant_table(device, N: int = 2048, m: int = 8, tile: int = 2048, rows: int
     k1 = dia_spmm_t_cuda(A, Xt)
     k1_2 = dia_spmm_t_cuda(A, k1)
 
-    def check(label, step, bits):
+    def check(label, step):
         # one application against the plain version and K1, then the 2-chain
         # (the in-place form must survive feeding on its own output)
         y1 = step(Xt.clone(), A)
@@ -597,10 +534,9 @@ def variant_table(device, N: int = 2048, m: int = 8, tile: int = 2048, rows: int
         err = max((y1 - ref).abs().max().item(), (y2 - ref2).abs().max().item())
         if not err <= 1e-5 * ref.abs().max().item():
             raise RuntimeError(f"{label}: max|err| {err:.3e} against the plain version")
-        same = torch.equal(y1, k1) and torch.equal(y2, k1_2)
-        if bits and not same:
+        if not (torch.equal(y1, k1) and torch.equal(y2, k1_2)):
             raise RuntimeError(f"{label}: not the shipped kernel's bits")
-        return err, same
+        return err
 
     def replayed(step):
         x = Xt.clone()  # an in-place step works on its own copy
@@ -623,16 +559,14 @@ def variant_table(device, N: int = 2048, m: int = 8, tile: int = 2048, rows: int
     yield dict(label=f"A shipped T={tile}", seconds=t, gbps=nbytes / t / 1e9, max_abs_err=None)
     ring_rows = table_ring_rows(A.offsets, n, tile, rows)
     rings = {f"B s={s} d={q}": (s, q) for s, q in B_RINGS}
-    for label, step, first in variant_steps(tile, rows, ring_rows)[1:]:
-        err, _ = check(f"{label} T={tile}", step, bits=True)
-        first_err, first_same = check(f"{label} first", first, bits=False)
-        t, t_first = in_turns([step, first], replayed)
+    for label, step in variant_steps(tile, rows, ring_rows)[1:]:
+        err = check(f"{label} T={tile}", step)
+        t = replayed(step)
         ring = rings.get(label)
         r = ring_rows[ring] if ring else rows
         yield dict(label=f"{label} T={tile}", seconds=t, gbps=nbytes / t / 1e9, max_abs_err=err,
                    k1_bits=True, scheme=label[0], tile=tile, rows=r,
-                   **geometry(label[0], tile, r, ring), first_seconds=t_first,
-                   first_max_abs_err=first_err, first_k1_bits=first_same)
+                   **geometry(label[0], tile, r, ring))
 
     def settings():
         for (s, q, T, r), g in ring_settings(A.offsets, n):
@@ -652,7 +586,7 @@ def variant_table(device, N: int = 2048, m: int = 8, tile: int = 2048, rows: int
             yield dict(label=label, seconds=None, gbps=None, max_abs_err=None, **more,
                        **geometry(variant, T, r, ring, launched=False))
             continue
-        err, _ = check(label, step, bits=True)
+        err = check(label, step)
         t = replayed(step)
         row = dict(label=label, seconds=t, gbps=nbytes / t / 1e9, max_abs_err=err, k1_bits=True,
                    **more, **geometry(variant, T, r, ring))
@@ -688,8 +622,6 @@ def main(argv=None) -> int:
         staged = (f"  [{row['route']}, width {row['width']}, {row['threads']} threads, rows "
                   f"{row['rows']}, staged/consumed {row['staged_per_consumed']:.2f}]"
                   if "route" in row else "")
-        if "first_seconds" in row:
-            staged += f"  first version {row['first_seconds'] * 1e6:.0f}us in turns"
         print(f"{row['label']}: {row['seconds'] * 1e6:.0f}us  {row['gbps']:.1f} GB/s{checked}"
               f"{staged}", flush=True)
     return 0

@@ -11,17 +11,15 @@ Counterpart of ``experiments/pipeline_probe.py``. Phases, as there:
   6  the hand-written copy in place
 
 ``ident``, ``identd`` and ``ident_alias`` wrap the CUDA kernels of
-``csrc/copy_probe.cu`` (they replace ``pallas_ident``, ``pallas_identd``
-and ``pallas_ident_alias``), count their launches and have no fallback: a
+``csrc/experiments/copy_probe.cu``, in the studies' library (they replace
+``pallas_ident``, ``pallas_identd`` and ``pallas_ident_alias``), count their launches and have no fallback: a
 CPU tensor raises. ``ident_reference``/``identd_reference`` are their plain
 versions; ``main`` takes those, and only for ``--device cpu``. ``ident``
 and ``ident_alias`` move 16 KB chunks through shared memory by bulk copies,
 one chunk a block, where ``copy_body`` says "bulk" (width, tile and
 pointers on 16 bytes); elsewhere they run their first version ("first"),
 four float4s in flight a thread where aligned, else one float; the body
-taken is in ``<wrapper>.body``. The first versions, ``ident_first`` and
-``ident_alias_first`` (``FIRST_VERSIONS``), are timed in turns with them in
-phases 4 and 6.
+taken is in ``<wrapper>.body``.
 
     python -m dune_eigensolver_tpu_torch.experiments.pipeline_probe [T]
         [--device cpu] [--width W] [--mb MB]
@@ -35,10 +33,12 @@ are ``2 * x + d``, as the reference counts them.
 from __future__ import annotations
 
 import argparse
+import ctypes
 
 import torch
 
-from dune_eigensolver_tpu_torch.bench.timing import bench_loop, in_turns
+from dune_eigensolver_tpu_torch.bench.timing import bench_loop
+from dune_eigensolver_tpu_torch.utils import native
 from dune_eigensolver_tpu_torch.utils.device import resolve
 
 WIDTH = 4259840  # the reference's multivector width (a padded 2D N=2048)
@@ -70,10 +70,18 @@ def _check(what: str, T: int, x: torch.Tensor, *others: torch.Tensor) -> None:
             raise ValueError(f"{what}: tensors must be contiguous")
 
 
-def _run(name: str, x: torch.Tensor, *args) -> None:
-    from dune_eigensolver_tpu_torch.utils import native
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_lib = native.Launchers({
+    # (body, x, y, rows, width, tile, stream), (body, x, rows, width, tile, stream),
+    # (d, x, y, rows, width, nd, tile, stream)
+    "copy_add1_launch": [_I, _P, _P, _I, _L, _I, _P],
+    "copy_add1_inplace_launch": [_I, _P, _I, _L, _I, _P],
+    "copy_add_row_launch": [_P, _P, _P, _I, _L, _I, _I, _P],
+}, native.STUDIES)
 
-    lib = native.load()
+
+def _run(name: str, x: torch.Tensor, *args) -> None:
+    lib = _lib()
     with torch.cuda.device(x.device):
         err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     native.check(err, name)
@@ -96,11 +104,11 @@ def copy_body(width: int, tile: int, align: int = 16) -> str:
     return "first"
 
 
-def _add1(fn, T: int, x: torch.Tensor, y: torch.Tensor, body=None) -> None:
-    """X + 1 into y (which may be x) by the body ``copy_body`` chooses or by
-    ``body``; recorded in ``fn.body`` and counted on ``fn``."""
+def _add1(fn, T: int, x: torch.Tensor, y: torch.Tensor) -> None:
+    """X + 1 into y (which may be x) by the body ``copy_body`` chooses;
+    recorded in ``fn.body`` and counted on ``fn``."""
     ptrs = x.data_ptr() | y.data_ptr() | 16
-    fn.body = body or copy_body(x.shape[1], T, align=ptrs & -ptrs)
+    fn.body = copy_body(x.shape[1], T, align=ptrs & -ptrs)
     if y is x:
         _run("copy_add1_inplace_launch", x, BODIES[fn.body], x.data_ptr(), x.shape[0],
              x.shape[1], T)
@@ -125,22 +133,6 @@ def ident_alias(T: int, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def ident_first(T: int, x: torch.Tensor) -> torch.Tensor:
-    """``ident`` by its first version (four float4 loads in flight a thread,
-    where aligned), kept to be timed in turns with the bulk copies."""
-    _check("ident_first", T, x)
-    y = torch.empty_like(x)
-    _add1(ident_first, T, x, y, body="first")
-    return y
-
-
-def ident_alias_first(T: int, x: torch.Tensor) -> torch.Tensor:
-    """``ident_alias`` by its first version."""
-    _check("ident_alias_first", T, x)
-    _add1(ident_alias_first, T, x, x, body="first")
-    return x
-
-
 def identd(T: int, d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Y = X + d[0] by the CUDA kernel, which streams all of ``d``."""
     _check("identd", T, x, d)
@@ -156,36 +148,29 @@ def identd(T: int, d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def coefficient_loads(path=None) -> dict:
     """The global loads ptxas kept in each instantiation of ``identd``'s
     kernel, ``{(vec, stream): count}``, from the SASS of the library at
-    ``path`` (the built one by default; ``utils/native.py::
+    ``path`` (the built studies' library by default; ``utils/native.py::
     sass_global_loads``): ``vec`` the float4 body, ``stream`` the one that
     loads d's rows 1.. (taken where nd > 1). Raises without cuobjdump."""
     import re
 
-    from dune_eigensolver_tpu_torch.utils import native
-
     loads = {}
-    for name, n in native.sass_global_loads("copy_add_row_kernel", path).items():
+    for name, n in native.sass_global_loads("copy_add_row_kernel", path,
+                                            native.STUDIES).items():
         vec, stream = re.search(r"ILb([01])ELb([01])E", name).groups()
         loads[(vec == "1", stream == "1")] = n
     return loads
 
 
-#: the first versions of the two Y = X + 1 launches, by the name of the
-#: wrapper they preceded; only the timing in turns runs them
-FIRST_VERSIONS = {"ident": ident_first, "ident_alias": ident_alias_first}
-for _fn in (ident, ident_alias, identd, *FIRST_VERSIONS.values()):
+for _fn in (ident, ident_alias, identd):
     _fn.launches = 0
-for _fn in (ident, ident_alias, *FIRST_VERSIONS.values()):
-    _fn.body = None  # the body of the last launch
+ident.body = ident_alias.body = None  # the body of the last launch
 
 
 def copy_table(device, T: int = 32768, width: int = WIDTH, mb: int = 256):
     """Run the probe's phases; yield ``(label, seconds, GB/s, kind)`` as each
-    ends, with kind ``library`` (one PyTorch call), ``kernel``, ``first``
-    (the kernel's first version, ``ident first T=..`` and ``ident ALIASED
-    first T=..``, each timed in turns with the kernel's row before it:
-    kernel, first, first, kernel) or ``plain`` (the kernel's plain version,
-    taken on the CPU only, where neither runs)."""
+    ends, with kind ``library`` (one PyTorch call), ``kernel`` or ``plain``
+    (the kernel's plain version, taken on the CPU only, where no kernel
+    runs)."""
     device = resolve(device)
     on_cpu = device.type == "cpu"
     kind = "plain" if on_cpu else "kernel"
@@ -224,17 +209,11 @@ def copy_table(device, T: int = 32768, width: int = WIDTH, mb: int = 256):
             return bench_loop(fn, x, K=K)
 
         for TT in (T, *(t for t in TILES if t != T)):
-            t_k, t_f = in_turns([lambda v, TT=TT: ident(TT, v),
-                                 lambda v, TT=TT: ident_first(TT, v)], timed)
-            yield row(f"ident T={TT}", t_k, xbytes, kind)
-            yield row(f"ident first T={TT}", t_f, xbytes, "first")
+            yield row(f"ident T={TT}", timed(lambda v, TT=TT: ident(TT, v)), xbytes, kind)
         t_d = bench_loop(lambda v, dd: identd(T, dd, v), x, K=K, op_args=(d,))
-        t_a, t_af = in_turns([lambda v: ident_alias(T, v), lambda v: ident_alias_first(T, v)],
-                             timed)
+        t_a = timed(lambda v: ident_alias(T, v))
     yield row(f"ident+d T={T}", t_d, xbytes + d.numel() * 4, kind)
     yield row(f"ident ALIASED T={T}", t_a, xbytes, kind)
-    if not on_cpu:
-        yield row(f"ident ALIASED first T={T}", t_af, xbytes, "first")
 
 
 def main(argv=None) -> int:

@@ -27,10 +27,13 @@ place.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
 import torch
+
+from dune_eigensolver_tpu_torch.utils import native
 
 #: the iterate dtypes the kernels are instantiated for
 CG_STEP_DTYPES = (torch.float32, torch.float64)
@@ -133,12 +136,26 @@ def _dptr(what: str, d: Optional[torch.Tensor]) -> Optional[int]:
     return _ptr(d)
 
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_lib = native.Launchers({
+    # (value_bytes, b, b_sr, b_sc, d, x, r, p, state, part, ctl, n, m, rtol, stream)
+    "cg_setup_launch": [_I, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _L, _I, ctypes.c_double,
+                        _P],
+    # (value_bytes, p, ap, ap_sr, ap_sc, state, part, ctl, n, m, stream)
+    "cg_pap_launch": [_I, _P, _P, _L, _L, _P, _P, _P, _L, _I, _P],
+    # (value_bytes, x, r, p, ap, ap_sr, ap_sc, d, state, part, ctl, n, m, stream)
+    "cg_update_launch": [_I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _L, _I, _P],
+    # (value_bytes, r, p, d, state, n, m, stream)
+    "cg_direction_launch": [_I, _P, _P, _P, _P, _L, _I, _P],
+    # the partial sums' room a row
+    "cg_max_blocks": [],
+})
+
+
 def _launch(name: str, dev: torch.device, *args) -> None:
     """Run launcher ``name`` with ``args`` then the current stream; raise on
     a CUDA error."""
-    from dune_eigensolver_tpu_torch.utils import native
-
-    lib = native.load()
+    lib = _lib()
     with torch.cuda.device(dev):
         err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     native.check(err, name)
@@ -156,14 +173,12 @@ def cg_setup_cuda(B: torch.Tensor, inv_diag: Optional[torch.Tensor], rtol: float
     if not takes(B, inv_diag):
         raise TypeError(f"cg_setup_cuda: B {B.dtype} on {B.device}, inv_diag "
                         f"{None if inv_diag is None else (inv_diag.dtype, inv_diag.device)}")
-    from dune_eigensolver_tpu_torch.utils import native
-
     m, n = B.shape
     X, R, P = (torch.empty((m, n), dtype=B.dtype, device=B.device) for _ in range(3))
     st = CgState(
         vec=torch.empty((SLOTS, m), dtype=B.dtype, device=B.device),
         ctl=torch.empty(2, dtype=torch.int32, device=B.device),
-        part=torch.empty(2 * m * native.load().cg_max_blocks(), dtype=B.dtype, device=B.device),
+        part=torch.empty(2 * m * _lib().cg_max_blocks(), dtype=B.dtype, device=B.device),
     )
     _launch("cg_setup_launch", B.device, B.element_size(), B.data_ptr(), B.stride(0),
             B.stride(1), _dptr("cg_setup_cuda", inv_diag), X.data_ptr(), R.data_ptr(),

@@ -32,6 +32,12 @@ from typing import Sequence, Tuple
 import torch
 
 from dune_eigensolver_tpu_torch.sparse.formats import DIAMatrix
+from dune_eigensolver_tpu_torch.utils import native
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: (dtype, data, x, y, n, m, ndiag, offsets, width, stream)
+_lib = native.Launchers({"dia_spmm_t_launch": [_I, _P, _P, _P, ctypes.c_longlong, _I, _I,
+                                               ctypes.POINTER(_I), _I, _P]})
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _MAX_DIAG = 16  # DIA_MAX_DIAG in csrc/dia_spmm.cu
@@ -105,8 +111,6 @@ def dia_spmm_t_cuda(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
     device, both contiguous; raises on anything else and on a launch the
     CUDA runtime refuses. The specialisation is ``dia_vector_width``'s, recorded
     in ``dia_spmm_t_cuda.width``."""
-    from dune_eigensolver_tpu_torch.utils import native
-
     data = A.data
     m, n = Xt.shape
     if A.shape != (n, n) or data.shape != (len(A.offsets), n):
@@ -126,7 +130,7 @@ def dia_spmm_t_cuda(A: DIAMatrix, Xt: torch.Tensor) -> torch.Tensor:
     ndiag = len(A.offsets)
     if not 1 <= ndiag <= _MAX_DIAG:
         raise ValueError(f"dia_spmm_t_cuda: {ndiag} diagonals, at most {_MAX_DIAG}")
-    lib = native.load()
+    lib = _lib()
     Y = torch.empty_like(Xt)
     offs = (ctypes.c_int * ndiag)(*A.offsets)
     # the largest power of two, up to 16, dividing every operand's address

@@ -29,10 +29,12 @@ kernel also reads ``ELLMatrix.warp_slots``).
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
 from dune_eigensolver_tpu_torch.sparse.formats import BSRMatrix, ELLMatrix
+from dune_eigensolver_tpu_torch.utils import native
 
 BSR_KERNEL_BLOCKS = (2, 4)  # the b the BSR kernel is instantiated for
 #: the value types the ELL and BSR kernels are instantiated for (the TPU
@@ -93,16 +95,22 @@ def _check_cuda_operands(what: str, coef: torch.Tensor, index: torch.Tensor,
         raise ValueError(f"{what}: Xt must be contiguous")
 
 
-def _launch(name: str, Xt: torch.Tensor, y_shape, *args) -> torch.Tensor:
-    """Run launcher ``name`` with ``args`` then (X, Y, m, stream) on a new
-    (m, n) output; raise on a CUDA error."""
-    from dune_eigensolver_tpu_torch.utils import native
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_lib = native.Launchers({
+    # (value_bytes, data_t, index_t, index_bytes, warp_slots, n, k, ncols, x, y, m, stream)
+    "ell_spmm_t_launch": [_I, _P, _P, _I, _P, _L, _I, _L, _P, _P, _I, _P],
+    # (value_bytes, b, bdata_t, bcols_t, nbr, k, ncols, x, y, m, stream)
+    "bsr_spmm_t_launch": [_I, _I, _P, _P, _L, _I, _L, _P, _P, _I, _P],
+})
 
-    lib = native.load()
+
+def _launch(name: str, Xt: torch.Tensor, y_shape, *args, lib=_lib) -> torch.Tensor:
+    """Run launcher ``name`` of ``lib`` with ``args`` then (X, Y, m, stream)
+    on a new (m, n) output; raise on a CUDA error."""
     Y = torch.empty(y_shape, dtype=Xt.dtype, device=Xt.device)
     with torch.cuda.device(Xt.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(*args, Xt.data_ptr(), Y.data_ptr(), Xt.shape[0], stream)
+        err = getattr(lib(), name)(*args, Xt.data_ptr(), Y.data_ptr(), Xt.shape[0], stream)
     native.check(err, name)
     return Y
 

@@ -29,6 +29,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from dune_eigensolver_tpu_torch.utils import native
+
 #: the level types the kernel is instantiated for (the coarsest CG is f32 in each)
 TAIL_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
@@ -38,6 +40,16 @@ MAX_LEVELS = 16
 _CG_PARTS = 2 * 32 * 4
 
 _OPTIN = {}  # device index -> opt-in shared memory a block, bytes
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_lib = native.Launchers({
+    # (dtype, b, out, m, nd, nlev, level0, dims, a0, a1, a2, sigma, nu1, nu2, omega, iters,
+    # bytes, stream)
+    "mg_tail_launch": [_I, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_I), _P, _P, _P, _P, _I, _I,
+                       ctypes.c_double, _I, ctypes.c_longlong, _P],
+    # (device) -> opt-in shared memory a block, or -error
+    "mg_tail_smem_optin": [_I],
+})
 
 
 def _align16(nbytes: int) -> int:
@@ -72,11 +84,9 @@ def tail_start(levels: Sequence[Tuple[int, ...]], level: int, dtype: torch.dtype
 def smem_optin(device: torch.device) -> int:
     """The shared memory a block may opt in to on ``device`` (bytes), read
     from the device once."""
-    from dune_eigensolver_tpu_torch.utils import native
-
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _OPTIN:
-        v = native.load().mg_tail_smem_optin(index)
+        v = _lib().mg_tail_smem_optin(index)
         if v < 0:
             native.check(-v, "mg_tail_smem_optin")
         _OPTIN[index] = v
@@ -105,8 +115,6 @@ def mg_tail_cuda(levels, level, b, a_fine, sigma, nu1, nu2, omega, coarse_iters)
     correction at ``levels[level]`` for the right-hand sides ``b`` (m,
     *levels[level]), of b's type. ``a_fine`` (fastest axis first) and
     ``sigma`` are 0-d f32 tensors on b's device (``_sampled_coeffs``)."""
-    from dune_eigensolver_tpu_torch.utils import native
-
     tail = tuple(tuple(d) for d in levels[level:])
     nd = len(tail[0])
     if not (b.is_cuda and b.dtype in TAIL_DTYPES):
@@ -122,9 +130,8 @@ def mg_tail_cuda(levels, level, b, a_fine, sigma, nu1, nu2, omega, coarse_iters)
     dims = [v for d in tail for v in ((1,) + d if nd == 2 else d)]
     b = b.contiguous()
     out = torch.empty_like(b)
-    lib = native.load()
     with torch.cuda.device(b.device):
-        err = lib.mg_tail_launch(
+        err = _lib().mg_tail_launch(
             _DTYPE_CODE[b.dtype], b.data_ptr(), out.data_ptr(), b.shape[0], nd, len(tail),
             level, (ctypes.c_int * len(dims))(*dims),
             *(t.data_ptr() for t in a_fine), *([None] * (3 - nd)),

@@ -186,15 +186,6 @@ class ELLMatrix:
         return self.data.T.contiguous(), (self.cols.T.contiguous() if offsets is None else offsets)
 
     @functools.cached_property
-    def column_stream(self) -> torch.Tensor:
-        """``cols`` as a contiguous ``(k, n)`` int32 copy, made once on first
-        use: what K2's first version (``experiments/gather_ablate.py``)
-        reads. It is ``kernel_streams``' own index stream where that holds
-        int32 columns; no solve path makes it otherwise."""
-        index_t = self.kernel_streams[1]
-        return index_t if index_t.dtype == torch.int32 else self.cols.T.contiguous()
-
-    @functools.cached_property
     def warp_slots(self) -> torch.Tensor:
         """``ell_warp_slots`` of this container, made once: the CUDA kernel
         runs each warp's slot loop to its count, not to ``k``."""

@@ -2,14 +2,22 @@
 host-setup helper (counterpart of the JAX package's ``utils/native.py``
 ctypes bridge to ``native/libdunetpu.so``).
 
-The CUDA sources under ``csrc/`` are compiled with ``nvcc`` for sm_90a, one
+The CUDA sources make two libraries, one a directory: the solver's kernels
+(``csrc/*.cu``, ``SOLVER``) and the kernel studies' (``csrc/experiments/
+*.cu``, ``STUDIES``). Each is compiled with ``nvcc`` for sm_90a, one
 ``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, at first use, into the package's
-``_build/`` directory (ignored by git), and loaded with ctypes. The
-library's file name carries a hash of the sources, the headers they
-include (``csrc/*.cuh``) and the flags, so an edited kernel or header is
-rebuilt and a stale one is never loaded. Nothing is built or
-loaded when the module is imported.
+``_build/`` directory (ignored by git), and loaded with ctypes. A library's
+file name carries a hash of the flags, its sources and the headers they may
+include (the ``*.cuh`` of its directory and of the directories above it up
+to ``csrc/``), so an edited kernel or header is rebuilt and a stale one is
+never loaded, and an edit to a study never renames the solver's library.
+Nothing is built or loaded when the module is imported, and a solve builds
+the solver's library alone.
+
+Each kernel wrapper module declares the entry points it launches beside the
+calls that pass their arguments (``Launchers``); this module names none but
+``dune_cuda_error_string``, which each library defines for ``check``.
 
 The host helper, ``csrc/host/dunetpu.cpp`` (a copy of the JAX package's
 ``native/dunetpu.cpp``), is compiled the same way with ``g++`` and the
@@ -19,8 +27,8 @@ never loads another CPU's build. ``levels_from_csr``, ``chunk_schedule``,
 ``lu_banded`` and ``csr_to_ell`` keep the JAX module's names, arguments and
 results. Unlike the JAX module's, they never return ``None`` for a missing
 library: a failed build raises with g++'s output (``available()`` reports
-whether the helper builds and loads). Both builds compile to a temporary
-file and rename it onto the final name, so concurrent processes never load
+whether the helper builds and loads). Every build compiles to a temporary
+file and renames it onto the final name, so concurrent processes never load
 a half-written library.
 """
 
@@ -39,6 +47,9 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
+#: the two kernel libraries' source directories: the solver's and the studies'
+SOLVER = CSRC
+STUDIES = os.path.join(CSRC, "experiments")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,19 +59,31 @@ NVCC_FLAGS = (
 HOST_SRC = os.path.join(CSRC, "host", "dunetpu.cpp")
 HOST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
 
-_LIB = None
+_LIBS = {}  # source directory -> its loaded library
 _HOST_LIB = None
 
 
-def _sources(csrc: str = CSRC):
-    """The CUDA sources, one ``nvcc`` each."""
-    return sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cu"))
+def _files(directory: str, suffix: str):
+    return sorted(os.path.join(directory, f) for f in os.listdir(directory) if f.endswith(suffix))
 
 
-def _headers(csrc: str = CSRC):
-    """The headers the sources include (``bulk_copy.cuh``, ``ell_body.cuh``):
-    not compiled on their own, but part of the library's hash."""
-    return sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh"))
+def _sources(csrc: str = SOLVER):
+    """A library's CUDA sources, one ``nvcc`` each: the ``*.cu`` of its
+    directory."""
+    return _files(csrc, ".cu")
+
+
+def _headers(csrc: str = SOLVER, root: str = CSRC):
+    """The headers a library's sources may include: not compiled on their
+    own, but part of the library's hash. The ``*.cuh`` of its directory and
+    of each directory above it up to ``root`` (the studies include the
+    solver's ``ell_body.cuh``; the solver includes none of the studies')."""
+    d, root = os.path.abspath(csrc), os.path.abspath(root)
+    headers = _files(d, ".cuh")
+    while d != root and os.path.dirname(d) != d:
+        d = os.path.dirname(d)
+        headers += _files(d, ".cuh")
+    return headers
 
 
 def _nvcc() -> str:
@@ -74,14 +97,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _lib_path(sources, headers=()) -> str:
-    """The library's file name: a hash of the flags, the sources and the
-    headers they include, so an edited header is rebuilt too."""
+def _lib_path(sources, headers=(), name: str = "kernels") -> str:
+    """A library's file name: ``name`` and a hash of the flags, the sources
+    and the headers they may include, so an edited header is rebuilt too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in (*sources, *headers):
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode() + fh.read())
-    return os.path.join(BUILD_DIR, f"libdune_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libdune_{name}_{h.hexdigest()[:16]}.so")
+
+
+def _lib_name(csrc: str) -> str:
+    """``kernels`` for the solver's library (``csrc/``), ``experiments`` for
+    the studies'."""
+    name = os.path.basename(os.path.abspath(csrc))
+    return "kernels" if name == "csrc" else name
 
 
 def _run_all(cmds, tool="nvcc"):
@@ -99,13 +129,13 @@ def _run_all(cmds, tool="nvcc"):
     return outs
 
 
-def build():
-    """Compile ``csrc/*.cu`` unless the library for these sources and
-    headers exists.
-    Returns ``(library path, nvcc's output)``, the output empty when the
-    library was already built. Raises with nvcc's output on failure."""
-    sources = _sources()
-    path = _lib_path(sources, _headers())
+def build(csrc: str = SOLVER):
+    """Compile the library of ``csrc`` (``SOLVER`` or ``STUDIES``) unless it
+    exists for these sources and headers. Returns ``(library path, nvcc's
+    output)``, the output empty when the library was already built. Raises
+    with nvcc's output on failure."""
+    sources = _sources(csrc)
+    path = _lib_path(sources, _headers(csrc), _lib_name(csrc))
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -120,116 +150,44 @@ def build():
     return path, "".join(log)
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built if needed, with every entry point's
-    ``argtypes``/``restype`` declared."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = ctypes.CDLL(build()[0])
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dia_spmm_t_launch.restype = i32
-    lib.dia_spmm_t_launch.argtypes = [
-        i32, vp, vp, vp, i64, i32, i32, ctypes.POINTER(i32), i32, vp,
-    ]  # (dtype, data, x, y, n, m, ndiag, offsets, width, stream)
-    # (value_bytes, data_t, index_t, index_bytes, warp_slots, n, k, ncols, x, y,
-    # m, stream)
-    lib.ell_spmm_t_launch.restype = i32
-    lib.ell_spmm_t_launch.argtypes = [i32, vp, vp, i32, vp, i64, i32, i64, vp, vp, i32, vp]
-    # (value_bytes, b, bdata_t, bcols_t, nbr, k, ncols, x, y, m, stream)
-    lib.bsr_spmm_t_launch.restype = i32
-    lib.bsr_spmm_t_launch.argtypes = [i32, i32, vp, vp, i64, i32, i64, vp, vp, i32, vp]
-    # copy probe: (body, x, y, rows, width, tile, stream), (body, x, rows,
-    # width, tile, stream), (d, x, y, rows, width, nd, tile, stream)
-    lib.copy_add1_launch.restype = i32
-    lib.copy_add1_launch.argtypes = [i32, vp, vp, i32, i64, i32, vp]
-    lib.copy_add1_inplace_launch.restype = i32
-    lib.copy_add1_inplace_launch.argtypes = [i32, vp, i32, i64, i32, vp]
-    lib.copy_add_row_launch.restype = i32
-    lib.copy_add_row_launch.argtypes = [vp, vp, vp, i32, i64, i32, i32, vp]
-    # DIA staging variants, each (data, x, y, [side,] n, m, ndiag, offsets, ...)
-    offs = ctypes.POINTER(i32)
-    lib.dia_c_launch.restype = i32  # ..., T, H, rows, nwalk, stream
-    lib.dia_c_launch.argtypes = [vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, vp]
-    # ..., T, lo, W, rows, tpc, nslots, depth, body, threads, width, stream
-    lib.dia_b_launch.restype = i32
-    lib.dia_b_launch.argtypes = [
-        vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
-    ]
-    lib.dia_d_launch.restype = i32  # ..., T, rows, tpc, stream
-    lib.dia_d_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, vp]
-    # the staged bodies: ..., T, H, rows, nwalk, route, width, threads, stream and
-    # ..., T, rows, tpc, route, width, threads, stream
-    lib.dia_c_stage_launch.restype = i32
-    lib.dia_c_stage_launch.argtypes = [vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32, i32,
-                                       i32, i32, vp]
-    lib.dia_d_stage_launch.restype = i32
-    lib.dia_d_stage_launch.argtypes = [vp, vp, vp, vp, i64, i32, i32, offs, i32, i32, i32, i32,
-                                       i32, i32, vp]
-    # (variant, ndiag, slots, rows, window) -> blocks per SM, 0, or -error (first
-    # versions); (variant, route, width, ndiag, threads, bytes) the same (staged bodies)
-    lib.dia_variant_blocks_per_sm.restype = i32
-    lib.dia_variant_blocks_per_sm.argtypes = [i32, i32, i32, i32, i32]
-    lib.dia_stage_blocks_per_sm.restype = i32
-    lib.dia_stage_blocks_per_sm.argtypes = [i32, i32, i32, i32, i32, i64]
-    # ELL ablation: (variant, rows, kc, data_t, index_t, index_bytes, warp_slots, n, k,
-    # ncols, x, y, m, stream); K2's first version: (data_t, cols_t, n, k, ncols, x, y, m,
-    # stream)
-    lib.ell_ablate_launch.restype = i32
-    lib.ell_ablate_launch.argtypes = [i32, i32, i32, vp, vp, i32, vp, i64, i32, i64, vp, vp, i32,
-                                      vp]
-    lib.ell_first_launch.restype = i32
-    lib.ell_first_launch.argtypes = [vp, vp, i64, i32, i64, vp, vp, i32, vp]
-    # gather probes: (form, idx_bytes, x, idx, out, rows, width, seg, stream),
-    # (form, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
-    # (vec, x, p, out, rows, bw, nb, row_stride, block_stride, stream),
-    # (x, s, out, rows, width, seg, stream), (body, x, idx, out, rows, width, stream),
-    # (x, i8, out, total, stream)
-    lib.gather_lanes_launch.restype = i32
-    lib.gather_lanes_launch.argtypes = [i32, i32, vp, vp, vp, i32, i64, i32, vp]
-    lib.block_select_launch.restype = i32
-    lib.block_select_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i64, i64, vp]
-    lib.slice_rows_launch.restype = i32
-    lib.slice_rows_launch.argtypes = [i32, vp, vp, vp, i32, i32, i32, i64, i64, vp]
-    lib.roll_lanes_launch.restype = i32
-    lib.roll_lanes_launch.argtypes = [vp, vp, vp, i32, i64, i32, vp]
-    lib.gather_axis0_launch.restype = i32
-    lib.gather_axis0_launch.argtypes = [i32, vp, vp, vp, i32, i64, vp]
-    lib.int8_widen_launch.restype = i32
-    lib.int8_widen_launch.argtypes = [vp, vp, vp, i64, vp]
-    # the CG step: (value_bytes, b, b_sr, b_sc, d, x, r, p, state, part, ctl, n, m, rtol,
-    # stream), (value_bytes, p, ap, ap_sr, ap_sc, state, part, ctl, n, m, stream),
-    # (value_bytes, x, r, p, ap, ap_sr, ap_sc, d, state, part, ctl, n, m, stream),
-    # (value_bytes, r, p, d, state, n, m, stream); the partial sums' room a row
-    f64 = ctypes.c_double
-    lib.cg_setup_launch.restype = i32
-    lib.cg_setup_launch.argtypes = [i32, vp, i64, i64, vp, vp, vp, vp, vp, vp, vp, i64, i32, f64,
-                                    vp]
-    lib.cg_pap_launch.restype = i32
-    lib.cg_pap_launch.argtypes = [i32, vp, vp, i64, i64, vp, vp, vp, i64, i32, vp]
-    lib.cg_update_launch.restype = i32
-    lib.cg_update_launch.argtypes = [i32, vp, vp, vp, vp, i64, i64, vp, vp, vp, vp, i64, i32, vp]
-    lib.cg_direction_launch.restype = i32
-    lib.cg_direction_launch.argtypes = [i32, vp, vp, vp, vp, i64, i32, vp]
-    lib.cg_max_blocks.restype = i32
-    lib.cg_max_blocks.argtypes = []
-    # the multigrid tail: (dtype, b, out, m, nd, nlev, level0, dims, a0, a1, a2, sigma, nu1,
-    # nu2, omega, iters, bytes, stream); (device) -> opt-in shared memory a block
-    lib.mg_tail_launch.restype = i32
-    lib.mg_tail_launch.argtypes = [i32, vp, vp, i32, i32, i32, i32, ctypes.POINTER(i32), vp, vp,
-                                   vp, vp, i32, i32, f64, i32, i64, vp]
-    lib.mg_tail_smem_optin.restype = i32
-    lib.mg_tail_smem_optin.argtypes = [i32]
-    lib.dune_cuda_error_string.restype = ctypes.c_char_p
-    lib.dune_cuda_error_string.argtypes = [i32]
-    _LIB = lib
+def load(csrc: str = SOLVER) -> ctypes.CDLL:
+    """The library of ``csrc``, built if needed; of its entry points only
+    the error string is declared here (``Launchers`` declares the rest)."""
+    lib = _LIBS.get(csrc)
+    if lib is None:
+        lib = ctypes.CDLL(build(csrc)[0])
+        lib.dune_cuda_error_string.restype = ctypes.c_char_p
+        lib.dune_cuda_error_string.argtypes = [ctypes.c_int]
+        _LIBS[csrc] = lib
     return lib
+
+
+class Launchers:
+    """The entry points a wrapper module launches, ``{name: argtypes}``, each
+    returning a C int (a ``cudaError_t``, or a count), in the library of
+    ``csrc``. Calling it returns that library, built and loaded at the first
+    call, which also declares the entry points."""
+
+    def __init__(self, signatures: dict, csrc: str = SOLVER):
+        self.signatures, self.csrc = dict(signatures), csrc
+        self._lib = None
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.csrc)
+            for name, argtypes in self.signatures.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = ctypes.c_int, argtypes
+            self._lib = lib
+        return self._lib
 
 
 def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
-        msg = load().dune_cuda_error_string(err).decode()
+        # every library defines the error string; a launch has loaded one
+        lib = next(iter(_LIBS.values()), None) or load()
+        msg = lib.dune_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
@@ -249,7 +207,7 @@ def _sass_text(tool: str, lib: str, name: str) -> str:
     """``cuobjdump -sass`` of the cubins in ``lib`` whose symbols hold
     ``name``: each source's cubin is extracted first (``-xelf all``, no
     disassembly), so only the sources asked about are disassembled, not the
-    whole library (over 20 s for it on the H100's host)."""
+    whole library."""
     with tempfile.TemporaryDirectory() as tmp:
         subprocess.run([tool, "-xelf", "all", os.path.abspath(lib)], cwd=tmp, check=True,
                        capture_output=True)
@@ -261,17 +219,17 @@ def _sass_text(tool: str, lib: str, name: str) -> str:
         return "".join(_run_all([[tool, "-sass", c] for c in picked], tool="cuobjdump"))
 
 
-def sass(name: str, path: Optional[str] = None) -> dict:
-    """The SASS of each kernel of the library at ``path`` (the built one by
-    default) whose mangled name holds ``name``: ``{mangled name: text}``,
-    as ``cuobjdump -sass`` prints it. What ptxas kept, which the sources
-    alone cannot show (a load whose result nothing reads is dead to it).
-    Raises where ``cuobjdump`` is missing."""
+def sass(name: str, path: Optional[str] = None, csrc: str = SOLVER) -> dict:
+    """The SASS of each kernel of the library at ``path`` (by default the
+    built library of ``csrc``) whose mangled name holds ``name``:
+    ``{mangled name: text}``, as ``cuobjdump -sass`` prints it. What ptxas
+    kept, which the sources alone cannot show (a load whose result nothing
+    reads is dead to it). Raises where ``cuobjdump`` is missing."""
     tool = cuobjdump()
     if tool is None:
         raise RuntimeError("cuobjdump not found: set CUDA_HOME or put it on PATH")
     funcs = {}
-    for part in _sass_text(tool, path or build()[0], name).split("Function : ")[1:]:
+    for part in _sass_text(tool, path or build(csrc)[0], name).split("Function : ")[1:]:
         head, _, body = part.partition("\n")
         if name in head:
             funcs[head.strip()] = body
@@ -281,10 +239,10 @@ def sass(name: str, path: Optional[str] = None) -> dict:
 _LDG = re.compile(r"\bLDG\b")  # a global load (not LDGSTS, cp.async)
 
 
-def sass_global_loads(name: str, path: Optional[str] = None) -> dict:
+def sass_global_loads(name: str, path: Optional[str] = None, csrc: str = SOLVER) -> dict:
     """The global-load instructions (``LDG``) in the SASS of each kernel
     whose mangled name holds ``name``: ``{mangled name: count}``."""
-    return {f: len(_LDG.findall(text)) for f, text in sass(name, path).items()}
+    return {f: len(_LDG.findall(text)) for f, text in sass(name, path, csrc).items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The ELL-kernel ablation's plain versions, on the CPU.
 
 The port ablates the body its ELL kernel K2 ships (``csrc/ell_body.cuh``,
-instantiated by ``csrc/ell_ablate.cu``); the CUDA variants cannot run here,
-so what is tested is what defines them: each variant's plain version
+instantiated by ``csrc/experiments/ell_ablate.cu``); the CUDA variants
+cannot run here, so what is tested is what defines them: each variant's plain version
 against an explicit numpy loop, the byte model, the sweep's settings and
 the wrappers' refusals, and
 ``full``'s plain version against the JAX experiment's ``run_variant('full')``
@@ -145,26 +145,13 @@ def test_ablate_refuses_an_unbuilt_setting(variant, rows, kc):
     assert ga.ablate_full.launches == before
 
 
-def test_ablate_first_refuses_cpu_tensors_and_other_dtypes():
-    """K2's first version: CUDA tensors of float32 only, refused before
-    the column stream is made or anything is built."""
-    A = ell_from_scipy(sp.random(30, 30, density=0.2, random_state=0, format="csr"),
-                       dtype=torch.float32, device="cpu")
-    with pytest.raises(ValueError, match="CUDA"):
-        ga.ablate_first(A, torch.ones((4, 30)))
-    with pytest.raises(ValueError, match="columns"):
-        ga.ablate_first(A, torch.ones((4, 29)))
-    assert ga.ablate_first.launches == 0
-
-
 def test_ablate_wrappers_refuse_cpu_tensors():
     """No fallback: on a CPU tensor every kernel wrapper raises, before
     anything is built; only ``main`` and ``run_variant`` on a CPU tensor
     choose the plain version."""
     A = ell_from_scipy(sp.eye(40, format="csr"), dtype=torch.float32, device="cpu")
     X = torch.ones((8, 40))
-    for fn in (ga.ablate_full, ga.ablate_nogather, ga.ablate_nodyn, ga.ablate_nofma,
-               ga.ablate_first):
+    for fn in (ga.ablate_full, ga.ablate_nogather, ga.ablate_nodyn, ga.ablate_nofma):
         with pytest.raises(ValueError, match="CUDA"):
             fn(A, X)
         assert fn.launches == 0
@@ -185,7 +172,7 @@ def test_ablate_operands_are_scaled_and_square():
 def test_ablate_main_on_cpu(capsys):
     """``main`` with ``--device cpu`` times the plain versions of the four
     variants on both operands, prints the greppable lines (no copy share:
-    no rate here is the card's) and no first version or sweep."""
+    no rate here is the card's) and no sweep."""
     assert ga.main(["6", "--device", "cpu", "--m", "8", "--graph-n", "400"]) == 0
     out = capsys.readouterr().out
     assert "device: cpu (plain versions" in out and out.rstrip().endswith("done")

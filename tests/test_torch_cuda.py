@@ -9,6 +9,8 @@ no JAX, so on a machine without JAX it runs without the suite's conftest
 
 import collections
 import importlib
+import json
+import os
 
 import numpy as np
 import pytest
@@ -147,6 +149,48 @@ def test_nested_recipe_small_on_card(cuda):
     assert np.abs(ev - eigenvalues_laplace_dirichlet_3d(N, count=20)).max() < 3e-4
 
 
+def test_a_solve_builds_the_solver_library_alone(cuda, tmp_path):
+    """With an empty build directory, a small nested solve on the card (K1
+    and the V-cycle's tail) builds one kernel library, from the solver's
+    five sources, and loads no other: no study source is compiled."""
+    import subprocess
+    import sys
+    import textwrap
+
+    from dune_eigensolver_tpu_torch.utils import native
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = textwrap.dedent("""
+        import json, os, sys, torch
+        from dune_eigensolver_tpu_torch.utils import native
+        native.BUILD_DIR = sys.argv[1]
+        from dune_eigensolver_tpu_torch.factorize import mg_inverse_factory
+        from dune_eigensolver_tpu_torch.kernels import dia_spmm, mg_tail
+        from dune_eigensolver_tpu_torch.solvers import lobpcg_nested
+        from dune_eigensolver_tpu_torch.sparse import DIAMatrix, problems
+        A = problems.laplacian_dirichlet_3d(16, dtype=torch.float32, device="cuda")
+        B = DIAMatrix(data=torch.ones((1, 16**3), device="cuda"), offsets=(0,), shape=A.shape)
+        res = lobpcg_nested(A, B, nev=8, tol=2e-3, maxiter=300, shift=0.0, min_coarse=6,
+                            precond=mg_inverse_factory(nu1=1, nu2=1, dtype=torch.bfloat16),
+                            b_identity=True)
+        print(json.dumps(dict(converged=bool(res.converged), libs=sorted(native._LIBS),
+                              k1=dia_spmm.dia_spmm_t_cuda.launches,
+                              tail=mg_tail.mg_tail_cuda.launches,
+                              files=sorted(os.listdir(sys.argv[1])))))
+    """)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=repo, check=True,
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=repo)).stdout
+    got = json.loads(out.splitlines()[-1])
+    assert got["converged"] and got["k1"] > 0 and got["tail"] > 0
+    assert got["libs"] == [native.SOLVER]
+    built = [f for f in got["files"] if f.startswith("libdune_")]
+    want = native._lib_path(native._sources(native.SOLVER), native._headers(native.SOLVER))
+    assert built == [os.path.basename(want)]
+    assert [os.path.basename(f) for f in native._sources(native.SOLVER)] == [
+        "bsr_spmm.cu", "cg_step.cu", "dia_spmm.cu", "ell_spmm.cu", "mg_tail.cu"]
+
+
 def _gather_operand(kind, device):
     """Small ELL/BSR operands on the card: n not a multiple of the
     256-thread block, rows wider than one register chunk, a rectangular
@@ -238,44 +282,35 @@ def test_ell_kernel_stops_each_warp_at_its_count(cuda, kind, m):
     assert (Y - kg.ell_spmm_t_reference(A, X)).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("kind", WARP_KINDS + ["ell-graph", "ell-wide", "ell-rect"])
-@pytest.mark.parametrize("m", [1, 9, 24])
-def test_ell_kernel_gives_its_first_versions_bits(cuda, kind, m):
-    """On finite X K2, built from ``csrc/ell_body.cuh``, gives the bits of
-    its first version, which the ablation source keeps (``ablate_first``:
-    KC from k, 256 threads): one fused multiply-add chain per output in
-    slot order; the padding slots it skips add zeros to a sum that starts
-    at +0."""
-    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
-    from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
-
-    A = _warp_operand(kind, cuda) if kind in WARP_KINDS else _gather_operand(kind, cuda)
-    X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, A.shape[1]))).to(cuda, torch.float32)
-    assert torch.equal(kg.ell_spmm_t_cuda(A, X), ga.ablate_first(A, X))
-
-
 @pytest.mark.parametrize("far", [False, True])
 @pytest.mark.parametrize("m", [1, 8])
 def test_ell_kernel_int16_and_int32_indices_give_the_same_bits(cuda, far, m):
     """A banded operand at n = 40,000 feeds the kernel int16 offsets; one
     entry 39,999 columns from its row makes the container keep int32
-    columns. Both give the first version's bits."""
+    columns. Each is its plain version to 1e-5 of the row sums of |A| |X|,
+    and the two give the same bits in every row but the one they differ
+    in (row 0)."""
+    import dataclasses
+
     import scipy.sparse as sp
 
-    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
     from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
     from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
 
     n = 40_000
     S = sp.diags([np.full(n - abs(o), 1.0 + 0.1 * o) for o in (-700, -1, 0, 1, 700)],
                  [-700, -1, 0, 1, 700], format="lil")
-    if far:
-        S[0, n - 1] = 0.25
-    A = ell_from_scipy(sp.csr_matrix(S), dtype=torch.float32, device=cuda)
+    near = ell_from_scipy(sp.csr_matrix(S), dtype=torch.float32, device=cuda)
+    S[0, n - 1] = 0.25
+    wide = ell_from_scipy(sp.csr_matrix(S), dtype=torch.float32, device=cuda)
+    A, other = (wide, near) if far else (near, wide)
     X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, n)).astype(np.float32)).to(cuda)
     Y = kg.ell_spmm_t_cuda(A, X)
     assert A.kernel_streams[1].element_size() == (4 if far else 2)
-    assert torch.equal(Y, ga.ablate_first(A, X))
+    absA = dataclasses.replace(A, data=A.data.abs())
+    tol = 1e-5 * kg.ell_spmm_t_reference(absA, X.abs()).max().item()
+    assert (Y - kg.ell_spmm_t_reference(A, X)).abs().max().item() <= tol
+    assert torch.equal(Y[:, 1:], kg.ell_spmm_t_cuda(other, X)[:, 1:])
 
 
 def test_ell_kernel_skips_padding_past_the_warp_count(cuda):
@@ -283,13 +318,11 @@ def test_ell_kernel_skips_padding_past_the_warp_count(cuda):
     entry, and no row stores column 40, so only row 40's padding slots
     (zero coefficient, own column) read X[:, 40]. Its warp stops after
     slot 3, before that padding, while k = 9 is set by row 0 in the other
-    warp. An infinite X[:, 40] makes the plain version and K2's first
-    version NaN in row 40 (0 * inf); K2 stays finite there and gives the
-    sum of row 40's stored entries, and every other output is the first
-    version's bits."""
+    warp. An infinite X[:, 40] makes the plain version NaN in row 40
+    (0 * inf); K2 stays finite there and gives the sum of row 40's stored
+    entries, and every other output is the plain version's to rounding."""
     import scipy.sparse as sp
 
-    from dune_eigensolver_tpu_torch.experiments import gather_ablate as ga
     from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
     from dune_eigensolver_tpu_torch.sparse import ell_from_scipy
 
@@ -307,12 +340,11 @@ def test_ell_kernel_skips_padding_past_the_warp_count(cuda):
     X = torch.from_numpy(np.random.default_rng(0).standard_normal((3, n)).astype(np.float32)).to(cuda)
     X[:, 40] = float("inf")
     Y = kg.ell_spmm_t_cuda(A, X)
-    first = ga.ablate_first(A, X)
     plain = kg.ell_spmm_t_reference(A, X)
-    assert torch.isnan(plain[:, 40]).all() and torch.isnan(first[:, 40]).all()
+    assert torch.isnan(plain[:, 40]).all()
     assert torch.isfinite(Y).all()
     others = torch.arange(n, device=cuda) != 40
-    assert torch.equal(Y[:, others], first[:, others])
+    torch.testing.assert_close(Y[:, others], plain[:, others], rtol=1e-6, atol=1e-6)
     X0 = X.clone()
     X0[:, 40] = 0.0
     torch.testing.assert_close(Y[:, 40], kg.ell_spmm_t_reference(A, X0)[:, 40], rtol=1e-6, atol=1e-6)
@@ -425,9 +457,8 @@ COPY_BODY_CASES = [
 @pytest.mark.parametrize("rows,width,tile,off", COPY_BODY_CASES)
 def test_copy_bodies_match_plain(cuda, rows, width, tile, off):
     """``ident`` and ``ident_alias`` (the bulk copies where ``copy_body``
-    says so, else their first version) and their first versions against
-    the plain version bit for bit, out of place and in place; every launch
-    counted once."""
+    says so, else their first version) against the plain version bit for
+    bit, out of place and in place; every launch counted once."""
     from dune_eigensolver_tpu_torch.experiments import pipeline_probe as pp
 
     gen = torch.Generator(device="cuda").manual_seed(rows * width + tile + off)
@@ -437,13 +468,11 @@ def test_copy_bodies_match_plain(cuda, rows, width, tile, off):
     body = pp.copy_body(width, tile, align=ptrs & -ptrs)
     assert body == ("bulk" if width % 4 == 0 and tile % 4 == 0 and off % 4 == 0 else "first")
     want = pp.ident_reference(x)
-    wrappers = (pp.ident, pp.ident_alias, pp.ident_first, pp.ident_alias_first)
+    wrappers = (pp.ident, pp.ident_alias)
     counts = {fn: fn.launches for fn in wrappers}
     assert torch.equal(pp.ident(tile, x), want) and pp.ident.body == body
-    assert torch.equal(pp.ident_first(tile, x), want) and pp.ident_first.body == "first"
-    for fn in (pp.ident_alias, pp.ident_alias_first):
-        xa = flat.clone()[off:].view(rows, width)  # the same alignment as x
-        assert fn(tile, xa) is xa and torch.equal(xa, want)
+    xa = flat.clone()[off:].view(rows, width)  # the same alignment as x
+    assert pp.ident_alias(tile, xa) is xa and torch.equal(xa, want)
     assert pp.ident_alias.body == body
     torch.cuda.synchronize()
     assert all(fn.launches == counts[fn] + 1 for fn in wrappers)
@@ -484,8 +513,8 @@ def test_identd_coefficient_rows_match_plain(cuda, nd, shape, tile):
 
 
 def test_identd_sass_keeps_the_coefficient_loads(cuda):
-    """What ptxas kept: in ``cuobjdump -sass`` of the built library, each
-    instantiation of ``copy_add_row_kernel`` that streams rows 1.. of d
+    """What ptxas kept: in ``cuobjdump -sass`` of the built studies' library,
+    each instantiation of ``copy_add_row_kernel`` that streams rows 1.. of d
     (STREAM, taken where nd > 1) has at least CP_UNROLL = 4 global loads
     more than the same body without them; a load whose result nothing reads
     would be gone. Skips only where the toolkit has no cuobjdump."""
@@ -501,23 +530,16 @@ def test_identd_sass_keeps_the_coefficient_loads(cuda):
 
 
 def _variant_calls(kv, tile, rows):
-    """(name, call, wrapper): every variant on its staged body and the first
-    versions of C, B and D (names ending in "first")."""
-    calls = [("c", lambda A, X: kv.spmm_c(A, X, tile=tile, rows=rows), kv.spmm_c),
-             ("c_first", lambda A, X: kv.spmm_c_first(A, X, tile=tile, rows=rows),
-              kv.spmm_c_first)]
+    """(name, call, wrapper): every variant (B off the 16-byte grid on its
+    first version)."""
+    calls = [("c", lambda A, X: kv.spmm_c(A, X, tile=tile, rows=rows), kv.spmm_c)]
     for s, q in kv.B_RINGS:
         calls.append((f"b{s}{q}", lambda A, X, s=s, q=q: kv.spmm_b(A, X, s, q, tile=tile, rows=rows),
                       kv.spmm_b))
-    calls.append(("b21_first", lambda A, X: kv.spmm_b_first(A, X, 2, 1, tile=tile, rows=rows),
-                  kv.spmm_b_first))
     for alias in (False, True):
         name = "d_alias" if alias else "d"
         calls.append((name, lambda A, X, a=alias: kv.spmm_d(A, X, alias=a, tile=tile, rows=rows),
                       kv.spmm_d))
-        calls.append((name + "_first",
-                      lambda A, X, a=alias: kv.spmm_d_first(A, X, alias=a, tile=tile, rows=rows),
-                      kv.spmm_d_first))
     return calls
 
 
@@ -528,8 +550,8 @@ def test_variants_match_plain(cuda, N, m, tile, rows):
     product on the 2D Laplacian with random diagonals kept: the same f32
     sum FMA-contracted, 1e-5 of max|R|; the staged bodies give the shipped
     kernel's bits (K1: one FMA chain in offset order, zeros outside [0, n)),
-    and so does B's bulk body where n % 4 == 0; the first versions of C, B
-    and D are held to the plain version. n = 2025 is odd (cp.async), 2116
+    and so does B's bulk body where n % 4 == 0; B's first version, off the
+    grid, is held to the plain version. n = 2025 is odd (cp.async), 2116
     and 1369 are no multiples of the tile, (48, 2560) is one tile that holds
     the whole operand, (100, 128) has many chunks; (32, 256), (48, 2560) and
     (100, 128) take four columns a thread."""
@@ -553,7 +575,7 @@ def test_variants_match_plain(cuda, N, m, tile, rows):
         assert (Y.data_ptr() == Xin.data_ptr()) == name.startswith("d_alias"), name
         assert (Y - R).abs().max().item() <= tol, name
         # B is on the staged body where n lies on the 16-byte grid
-        if not name.endswith("first") and (name[0] != "b" or n % 4 == 0):
+        if name[0] != "b" or n % 4 == 0:
             assert torch.equal(Y, K1), name
 
 
@@ -631,9 +653,8 @@ def test_ring_bodies_match_plain(cuda, N, route, ring):
     first at each setting), m = 5 (a group of two rows is cut short), one
     application and the 2-chain each within 1e-5 of its max|Y|, and on the
     bulk route (the staged body) K1's bits; every launch takes the route n
-    gives it and the width ``stage_width`` gives it, and the first version
-    (cp.async), called on any n, matches at every setting too. The bulk
-    body's coefficient tiles leave two settings of ring (4, 3) room."""
+    gives it and the width ``stage_width`` gives it. The bulk body's
+    coefficient tiles leave two settings of ring (4, 3) room."""
     from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
 
     n = N * N
@@ -660,12 +681,6 @@ def test_ring_bodies_match_plain(cuda, N, route, ring):
             assert (Y2 - R2).abs().max().item() <= 1e-5 * R2.abs().max().item(), (T, rows)
             if route == "bulk":
                 assert torch.equal(Y, K1), (T, rows)
-            # the first version at the same setting, on the grid too
-            first = kv.spmm_b_first.launches
-            Yf = kv.spmm_b_first(A, X, s, q, tile=T, rows=rows)
-            torch.cuda.synchronize()
-            assert kv.spmm_b_first.launches == first + 1
-            assert (Yf - R).abs().max().item() <= 1e-5 * R.abs().max().item(), (T, rows)
             done += 1
     assert done >= 2
 
@@ -750,8 +765,8 @@ def test_stage_launchers_refuse_what_the_rules_refuse(cuda):
 def test_variant_d_in_place_two_chain(cuda):
     """The in-place form fed its own output (the reference's 2-chain
     check), with chunks of one and of several tiles, on the staged body
-    (bulk copies, width 4 at N = 96 and 300, width 1 on cp.async at N = 95)
-    and on the first version."""
+    (bulk copies, width 4 at N = 96 and 300, width 1 on cp.async at N = 95),
+    within 1e-5 of the plain 2-chain and K1's bits."""
     from dune_eigensolver_tpu_torch.experiments import kernel_variants as kv
 
     for N, tile in ((96, 128), (300, 512), (95, 128)):
@@ -760,10 +775,8 @@ def test_variant_d_in_place_two_chain(cuda):
         X = torch.randn((8, N * N), generator=torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
         R2 = kd.dia_spmm_t_reference(A, kd.dia_spmm_t_reference(A, X))
-        for fn in (kv.spmm_d, kv.spmm_d_first):
-            Y = fn(A, fn(A, X.clone(), alias=True, tile=tile), alias=True, tile=tile)
-            assert (Y - R2).abs().max().item() <= 1e-5 * R2.abs().max().item(), (N, fn)
         Y = kv.spmm_d(A, kv.spmm_d(A, X.clone(), alias=True, tile=tile), alias=True, tile=tile)
+        assert (Y - R2).abs().max().item() <= 1e-5 * R2.abs().max().item(), N
         assert torch.equal(Y, kd.dia_spmm_t_cuda(A, kd.dia_spmm_t_cuda(A, X))), N
 
 
@@ -773,25 +786,22 @@ def test_variant_wrappers_refuse(cuda):
 
     A = problems.laplacian_dirichlet_2d(64, dtype=torch.float32, device=cuda)
     X = torch.ones((8, 64 * 64), device=cuda)
-    for fn in (kv.spmm_d, kv.spmm_d_first):
-        with pytest.raises(ValueError, match="exceeds the tile"):
-            fn(A, X, tile=32)
+    with pytest.raises(ValueError, match="exceeds the tile"):
+        kv.spmm_d(A, X, tile=32)
     with pytest.raises(ValueError, match="depth < nslots"):
         kv.spmm_b(A, X, nslots=2, depth=2)
-    for fn in (kv.spmm_c, kv.spmm_c_first):
-        with pytest.raises(ValueError, match="shared memory"):
-            fn(A, X, tile=32768, rows=8)  # two windows beyond 227 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.spmm_c(A, X, tile=32768, rows=8)  # two windows beyond 227 KB
     with pytest.raises(ValueError, match="shared memory"):
         kv.spmm_b(A, X, nslots=4, depth=3, tile=8192, rows=8)
-    for fn in (kv.spmm_d, kv.spmm_d_first):
-        with pytest.raises(ValueError, match="shared memory"):
-            fn(A, X, tile=8192, rows=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        kv.spmm_d(A, X, tile=8192, rows=8)
     with pytest.raises(ValueError, match="shared memory"):
         kv.spmm_d(A, X, tile=4096, rows=2)  # the ring fits, not with its coefficient tiles
-    for fn in (kv.spmm_c, kv.spmm_c_first, kv.spmm_d, kv.spmm_d_first, kv.spmm_b_first):
+    for fn in (kv.spmm_c, kv.spmm_d, kv.spmm_b):
         with pytest.raises(TypeError, match="float32"):
             fn(A, X.double())
-    for fn in (kv.spmm_c, kv.spmm_b, kv.spmm_d, *kv.FIRST_VERSIONS.values()):
+    for fn in (kv.spmm_c, kv.spmm_b, kv.spmm_d):
         with pytest.raises(ValueError, match="CUDA"):
             fn(A, X.cpu())
     with pytest.raises(ValueError, match="CUDA"):
@@ -818,10 +828,10 @@ def test_cli_and_experiments_on_card(cuda, capsys):
                     "ell_cuda"):
         assert f"RESULT {variant} " in out
     assert "P_n_m_i_perfn_perfb: 1 4096 16 15 " in out
-    for label in ("ident T=1024", "ident first T=1024", "ident+d",
-                  "ALIASED", "ident ALIASED first", "A shipped", "D rolling", "D in-place",
+    for label in ("ident T=1024", "ident+d", "ALIASED", "A shipped", "D rolling", "D in-place",
                   "B s=4 d=3", "C r1-style"):
         assert label in out
+    assert "first" not in out
 
 
 # ---------------------------------------------------------------------------
@@ -832,8 +842,8 @@ def test_cli_and_experiments_on_card(cuda, capsys):
 @pytest.mark.parametrize("n,k", [(1001, 7), (2049, 18), (777, 33), (300, 3)])
 @pytest.mark.parametrize("m", [1, 8, 24])
 def test_ablate_variants_match_plain(cuda, n, k, m):
-    """``check_variants``: K2's first version and K2's body at every
-    (rows, kc) of the sweep give K2's bits; ``nogather`` and ``nodyn``, on
+    """``check_variants``: K2's body at every (rows, kc) of the sweep gives
+    K2's bits; ``nogather`` and ``nodyn``, on
     K2's body, stay within 1e-5 of the largest row's sum of |data| |X| of
     their plain versions; ``nofma`` is exact. n is no multiple of a block,
     k spans one to several register chunks."""
@@ -846,12 +856,11 @@ def test_ablate_variants_match_plain(cuda, n, k, m):
     A = ell_from_scipy(sp.csr_matrix(S), dtype=torch.float32, device=cuda)
     X = torch.from_numpy(np.random.default_rng(m).standard_normal((m, n)).astype(np.float32)).to(cuda)
     before = {v: f.launches for v, f in ga.VARIANT_KERNELS.items()}
-    full_before, first_before = ga.ablate_full.launches, ga.ablate_first.launches
+    full_before = ga.ablate_full.launches
     errs = ga.check_variants(A, X)
     torch.cuda.synchronize()
     assert set(errs) == set(ga.VARIANTS) and errs["nofma"] == 0.0
     assert ga.ablate_full.launches == full_before + len(ga.SWEEP)  # one a setting
-    assert ga.ablate_first.launches == first_before + 1
     for v, f in ga.VARIANT_KERNELS.items():
         assert f.launches >= before[v] + 1
 
@@ -886,12 +895,11 @@ def test_ablate_sweep_gives_k2s_bits(cuda, kind, m):
     for rows, kc in ga.SWEEP:
         assert torch.equal(ga.ablate_full(A, X, rows, kc), K2), (rows, kc)
     assert ga.ablate_full.launches == before + len(ga.SWEEP)
-    assert torch.equal(ga.ablate_first(A, X), K2)
 
 
 def test_ablation_sass_keeps_the_slot_loads(cuda):
     """What ptxas kept of the ablation's slot loads: in ``cuobjdump -sass``
-    of the built library, at K2's setting and both index widths,
+    of the built studies' library, at K2's setting and both index widths,
     ``nogather`` has exactly K2's global loads (it loads every coefficient
     and index K2 loads, and X once a term) and ``nofma`` at least two beyond
     its epilogue's six (``gather_ablate.slot_load_faults``); a load whose
@@ -932,7 +940,7 @@ def test_ablate_wrappers_refuse_bad_operands(cuda):
     with pytest.raises(TypeError, match="float32"):
         ga.ablate_nofma(A, X.double())
     with pytest.raises(TypeError, match="float32"):
-        ga.ablate_first(dataclasses.replace(A, data=A.data.double()), X.double())
+        ga.ablate_nogather(dataclasses.replace(A, data=A.data.double()), X.double())
 
 
 def test_gather_probes_all_ok_on_card(cuda, capsys):
@@ -985,7 +993,7 @@ def test_gather_forms_match_plain(cuda, rows, width, seg):
     table = list(gp.form_table(cuda, width))
     assert sorted(r["name"] for r in table[1:]) == sorted(gp.KERNELS)
     assert all(r["max_abs_err"] == 0.0 for r in table[1:])
-    assert all((r["first_us"] is not None) == (r["name"] in gp.FIRST_VERSIONS) for r in table)
+    assert all(r["us"] > 0 for r in table)
 
 
 # (rows, nb, bw, floats x's first element lies past an allocation, p): odd
@@ -1009,9 +1017,8 @@ SELECT_CASES = [
 
 @pytest.mark.parametrize("rows,nb,bw,off,p", SELECT_CASES)
 def test_row_copy_selections_match_plain(cuda, rows, nb, bw, off, p):
-    """``lane_slice`` and ``block_select`` (the row copy) and their first
-    versions against the plain versions, bit for bit, each launch counted
-    once; float4 moves exactly where bw is a multiple of 4 and x lies on 16
+    """``lane_slice`` and ``block_select`` (the row copy) against the plain
+    versions, bit for bit, each launch counted once; float4 moves exactly where bw is a multiple of 4 and x lies on 16
     bytes (the output, a fresh allocation, always does)."""
     from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
 
@@ -1020,13 +1027,10 @@ def test_row_copy_selections_match_plain(cuda, rows, nb, bw, off, p):
     x2, x3 = flat.view(rows, nb * bw), flat.view(nb, rows, bw)
     pt = torch.tensor([p], dtype=torch.int32, device=cuda)
     width = 4 if bw % 4 == 0 and off % 4 == 0 else 1
-    counts = {f: f.launches for f in (gp.lane_slice, gp.block_select, gp.lane_slice_first,
-                                      gp.block_select_first)}
+    counts = {f: f.launches for f in (gp.lane_slice, gp.block_select)}
     want2, want3 = gp.lane_slice_reference(x2, pt, bw), gp.block_select_reference(x3, pt)
     assert torch.equal(gp.lane_slice(x2, pt, bw), want2) and gp.lane_slice.width == width
     assert torch.equal(gp.block_select(x3, pt), want3) and gp.block_select.width == width
-    assert torch.equal(gp.lane_slice_first(x2, pt, bw), want2)
-    assert torch.equal(gp.block_select_first(x3, pt), want3)
     torch.cuda.synchronize()
     assert all(f.launches == c + 1 for f, c in counts.items())
 
@@ -1035,8 +1039,7 @@ def test_row_copy_selections_match_plain(cuda, rows, nb, bw, off, p):
 # rows 1, 3 and 8; bw no multiple of 4 (the row copy); one float4 a row;
 # chunks that straddle rows (bw 1,000, 4,100) and rows of several chunks; a
 # view 4 and 8 bytes off 16 (the row copy); p below and above [0, nb - 1]
-# (clamped); nb = 1; 64 blocks of 8 KB (beyond the first version's shared
-# memory); the timed shape
+# (clamped); nb = 1; 64 blocks of 8 KB; the timed shape
 SCRATCH_CASES = [
     (1, 4, 1024, 0, 2),
     (3, 3, 1000, 0, 1),
@@ -1057,10 +1060,8 @@ SCRATCH_CASES = [
 @pytest.mark.parametrize("rows,nb,bw,off,p", SCRATCH_CASES)
 def test_scratch_bodies_match_plain(cuda, rows, nb, bw, off, p):
     """``block_select_scratch`` (bulk copies of block p alone where
-    ``scratch_body`` says so, else the row copy of ``lane_slice``) and its
-    first version (all nb blocks staged, where a block's shared memory
-    holds them) against the plain version bit for bit; each launch counted
-    once."""
+    ``scratch_body`` says so, else the row copy of ``lane_slice``) against
+    the plain version bit for bit; each launch counted once."""
     from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
 
     gen = torch.Generator(device="cuda").manual_seed(rows * nb * bw + off)
@@ -1069,26 +1070,17 @@ def test_scratch_bodies_match_plain(cuda, rows, nb, bw, off, p):
     pt = torch.tensor([p], dtype=torch.int32, device=cuda)
     want = gp.lane_slice_reference(x, pt, bw)
     body = "bulk" if bw % 4 == 0 and off % 4 == 0 else "rows"
-    fns = (gp.block_select_scratch, gp.block_select_scratch_first)
-    counts = {fn: fn.launches for fn in fns}
+    before = gp.block_select_scratch.launches
     assert torch.equal(gp.block_select_scratch(x, pt, bw), want)
     assert gp.block_select_scratch.body == body
-    staged = nb * min(bw, 2048) * 4 <= 227 * 1024
-    if staged:
-        assert torch.equal(gp.block_select_scratch_first(x, pt, bw), want)
-    else:
-        with pytest.raises(ValueError, match="shared memory"):
-            gp.block_select_scratch_first(x, pt, bw)
     torch.cuda.synchronize()
-    assert gp.block_select_scratch.launches == counts[gp.block_select_scratch] + 1
-    assert gp.block_select_scratch_first.launches == (
-        counts[gp.block_select_scratch_first] + staged)
+    assert gp.block_select_scratch.launches == before + 1
 
 
 def test_scratch_launcher_refuses_bulk_off_grid(cuda):
-    """``block_select_launch`` refuses the bulk body (form 2) where a
-    segment would leave the 16-byte grid: x off 16 bytes, bw no multiple of
-    4, the output off 16 bytes."""
+    """``block_select_launch`` (the bulk body) refuses where a segment would
+    leave the 16-byte grid: x off 16 bytes, bw no multiple of 4, the output
+    off 16 bytes."""
     from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
 
     flat = torch.zeros(4 * 512 + 4, device=cuda)
@@ -1098,7 +1090,7 @@ def test_scratch_launcher_refuses_bulk_off_grid(cuda):
                              (flat.data_ptr(), 126, out.data_ptr()),
                              (flat.data_ptr(), 128, out[1:].data_ptr())):
         with pytest.raises(RuntimeError, match="block_select_launch"):
-            gp._run("block_select_launch", flat, 2, x_ptr, p.data_ptr(), o_ptr, 4, bw, 4, 0, 0)
+            gp._run("block_select_launch", flat, x_ptr, p.data_ptr(), o_ptr, 4, bw, 4)
 
 
 def test_row_copy_launcher_refuses_float4_off_grid(cuda):
@@ -1136,9 +1128,8 @@ AXIS0_CASES = [
 @pytest.mark.parametrize("rows,width,off,body", AXIS0_CASES)
 def test_axis0_bodies_match_plain(cuda, rows, width, off, body, wild):
     """``gather_axis0`` (the bulk body where ``axis0_body`` says so, else the
-    first version) and its first version against the plain version bit for
-    bit, on indices in range and on wild ones (clamped); each launch
-    counted once."""
+    first version) against the plain version bit for bit, on indices in
+    range and on wild ones (clamped); each launch counted once."""
     from dune_eigensolver_tpu_torch.experiments import gather_probe as gp
 
     gen = torch.Generator(device="cuda").manual_seed(rows * width + off + wild)
@@ -1147,13 +1138,10 @@ def test_axis0_bodies_match_plain(cuda, rows, width, off, body, wild):
     lo, hi = (-3 * rows, 4 * rows) if wild else (0, rows)
     idx = torch.randint(lo, hi, (rows, width), generator=gen, device=cuda, dtype=torch.int32)
     want = gp.gather_axis0_reference(x, idx)
-    fns = (gp.gather_axis0, gp.gather_axis0_first)
-    counts = {fn: fn.launches for fn in fns}
+    before = gp.gather_axis0.launches
     assert torch.equal(gp.gather_axis0(x, idx), want) and gp.gather_axis0.body == body
-    assert torch.equal(gp.gather_axis0_first(x, idx), want)
-    assert gp.gather_axis0_first.body == "first"
     torch.cuda.synchronize()
-    assert all(fn.launches == counts[fn] + 1 for fn in fns)
+    assert gp.gather_axis0.launches == before + 1
 
 
 def test_axis0_launcher_refuses_bulk_off_grid(cuda):
@@ -1210,13 +1198,9 @@ def test_probe_kernels_clamp_and_refuse(cuda):
         gp.gather_lanes_int8(x, wild, 128)
     with pytest.raises(TypeError, match="float32"):
         gp.roll_lanes(x.double(), torch.zeros(1, dtype=torch.int32, device=cuda), 64)
-    # the first version stages all 64 blocks of 8 KB: beyond a block's
-    # shared memory, refused before any launch; the bulk body stages chunks
-    # of block p alone and takes it
+    # 64 blocks of 8 KB: the bulk body stages chunks of block p alone
     wide = torch.randn((1, 64 * 2048), device=cuda)
     p0 = torch.tensor([63], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        gp.block_select_scratch_first(wide, p0, 2048)
     assert torch.equal(gp.block_select_scratch(wide, p0, 2048),
                        gp.lane_slice_reference(wide, p0, 2048))
 
@@ -1273,7 +1257,7 @@ def test_study_path_and_protocols_on_card(cuda, capsys):
                      "ev.N=24", "ev.inverse=mg", "ev.b_identity=1", "ev.min_coarse=6"]) == 0
     out = capsys.readouterr().out
     assert out.count("ABLATE variant=") == 8 and out.count("ABLATE rows=") == 2 * len(ga.SWEEP)
-    assert out.count("ABLATE first") == 2 and "copy_share=n/a" not in out
+    assert "ABLATE first" not in out and "copy_share=n/a" not in out
     assert out.count(": OK") == 12 and "probe done" in out and "FORM name=gather_lanes_shfl" in out
     assert "N_M_TOL_ESARERROR_ESANERROR_ARANERROR_TIMERATIO: 32 8 " in out
     assert "N_M_TOL_RASERROR_ARPERROR_TIMERATIO: 12 8 " in out

@@ -145,17 +145,13 @@ def test_probe_wrappers_refuse_cpu_tensors():
         lambda: gp.roll_lanes(x, p, 128),
         lambda: gp.gather_axis0(x, i32),
         lambda: gp.int8_widen(x, i32.to(torch.int8)),
-        lambda: gp.lane_slice_first(x, p, 32),
-        lambda: gp.block_select_first(x.reshape(4, 8, 32), p),
-        lambda: gp.block_select_scratch_first(x, p, 32),
-        lambda: gp.gather_axis0_first(x, i32),
     ]
-    assert len(calls) == len(gp.KERNELS) + len(gp.FIRST_VERSIONS)
+    assert len(calls) == len(gp.KERNELS)
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert all(fn.launches == 0 for fn in (*gp.KERNELS.values(), *gp.FIRST_VERSIONS.values()))
-    assert gp.gather_axis0.body is None and gp.gather_axis0_first.body is None
+    assert all(fn.launches == 0 for fn in gp.KERNELS.values())
+    assert gp.gather_axis0.body is None and gp.block_select_scratch.body is None
 
 
 # (bw, row_stride, block_stride, align, width): lane_slice's strides are
@@ -202,8 +198,7 @@ def test_probe_main_on_cpu(capsys):
 def test_form_table_rows_on_cpu():
     """The table's rows on the CPU (plain versions only): the bytes are those
     of the function, so the three block selections count one block in and
-    one out; the scratch form now moves just that, and its first version's
-    staging of all four is listed apart."""
+    one out; the scratch form moves just that."""
     rows = list(gp.form_table("cpu", width=1024))
     names = [r["name"] for r in rows]
     assert names[0] == "copy" and sorted(names[1:]) == sorted(gp.KERNELS)
@@ -214,14 +209,10 @@ def test_form_table_rows_on_cpu():
     assert by["lane_slice"]["nbytes"] == f4 // 2 and by["block_select"]["shape"] == (4, 8, 256)
     assert by["block_select_scratch"]["nbytes"] == by["lane_slice"]["nbytes"]
     assert all(r["streamed_bytes"] == r["nbytes"] for r in rows)
-    assert by["block_select_scratch"]["first_streamed_bytes"] == f4 + f4 // 4
-    assert all(r["first_streamed_bytes"] is None for r in rows
-               if r["name"] != "block_select_scratch")
     assert all(r["us"] is None and r["max_abs_err"] is None and r["plain_us"] > 0
                and r["library_us"] > 0 and r["gbps"] > 0 for r in rows)
-    assert all(r["first_us"] is None for r in rows)  # first versions are timed on the card
+    assert not any(k.startswith("first") for r in rows for k in r)  # no first versions
     assert by["gather_axis0"]["streamed_bytes"] == 3 * f4  # x, idx and out once
-    assert "gather_axis0" in gp.FIRST_VERSIONS
     # so are the kernels, eager and by replay, and the library's eager chain
     assert all(r["eager_us"] is None and r["library_eager_us"] is None for r in rows)
 

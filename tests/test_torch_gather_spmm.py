@@ -329,21 +329,18 @@ def test_kernel_streams_are_transposed_copies_made_once():
     """The CUDA kernels read the coefficients as (k, n) / (k, nbr, b, b)
     streams: the same values, transposed, contiguous, built once per
     container and reused. An ELL container holds one index stream: int16
-    offsets where they fit (here), else int32 columns; the int32 copy K2's
-    first version reads is made only when asked for."""
+    offsets where they fit (here), else int32 columns."""
     E = _bridge(_jax_operand("ell900", np.float32))
     data_t, index_t = E.kernel_streams
     assert data_t.is_contiguous() and index_t.is_contiguous()
     assert torch.equal(data_t, E.data.T) and E.kernel_streams[0] is data_t
     assert index_t.dtype == torch.int16 and E.kernel_streams[1] is index_t
     assert torch.equal(index_t.to(torch.int32) + torch.arange(900, dtype=torch.int32), E.cols.T)
-    assert "column_stream" not in vars(E)
-    cols_t = E.column_stream
-    assert cols_t.dtype == torch.int32 and cols_t.is_contiguous() and torch.equal(cols_t, E.cols.T)
-    assert E.column_stream is cols_t
     far = ell_from_scipy(sp.random(40_000, 10, density=1e-4, random_state=0, format="csr"),
                          device="cpu")  # row 39,999 pads with column 9: no int16 offsets
-    assert far.kernel_streams[1].dtype == torch.int32 and far.column_stream is far.kernel_streams[1]
+    cols_t = far.kernel_streams[1]
+    assert cols_t.dtype == torch.int32 and cols_t.is_contiguous()
+    assert torch.equal(cols_t, far.cols.T) and far.kernel_streams[1] is cols_t
     Bm = _bridge(_jax_operand("kron4_bsr", np.float32))
     bdata_t, bcols_t = Bm.kernel_streams
     assert bdata_t.shape == (Bm.bcols.shape[1], Bm.nbr, 4, 4) and bdata_t.is_contiguous()

@@ -159,15 +159,17 @@ def test_ring_geometry_route_is_a_rule_on_n(n, route):
     """Bulk copies need 16-byte sizes and addresses: n % 4 == 0 takes them,
     any other n the first version's cp.async. The bulk body's two
     coefficient tiles (5 diagonals of the tile) and its six barriers add to
-    its shared memory; ``route="first"`` asks for the first version's
-    geometry on any n."""
+    its shared memory; two more columns put n off the grid, where the same
+    ring takes the first version's geometry, the windows alone."""
     offsets = (-45, -1, 0, 1, 45)
     g = tkv.ring_geometry(offsets, n, 2048, 2, 3, 2)
     assert g.route == route
     assert g.slot_bytes == 2 * g.window * 4
     assert g.smem_bytes == 3 * g.slot_bytes + (2 * 5 * 2048 * 4 + 48 if route == "bulk" else 0)
-    first = tkv.ring_geometry(offsets, n, 2048, 2, 3, 2, route="first")
+    off_grid = n + 2 if n % 4 == 0 else n
+    first = tkv.ring_geometry(offsets, off_grid, 2048, 2, 3, 2)
     assert first.route == "first" and first.smem_bytes == 3 * g.slot_bytes
+    assert first.width == 1 and first.threads == 256
 
 
 @pytest.mark.parametrize("rows", tkv.RING_ROWS)
@@ -194,8 +196,9 @@ def test_ring_sweep_fits_sixteen_settings_and_reaches_1_27():
     tiles beside the ring, so 5 of the 24 settings fit where the first
     compute body's 16 did: T = 2048 at every ring (two rows at (2, 1) only)
     and T = 4096 one row at (2, 1); W / T falls from 3.125 at T = 2048 to
-    2.06 at T = 4096. The first version, which stages no coefficients,
-    still fits 16 and reaches 1.266 at T = 16384 (one row, ring (2, 1))."""
+    2.06 at T = 4096. The first version, which stages no coefficients and
+    takes an operand off the 16-byte grid (here two columns more), still
+    fits 16 and reaches 1.266 at T = 16384 (one row, ring (2, 1))."""
     offsets, n = (-2048, -1, 0, 1, 2048), 2048 * 2048
     settings = list(tkv.ring_settings(offsets, n))
     assert len(settings) == 24 and sum(g.fits for _, g in settings) == 5
@@ -203,8 +206,9 @@ def test_ring_sweep_fits_sixteen_settings_and_reaches_1_27():
         (2, 1, 2048, 1), (2, 1, 2048, 2), (2, 1, 4096, 1), (3, 2, 2048, 1), (4, 3, 2048, 1)]
     ratios = {T: g.staged_per_consumed for (s, q, T, r), g in settings if g.fits}
     assert ratios == {2048: 6400 / 2048, 4096: 8448 / 4096}
-    first = [(k, tkv.ring_geometry(offsets, n, k[2], k[3], k[0], k[1], check=False,
-                                   route="first")) for k, _ in settings]
+    first = [(k, tkv.ring_geometry(offsets, n + 2, k[2], k[3], k[0], k[1], check=False))
+             for k, _ in settings]
+    assert all(g.route == "first" for _, g in first)
     assert sum(g.fits for _, g in first) == 16
     assert [k for k, g in first if g.fits and k[2] == 16384] == [(2, 1, 16384, 1)]
     assert dict(first)[(2, 1, 16384, 1)].staged_per_consumed == 20736 / 16384
@@ -303,7 +307,7 @@ def test_stage_sweeps_fit_ten_settings():
                                              (200, 2048, 224, 2496), (20, 64, 32, 128)])
 def test_stage_geometry_c_halo(N, T, halo, window):
     """C's halo is max|off| rounded up to 32 (at least 32), its window
-    T + 2H, the same H the first version takes."""
+    T + 2H."""
     g = tkv.stage_geometry("c", (-N, -1, 0, 1, N), N * N, T, 2)
     assert (g.halo, g.window, g.slots) == (halo, window, 2)
     assert g.staged_per_consumed() == window / T
@@ -359,15 +363,17 @@ def test_stage_width_rule(offsets, n, tile, width):
         assert (g.route, g.width) == (route, width if route == "bulk" else 1)
 
 
-def test_variant_steps_pair_each_variant_with_its_first_version():
-    """The table times each staged variant in turns with its first version
-    at the same setting; B's rings take the rows ``table_ring_rows`` gives
-    them."""
+def test_variant_steps_list_the_shipped_kernel_then_each_variant():
+    """The table times the shipped kernel, then each staged variant at its
+    setting, in ``main``'s order; B's rings take the rows
+    ``table_ring_rows`` gives them, the others ``rows``."""
     steps = tkv.variant_steps(2048, 2, {(3, 2): 1})
-    assert [label for label, _, _ in steps] == [
+    assert [label for label, _ in steps] == [
         "A shipped", "D rolling", "D in-place", "B s=2 d=1", "B s=3 d=2", "B s=4 d=3",
         "C r1-style"]
-    assert steps[0][2] is None and all(first is not None for _, _, first in steps[1:])
+    assert all(callable(step) for _, step in steps)
+    rows = {label: step.__defaults__[-1] for label, step in steps if step.__defaults__}
+    assert rows == {"B s=2 d=1": 2, "B s=3 d=2": 1, "B s=4 d=3": 2}
 
 
 @pytest.mark.parametrize("T", [256, 512])
@@ -388,17 +394,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     anything is built; only the ``main``s choose the plain version."""
     _, At, X = _dia_case(12, 8, seed=0)
     Xt = torch.from_numpy(X)
-    for fn in (tkv.spmm_c, tkv.spmm_b, tkv.spmm_d, *tkv.FIRST_VERSIONS.values()):
+    for fn in (tkv.spmm_c, tkv.spmm_b, tkv.spmm_d):
         with pytest.raises(ValueError, match="CUDA"):
             fn(At, Xt)
         assert fn.launches == 0
     assert sum(tkv.spmm_b.taken.values()) == 0
     assert sum(tkv.spmm_c.taken.values()) == sum(tkv.spmm_d.taken.values()) == 0
-    assert tkv.FIRST_VERSIONS == {"spmm_b": tkv.spmm_b_first, "spmm_c": tkv.spmm_c_first,
-                                  "spmm_d": tkv.spmm_d_first}
-    for fn in (tkv.spmm_d, tkv.spmm_d_first):
-        with pytest.raises(ValueError, match="CUDA"):
-            fn(At, Xt, alias=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tkv.spmm_d(At, Xt, alias=True)
     with pytest.raises(ValueError, match="CUDA"):
         tpp.ident(256, Xt)
     with pytest.raises(ValueError, match="CUDA"):
@@ -406,18 +409,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tpp.identd(256, Xt[:5].contiguous(), Xt)
     assert tpp.ident.launches == tpp.identd.launches == tpp.ident_alias.launches == 0
-
-
-def test_first_wrappers_refuse_cpu_tensors():
-    """The first versions of the two Y = X + 1 launches are kernel wrappers
-    too: on a CPU tensor each raises before anything is built, and nothing
-    is counted."""
-    Xt = torch.from_numpy(np.ones((8, 256), np.float32))
-    for fn in (tpp.ident_first, tpp.ident_alias_first):
-        with pytest.raises(ValueError, match="CUDA"):
-            fn(256, Xt)
-        assert fn.launches == 0 and fn.body is None
-    assert tpp.FIRST_VERSIONS == {"ident": tpp.ident_first, "ident_alias": tpp.ident_alias_first}
 
 
 # (width, tile, align, body): the copy kernel's choice between its bulk
@@ -473,7 +464,7 @@ def test_in_turns_times_forth_and_back(n):
 
 def test_copy_table_rows_on_cpu():
     """On the CPU the copy table times the library's copies and the plain
-    versions only: no first-version row, whose turns run on the card."""
+    versions only: no kernel row, which runs on the card."""
     rows = list(tpp.copy_table("cpu", T=1024, width=8192, mb=1))
     kinds = {label: kind for label, _, _, kind in rows}
     assert set(kinds.values()) == {"library", "plain"}
@@ -686,14 +677,14 @@ def test_no_discarded_inline_asm_loads_in_the_sources():
     and the ablation's slot loads out of the SASS."""
     from dune_eigensolver_tpu_torch.utils import native
 
-    csrc = os.path.dirname(native._headers()[0])
     texts = {}
-    for root, _, files in os.walk(csrc):
+    for root, _, files in os.walk(native.CSRC):
         for f in files:
             if f.endswith((".cu", ".cuh", ".h")):
                 with open(os.path.join(root, f)) as fh:
                     texts[os.path.join(root, f)] = fh.read()
     assert any(p.endswith("ell_body.cuh") for p in texts)
+    assert any(p.endswith(os.path.join("experiments", "bulk_copy.cuh")) for p in texts)
     assert _asm_load_faults(texts) == []
 
 
@@ -728,7 +719,8 @@ def test_lib_path_hashes_headers(tmp_path):
     (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
     (tmp_path / "h.cuh").write_text("// one\n")
     (tmp_path / "notes.txt").write_text("not a source\n")
-    sources, headers = native._sources(str(tmp_path)), native._headers(str(tmp_path))
+    sources = native._sources(str(tmp_path))
+    headers = native._headers(str(tmp_path), root=str(tmp_path))
     assert [os.path.basename(f) for f in sources] == ["a.cu"]
     assert [os.path.basename(f) for f in headers] == ["h.cuh"]
     before = native._lib_path(sources, headers)
@@ -738,8 +730,8 @@ def test_lib_path_hashes_headers(tmp_path):
     assert after != before and os.path.dirname(after) == native.BUILD_DIR
     (tmp_path / "a.cu").write_text('#include "h.cuh"\n// edited\n')
     assert native._lib_path(sources, headers) not in (before, after)
-    # the package's own headers are hashed
-    assert "bulk_copy.cuh" in [os.path.basename(f) for f in native._headers()]
+    # the package's own headers are hashed: the studies' with theirs
+    assert "bulk_copy.cuh" in [os.path.basename(f) for f in native._headers(native.STUDIES)]
 
 
 def test_experiment_mains_on_cpu(capsys):
@@ -756,7 +748,6 @@ def test_experiment_mains_on_cpu(capsys):
     assert "device: cpu (plain version only" in out
     assert "copy:" in out and "plain:" in out and "GB/s" in out and "shipped" not in out
     assert tkv.spmm_c.launches == tkv.spmm_b.launches == tkv.spmm_d.launches == 0
-    assert all(fn.launches == 0 for fn in tkv.FIRST_VERSIONS.values())
 
 
 # ---------------------------------------------------------------------------
