@@ -274,7 +274,19 @@ Phases (any failure raises and exits non-zero; there is no fallback):
               and in place, with no CG step, and the eager tail's device
               time, wall time and device operations (``MGTAIL`` lines).
 
-Phases 22 and 23 run between phases 6 and 7; phases 15-21 run before phase
+24. ortho gram — the orthonormalization's tall-skinny products as one
+              kernel (``csrc/ortho_gram.cu``) against the plain version
+              (``bench/ortho_gram.py``: row slices of one buffer at the
+              elasticity cell's, the north star's and the flagship's
+              shapes), each entry's error against the f64 Gram within
+              the gate (``gate(plain_ratio)`` of u sum |y x|, the card
+              tests'), where cuBLAS in TF32, bf16 operands and a dropped
+              block are refused, and equal bits from launch to launch;
+              the kernel's device time by CUDA-graph replay and in place,
+              and the plain version's (one ``torch.matmul``), with the
+              least bytes and the copy bound (``ORTHOGRAM`` lines).
+
+Phases 22, 23 and 24 run between phases 6 and 7; phases 15-21 run before phase
 14, the kernel table, which comes last.
 
 Each solve phase zeroes every kernel's launch counter just before its
@@ -891,6 +903,32 @@ def phase_mg_tail(torch):
     return recs
 
 
+def phase_ortho_gram(torch):
+    """Phase 24: ``bench/ortho_gram.py``'s records at the cells' and the
+    flagship's shapes: where the kernel takes the shape, its error within
+    the gate (``gate(plain_ratio)``) and its bits equal from launch to
+    launch; at every shape, the faulty products (TF32, bf16, a dropped
+    block) refused by the gate. Returns them for the kernel table."""
+    from dune_eigensolver_tpu_torch.bench import ortho_gram as bo
+
+    t0 = time.perf_counter()
+    recs = bo.measure(splits=())
+    for rec in recs:
+        log("ORTHOGRAM " + json.dumps(rec))
+        where = f"ortho gram at ({rec['a']}, {rec['b']}, {rec['n']}, gram {rec['gram']})"
+        limit = bo.gate(rec["plain_ratio"])
+        if rec["route"] == "kernel" and not (rec["ratio"] <= limit and rec["equal_bits"]):
+            raise RuntimeError(f"{where}: {rec['ratio']:.3g} of u sum |y x| (gate {limit:.3g}), "
+                               f"equal bits {rec['equal_bits']}")
+        passed = [k for k in ("tf32_ratio", "bf16_ratio", "dropped_ratio") if rec[k] <= limit]
+        if passed:
+            raise RuntimeError(f"{where}: the gate passes the faulty {passed}")
+    if not any(rec["route"] == "kernel" for rec in recs):
+        raise RuntimeError("ortho gram: the kernel took no shape")
+    log(f"ortho gram: {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def phase_geneo(torch, kernels, A, B, oracle):
     """Phase 7: bench.py's fast-path recipe on the 522k elasticity pencil,
     against scipy/ARPACK shift-invert on the host (``oracle``: the future of
@@ -1265,9 +1303,10 @@ def phase_measure(torch, kernels, pp, kv):
     if bad:
         raise RuntimeError(f"cli: non-finite or non-positive results {bad}")
     # the CG step's kernels run on the solve paths (phases 7 and 8), the
-    # multigrid tail on the north star's (phase 4), not here
+    # multigrid tail on the north star's (phase 4), the orthonormalization's
+    # products on every LOBPCG path, not necessarily here
     idle = [name for name, count in launches.items()
-            if count <= 0 and name not in (*CG_STEP_KERNELS, "mg_tail")]
+            if count <= 0 and name not in (*CG_STEP_KERNELS, "mg_tail", "ortho_gram")]
     if idle:
         raise RuntimeError(f"cli: kernels launched no time on the measurement path: {idle}")
     log("CLI " + json.dumps(dict(seconds=seconds, launches=launches, results=results)))
@@ -3007,6 +3046,7 @@ def main():
     from dune_eigensolver_tpu_torch.kernels import dia_spmm as kd
     from dune_eigensolver_tpu_torch.kernels import gather_spmm as kg
     from dune_eigensolver_tpu_torch.kernels import mg_tail as mt
+    from dune_eigensolver_tpu_torch.kernels import ortho_gram as og
     from dune_eigensolver_tpu_torch.oracle.analytic import eigenvalues_laplace_dirichlet_3d
     from dune_eigensolver_tpu_torch.solvers import lobpcg_nested
     from dune_eigensolver_tpu_torch.sparse import DIAMatrix, ell_from_scipy, problems, rcm_pencil
@@ -3020,7 +3060,7 @@ def main():
                "spmm_d": kv.spmm_d, "ident": pp.ident, "identd": pp.identd,
                "ident_alias": pp.ident_alias,
                **{name: getattr(cs, name + "_cuda") for name in CG_STEP_KERNELS},
-               "mg_tail": mt.mg_tail_cuda}
+               "mg_tail": mt.mg_tail_cuda, "ortho_gram": og.ortho_gram_cuda}
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -3103,11 +3143,15 @@ def main():
     mg_tail_launches = mt.mg_tail_cuda.launches
     if mg_tail_launches <= 0:
         raise RuntimeError("the 216^3 solve launched the multigrid tail kernel no time")
+    ortho_gram_launches = og.ortho_gram_cuda.launches
+    if ortho_gram_launches <= 0:
+        raise RuntimeError("the 216^3 solve launched the orthonormalization's kernel no time")
     log("SOLVE " + json.dumps(dict(
         n=N3**3, nev=20, seconds=t_solve, first_run_seconds=t_first,
         iterations=int(res.iterations), converged=bool(res.converged),
         max_err=err, dia_spmm_launches=launches, dia_spmm_taken=taken, peak_bytes=peak,
         first_run_peak_bytes=peak_first, mg_tail_launches=mg_tail_launches,
+        ortho_gram_launches=ortho_gram_launches,
     )))
     # the timed result's block, kept on the host for phase 19's refinement
     north = dict(V=res.eigenvectors.cpu(), max_err=err, N=N3)
@@ -3202,6 +3246,10 @@ def main():
     mg_rows = phase_mg_tail(torch)
 
     phase_done("phase 23")
+    # --- phase 24: the orthonormalization's products against the plain version ---
+    og_rows = phase_ortho_gram(torch)
+
+    phase_done("phase 24")
     # --- phases 7-9: the general-sparsity path ---
     geneo = phase_geneo(torch, kernels, A512, B512, geneo_ref)
     oracle_pool.shutdown()
@@ -3409,6 +3457,19 @@ def main():
                            inplace_ms=rec["inplace_ms"], levels_ms=rec["levels_replay_ms"],
                            eager_wall_ms=rec["eager_wall_ms"],
                            eager_device_ops=rec["eager_device_ops"]))
+    # the orthonormalization's products: launches from the GenEO solve (the
+    # elasticity cell's path) and the 216^3 solve, time by replay at the
+    # cells' shapes (phase 24); the bytes Y and X read once
+    for rec in (r for r in og_rows if r["route"] == "kernel"):
+        table.append(entry("ortho_gram", csrc + "ortho_gram.cu",
+                           "none: dune_eigensolver_tpu/ops/ortho.py's Grams are XLA "
+                           "dot_generals at Precision.HIGHEST", geneo["launches"]["ortho_gram"],
+                           dict(rec, case=f"{rec['cell']} ({rec['a']}, {rec['b']}) n={rec['n']}"
+                                          f"{' Gram' if rec['gram'] else ''}",
+                                ms=rec["replay_ms"], max_abs_err=None),
+                           rec["bytes"], 2.0 * rec["a"] * rec["b"] * rec["n"], rec["plain_ms"],
+                           ratio=rec["ratio"], inplace_ms=rec["inplace_ms"],
+                           north_star_launches=ortho_gram_launches))
     n2, m2 = 2048**2, 8
     v_bytes = (5 * n2 + 2 * n2 * m2) * 4  # bytes_spmm_dia
     v_flops = 2.0 * (5 * n2 - 2 * 2048 - 2) * m2

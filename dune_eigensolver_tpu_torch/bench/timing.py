@@ -73,14 +73,14 @@ def replay_ms(fn, reps: int = 9, inner: int = 10) -> float:
     after 30 ms of replays. A kernel of tens of microseconds is shorter
     than the host's launch interval, so a loop of eager launches would time
     the host. ``fn`` must launch on the current stream and allocate through
-    torch only."""
+    torch only; its warm call runs on the stream the graph captures on."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(inner):
             fn()
     t0 = time.perf_counter()

@@ -25,6 +25,12 @@ roundoff:
   ``ortho_block='full'`` asks for float64). The rows and their products
   stay in their own type.
 
+Every Gram and projection of the block sweeps is one ``gram_product``
+(``Y @ X^T`` of two row blocks): on CUDA rows it runs the hand-written
+tall-skinny kernel (``kernels/ortho_gram.py``) wherever that kernel takes
+the shape, the dtypes and the strides, and ``torch.matmul`` elsewhere; on
+the CPU the plain version.
+
 ``gram_reduce`` (JAX ``ops/ortho.py:141, 189``): for a row-sharded
 multivector, every Gram and projection matrix goes through it (the
 distributed layer passes an ``all_reduce`` SUM, ``dist/sharded.py::
@@ -34,6 +40,24 @@ psum_reduce``). ``None`` adds no operation.
 from __future__ import annotations
 
 import torch
+
+from dune_eigensolver_tpu_torch.kernels import ortho_gram
+
+
+def gram_product(Y: torch.Tensor, X: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``Y @ X.T`` (a, b) of the row blocks Y (a, n) and X (b, n), in
+    ``dtype`` (default Y's): the tall-skinny kernel where
+    ``ortho_gram.takes`` holds (CUDA rows, each contiguous along n at any row
+    stride, of a type pair and an output it is built for), else the plain
+    version, ``torch.matmul`` on the operands cast to ``dtype``. Counts its
+    calls in ``gram_product.calls``."""
+    gram_product.calls += 1
+    if ortho_gram.takes(Y, X, dtype):
+        return ortho_gram.ortho_gram_cuda(Y, X, dtype)
+    return ortho_gram.ortho_gram_reference(Y, X, dtype)
+
+
+gram_product.calls = 0
 
 
 def dot_products_diagonal(Q1: torch.Tensor, Q2: torch.Tensor) -> torch.Tensor:
@@ -111,9 +135,9 @@ def orthonormalize_blocked_t(
             Xk = Xt[k : k + block]
             if k:
                 done = out[:k]
-                S = reduce_(done @ Xk.T)  # (k, b)
+                S = reduce_(gram_product(done, Xk))  # (k, b)
                 Xk = Xk - S.T @ done
-            G = reduce_(Xk @ Xk.T)
+            G = reduce_(gram_product(Xk, Xk))
             out[k : k + block] = _chol_normalize_t(Xk, G, eps)
         Xt = out
     return Xt
@@ -179,11 +203,11 @@ def b_orthonormalize_blocked_t(
             Xk = Xt[k : k + block]
             if k:
                 # project against finished blocks via their B-images
-                S = reduce_(bufp[:k] @ Xk.T)  # (k, b)
+                S = reduce_(gram_product(bufp[:k], Xk))  # (k, b)
                 norm = torch.maximum(norm, S.abs().max())
                 Xk = Xk - S.T @ bufx[:k]
             Pk = apply_b(Xk)
-            G = reduce_(Pk.to(gd) @ Xk.to(gd).T)
+            G = reduce_(gram_product(Pk, Xk, gd))
             norm = torch.maximum(norm, torch.where(offdiag, G, 0).abs().max().to(norm.dtype))
             mass_sweep[k : k + block] = torch.diagonal(G)
             Xk, Pk = _whiten_apply(_floored(G, eps), eps, (Xk, Pk))

@@ -188,7 +188,7 @@ def test_a_solve_builds_the_solver_library_alone(cuda, tmp_path):
     want = native._lib_path(native._sources(native.SOLVER), native._headers(native.SOLVER))
     assert built == [os.path.basename(want)]
     assert [os.path.basename(f) for f in native._sources(native.SOLVER)] == [
-        "bsr_spmm.cu", "cg_step.cu", "dia_spmm.cu", "ell_spmm.cu", "mg_tail.cu"]
+        "bsr_spmm.cu", "cg_step.cu", "dia_spmm.cu", "ell_spmm.cu", "mg_tail.cu", "ortho_gram.cu"]
 
 
 def _gather_operand(kind, device):

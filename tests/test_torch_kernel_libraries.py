@@ -19,12 +19,14 @@ import pytest
 
 from dune_eigensolver_tpu_torch.utils import native
 
-SOLVER_SOURCES = ["bsr_spmm.cu", "cg_step.cu", "dia_spmm.cu", "ell_spmm.cu", "mg_tail.cu"]
+SOLVER_SOURCES = ["bsr_spmm.cu", "cg_step.cu", "dia_spmm.cu", "ell_spmm.cu", "mg_tail.cu",
+                  "ortho_gram.cu"]
 WRAPPER_MODULES = [
     "dune_eigensolver_tpu_torch.kernels.dia_spmm",
     "dune_eigensolver_tpu_torch.kernels.gather_spmm",
     "dune_eigensolver_tpu_torch.kernels.cg_step",
     "dune_eigensolver_tpu_torch.kernels.mg_tail",
+    "dune_eigensolver_tpu_torch.kernels.ortho_gram",
     "dune_eigensolver_tpu_torch.experiments.pipeline_probe",
     "dune_eigensolver_tpu_torch.experiments.kernel_variants",
     "dune_eigensolver_tpu_torch.experiments.gather_ablate",
@@ -52,7 +54,7 @@ def _extern_c_definitions(paths) -> dict:
 
 def test_libraries_split_the_sources():
     """Every ``.cu`` under ``csrc/`` belongs to exactly one library; the
-    solver's holds the five sources a solve runs, and its hash reads only
+    solver's holds the six sources a solve runs, and its hash reads only
     its own header, so no study header can rename it."""
     solver = _rel(native._sources(native.SOLVER))
     studies = _rel(native._sources(native.STUDIES))
